@@ -1,0 +1,165 @@
+"""Model configs: the reference package's dataclasses, registry cut to the
+architectures the port runs (``smollm-360m``).
+
+The dataclasses keep every field of the reference's, so a config built
+here and one built there compare field for field; the port's model code
+implements the dense-attention subset (``models/transformer.py``).
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, replace
+
+MIXERS = ("attn", "attn_local", "rglru", "rwkv", "none")
+FFNS = ("dense", "moe", "rwkv_cmix", "none")
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One transformer block: a sequence mixer + an FFN."""
+
+    mixer: str = "attn"
+    ffn: str = "dense"
+    cross_attn: bool = False
+    causal: bool = True
+
+    def __post_init__(self):
+        if self.mixer not in MIXERS:
+            raise ValueError(f"unknown mixer {self.mixer!r}")
+        if self.ffn not in FFNS:
+            raise ValueError(f"unknown ffn {self.ffn!r}")
+
+
+def _pattern(pattern: list[LayerSpec], n: int) -> tuple[LayerSpec, ...]:
+    """Repeat ``pattern`` cyclically, truncated to exactly ``n`` layers."""
+    out = []
+    while len(out) < n:
+        out.extend(pattern)
+    return tuple(out[:n])
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    layers: tuple[LayerSpec, ...] = ()
+    # attention
+    sliding_window: int = 0
+    rope_theta: float = 10_000.0
+    pos_emb: str = "rope"            # rope | learned | none
+    max_seq_len: int = 1 << 20
+    logit_softcap: float = 0.0
+    # moe
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_group_size: int = 0
+    # recurrent (RG-LRU)
+    rnn_width: int = 0
+    conv_width: int = 4
+    # rwkv
+    rwkv_head_dim: int = 64
+    # enc-dec / modality frontends
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    num_media_tokens: int = 0
+    # perf variants
+    attn_banded: bool = False
+    score_dtype: str = "float32"
+    # misc
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "silu"                # silu | gelu | relu2
+    gated_mlp: bool = True
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    citation: str = ""
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256 (the reference's layout;
+        kept so parameters convert 1:1)."""
+        return -(-self.vocab_size // 256) * 256
+
+    def num_params(self) -> int:
+        """Analytic parameter count of the dense-attention stack."""
+        d = self.d_model
+        n = self.padded_vocab * d  # embed
+        if not self.tie_embeddings:
+            n += self.padded_vocab * d
+        for spec in self.layers:
+            if spec.mixer in ("attn", "attn_local"):
+                n += d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+            if spec.ffn == "dense":
+                mult = 3 if self.gated_mlp else 2
+                n += mult * d * self.d_ff
+            n += 2 * d  # norms
+        return n
+
+
+ARCHS = ["smollm-360m"]
+
+_MODULES = {"smollm-360m": "smollm_360m"}
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; the port supports {ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    return mod.make_reduced() if reduced else mod.make_config()
+
+
+def reduce_config(cfg: ModelConfig, num_layers: int = 2,
+                  d_model: int = 256) -> ModelConfig:
+    """Reduced variant for smoke tests: the reference's recipe (head_dim
+    32, <= 4 heads, d_ff = 2 d_model, vocab 512), so both packages
+    reduce a config to the same shapes."""
+    head_dim = 32
+    num_heads = max(2, min(4, cfg.num_heads))
+    num_kv = 1 if cfg.num_kv_heads < cfg.num_heads else num_heads
+    kinds = list(dict.fromkeys(s.mixer for s in cfg.layers))
+    layers = [cfg.layers[i % len(cfg.layers)] for i in range(num_layers)]
+    # every distinct mixer kind shows up at least once
+    for j, k in enumerate(kinds[:num_layers]):
+        if all(lay.mixer != k for lay in layers):
+            layers[j] = replace(layers[j], mixer=k)
+    return replace(
+        cfg,
+        name=cfg.name + "-reduced",
+        num_layers=num_layers,
+        d_model=d_model,
+        num_heads=num_heads,
+        num_kv_heads=num_kv,
+        head_dim=head_dim,
+        d_ff=2 * d_model,
+        vocab_size=512,
+        layers=tuple(layers),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        num_experts=min(cfg.num_experts, 4) if cfg.num_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        moe_d_ff=2 * d_model if cfg.moe_d_ff else 0,
+        rnn_width=d_model if cfg.rnn_width else 0,
+        rwkv_head_dim=32,
+        encoder_layers=min(cfg.encoder_layers, 2),
+        encoder_seq=min(cfg.encoder_seq, 32) if cfg.encoder_seq else 0,
+        num_media_tokens=(min(cfg.num_media_tokens, 16)
+                          if cfg.num_media_tokens else 0),
+        max_seq_len=4096,
+    )

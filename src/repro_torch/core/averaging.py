@@ -1,0 +1,208 @@
+"""Averaging schedules — WHEN the M workers' models are averaged.
+
+The counterpart of ``repro.core.averaging``'s schedules:
+  - oneshot     : only at the very end
+  - minibatch   : every step
+  - periodic(K) : every K steps — the paper's main subject
+  - hierarchical: inner groups every K_inner, all workers every K_outer
+  - adaptive_threshold : average when the running EMA of the Eq. 4
+                  dispersion crosses ``disp_threshold``
+  - adaptive_budget : spend at most ``comm_budget`` events over
+                  ``budget_horizon`` steps, paced by the dispersion
+
+``stochastic`` (a Bernoulli draw from JAX's threefry ``fold_in`` stream)
+and ``adaptive_bytes`` (priced by topology and wire format) are not
+ported yet and raise ``NotImplementedError`` after the same eager
+validation the reference runs.
+
+The PyTorch engine decides on the host, once per step, so the
+transition below runs on numpy float32 / int32 scalars with the same
+operation order as the reference: for the same dispersion stream the
+codes and the :class:`SchedState` agree bit for bit.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+
+_F32, _I32 = np.float32, np.int32
+
+
+class SchedState(NamedTuple):
+    """The stateful-schedule carry (see the reference's ``SchedState``):
+    dispersion EMA (reset at every event), cumulative dispersion, pacing
+    credit, events so far, steps since the last event."""
+    disp_ema: np.float32
+    cum_disp: np.float32
+    credit: np.float32
+    comm_spent: np.int32
+    since_avg: np.int32
+
+
+@dataclass(frozen=True)
+class AveragingSchedule:
+    kind: str = "periodic"
+    phase_len: int = 128        # K for periodic
+    zeta: float = 0.0           # for stochastic
+    inner_phase_len: int = 16   # hierarchical: average inner groups every K_i
+    outer_phase_len: int = 512  # hierarchical: average everyone every K_o
+    inner_groups: int = 1       # hierarchical: number of inner groups
+    disp_threshold: float = 0.0  # adaptive_threshold: EMA trip level
+    disp_ema_beta: float = 0.9  # adaptive: dispersion EMA decay
+    comm_budget: int = 0        # adaptive_budget: max averaging events
+    budget_horizon: int = 0     # adaptive_*: steps the budget spans
+    byte_budget: int = 0        # adaptive_bytes: max bytes per worker
+    straggle_aware: bool = False
+
+    _KINDS = ("oneshot", "minibatch", "periodic", "stochastic",
+              "hierarchical", "adaptive_threshold", "adaptive_budget",
+              "adaptive_bytes")
+    _ADAPTIVE = ("adaptive_threshold", "adaptive_budget",
+                 "adaptive_bytes")
+    #: kinds validated like the reference but not ported yet, with the
+    #: ROADMAP queue-1 item that brings each
+    _NOT_PORTED = {
+        "stochastic": "its Bernoulli draws need the threefry port "
+                      "(ROADMAP queue 1, item 7)",
+        "adaptive_bytes": "its event cost needs topology and compression "
+                          "(ROADMAP queue 1, items 10-11)",
+    }
+
+    def __post_init__(self):
+        if self.kind not in self._KINDS:
+            raise ValueError(f"unknown schedule kind {self.kind!r}")
+        if self.kind == "periodic" and self.phase_len < 1:
+            raise ValueError(f"periodic needs phase_len >= 1, "
+                             f"got {self.phase_len}")
+        if self.kind == "stochastic" and not 0.0 < self.zeta <= 1.0:
+            raise ValueError(f"stochastic needs 0 < zeta <= 1, "
+                             f"got {self.zeta}")
+        if self.kind == "hierarchical" and (
+                self.inner_phase_len < 1 or self.outer_phase_len < 1
+                or self.inner_groups < 1):
+            raise ValueError(
+                "hierarchical needs inner_phase_len/outer_phase_len/"
+                f"inner_groups >= 1, got ({self.inner_phase_len}, "
+                f"{self.outer_phase_len}, {self.inner_groups})")
+        if self.is_adaptive and not 0.0 <= self.disp_ema_beta < 1.0:
+            raise ValueError(f"adaptive schedules need 0 <= disp_ema_beta "
+                             f"< 1, got {self.disp_ema_beta}")
+        if self.kind == "adaptive_threshold" and self.disp_threshold <= 0.0:
+            raise ValueError(f"adaptive_threshold needs disp_threshold > 0, "
+                             f"got {self.disp_threshold}")
+        if self.kind == "adaptive_budget":
+            if self.comm_budget < 1 or self.budget_horizon < 1:
+                raise ValueError(
+                    "adaptive_budget needs comm_budget >= 1 and "
+                    f"budget_horizon >= 1, got ({self.comm_budget}, "
+                    f"{self.budget_horizon})")
+            if self.comm_budget > self.budget_horizon:
+                raise ValueError(
+                    f"adaptive_budget cannot spend {self.comm_budget} "
+                    f"events in {self.budget_horizon} steps (at most one "
+                    "averaging event per step)")
+        if self.kind == "adaptive_bytes":
+            if self.byte_budget < 1 or self.budget_horizon < 1:
+                raise ValueError(
+                    "adaptive_bytes needs byte_budget >= 1 and "
+                    f"budget_horizon >= 1, got ({self.byte_budget}, "
+                    f"{self.budget_horizon})")
+        if self.straggle_aware and not self.is_adaptive:
+            raise ValueError(
+                f"straggle_aware discounts the dispersion fed to the "
+                f"adaptive schedules; {self.kind!r} never consumes "
+                "dispersion — drop straggle_aware or use one of "
+                f"{self._ADAPTIVE}")
+        if self.kind in self._NOT_PORTED:
+            raise NotImplementedError(
+                f"schedule kind {self.kind!r} is not ported to repro_torch "
+                f"yet: {self._NOT_PORTED[self.kind]}")
+        if self.straggle_aware:
+            raise NotImplementedError(
+                "straggle_aware needs the faults port (ROADMAP queue 1, "
+                "item 12)")
+
+    @property
+    def is_adaptive(self) -> bool:
+        return self.kind in self._ADAPTIVE
+
+    def expected_phase_len(self) -> float:
+        """A-priori expected steps between communication events (any
+        event, inner or outer, for ``hierarchical``; NaN for
+        ``adaptive_threshold``, whose interval is data-dependent)."""
+        if self.kind == "oneshot":
+            return float("inf")
+        if self.kind == "minibatch":
+            return 1.0
+        if self.kind == "periodic":
+            return float(self.phase_len)
+        if self.kind == "hierarchical":
+            ki, ko = self.inner_phase_len, self.outer_phase_len
+            rate = 1.0 / ki + 1.0 / ko - 1.0 / math.lcm(ki, ko)
+            return 1.0 / rate
+        if self.kind == "adaptive_threshold":
+            return float("nan")
+        return self.budget_horizon / self.comm_budget  # adaptive_budget
+
+    def init_sched_state(self) -> SchedState:
+        return SchedState(_F32(0), _F32(0), _F32(0), _I32(0), _I32(0))
+
+    def decision_code(self, step: int) -> int:
+        """Decision for step ``step`` (1-indexed steps done) of a static
+        kind: 0 none, 1 inner, 2 all."""
+        if self.is_adaptive:
+            raise ValueError(
+                f"{self.kind} decisions depend on SchedState; use "
+                "decision_state(step, sched_state, disp)")
+        if self.kind == "oneshot":
+            return 0
+        if self.kind == "minibatch":
+            return 2
+        if self.kind == "periodic":
+            return 2 if step % self.phase_len == 0 else 0
+        # hierarchical
+        if step % self.outer_phase_len == 0:
+            return 2
+        return 1 if step % self.inner_phase_len == 0 else 0
+
+    def decision_state(self, step: int, sched_state: SchedState, disp):
+        """One transition ``(step, state, dispersion) -> (code, new
+        state)``: ``disp`` is the Eq. 4 dispersion measured at THIS step,
+        after the local update and before any averaging. The EMA advances
+        by ``disp_ema_beta`` and resets to 0 at every event;
+        ``adaptive_threshold`` fires when the EMA crosses
+        ``disp_threshold``; ``adaptive_budget`` accrues credit at the rate
+        ``comm_budget / budget_horizon`` scaled by the EMA over the
+        long-run mean dispersion, fires on a whole credit, and never
+        exceeds ``comm_budget`` events. Static kinds defer to
+        :meth:`decision_code` and only update the bookkeeping."""
+        s = sched_state
+        disp = _F32(disp)
+        beta = _F32(self.disp_ema_beta)
+        ema = beta * s.disp_ema + (_F32(1.0) - beta) * disp
+        cum = s.cum_disp + disp
+        credit = s.credit
+        if self.kind == "adaptive_threshold":
+            code = 2 if ema > _F32(self.disp_threshold) else 0
+        elif self.kind == "adaptive_budget":
+            rate = _F32(self.comm_budget / self.budget_horizon)
+            mean = cum / max(_F32(step), _F32(1.0))
+            w = ema / max(mean, _F32(1e-30)) if mean > 0 else _F32(0.0)
+            credit = credit + rate * w
+            fire = credit >= 1.0 and s.comm_spent < self.comm_budget
+            code = 2 if fire else 0
+            if fire:
+                credit = credit - _F32(1.0)
+        else:
+            code = self.decision_code(step)
+        avg = code > 0
+        new = SchedState(
+            disp_ema=_F32(0.0) if avg else _F32(ema),
+            cum_disp=_F32(cum),
+            credit=_F32(credit),
+            comm_spent=_I32(s.comm_spent + int(avg)),
+            since_avg=_I32(0) if avg else _I32(s.since_avg + 1))
+        return code, new

@@ -1,0 +1,121 @@
+"""Build the CUDA kernels on first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), under ``kernels/build/`` (listed in ``.gitignore``), keyed by a
+hash of the sources and flags. The first :func:`library` call starts one
+``nvcc`` per source, all at once, and waits for them; later calls reuse
+the loaded handles. A missing ``nvcc`` or a failed build raises — there
+is no fallback.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` with no
+``--use_fast_math``: every product and sum rounds on its own, exactly as
+PyTorch's separate eager ops round, so a kernel's float32 update matches
+its plain version bit for bit and cannot flip a bf16 rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+SOURCES = ("opt_step", "avg_disp")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+#: C signatures of the entry points (see the .cu files)
+SIGNATURES = {
+    "opt_step": ("opt_step_launch",
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                  _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _P]),
+    "avg_disp": ("avg_disp_launch", [_P, _P, _P, _P, _I, _LL, _I, _P]),
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+#: what the last build did: seconds, and ptxas's resource lines per source
+build_info: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of repro_torch cannot be built")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all started together. Returns ``build_info``."""
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    t0 = time.perf_counter()
+    if todo:
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for n in todo:
+            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            build_info.setdefault("ptxas", {})[n] = [
+                ln.strip() for ln in log.splitlines() if "Used" in ln]
+            if proc.returncode != 0:
+                failed.append(f"--- {n}.cu (exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, _lib_path(n))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["built"] = todo
+    return build_info
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (builds on first use)."""
+    if name not in _libs:
+        if not _lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` from a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

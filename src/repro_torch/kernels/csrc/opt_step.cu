@@ -1,0 +1,169 @@
+// Fused local optimizer step (+ optional worker average) on the (M, P)
+// f32 parameter plane, with the Eq. 4 dispersion of the updated plane.
+//
+// Replaces the TPU kernel repro/kernels/opt_step.py::opt_step
+// (_opt_step_kernel, opt_step.py:46; pallas_call at :319) for kinds
+// sgd / momentum (+- Nesterov) / adamw, modes none / mean / group, with
+// optional per-column bf16/f16 rounding codes. The mix mode and the
+// compressed `wire` path are not part of this kernel.
+//
+// Bound on an H100 (3.35 TB/s) at the main path's shape, M = 4 workers,
+// P = 361,821,120 (smollm-360m): the pass is memory bound. Momentum with
+// an f32 codes row reads x, g, v and the codes and writes x and v:
+// 5 * M * P * 4 + P * 4 = 30.39 GB, 9.07 ms. SGD moves 18.81 GB
+// (5.61 ms), AdamW 41.97 GB (12.53 ms). It does about 10 flops per
+// element, far below the 295 flop/byte ridge.
+//
+// Design against that bound: every byte is touched once. One thread owns
+// one column and loops over the M rows, so the column's updated values
+// stay in registers (an M <= 64 array, fully unrolled at a compile-time
+// bound MAXM, so it never goes to local memory) for the mean, the
+// dispersion term sum_i (u_i - mean)^2 and the broadcast; nothing is
+// re-read. Neighbouring threads own neighbouring columns, so each row
+// access of a warp is one coalesced 128-byte line. x and the state
+// planes are updated IN PLACE (the caller must hold no other reference
+// to the old planes): at full width that saves 11.6 GB of transient
+// memory against writing new planes. The ragged last block is masked,
+// not padded. Offsets are 64-bit: M * P exceeds 2^31 at M >= 6.
+//
+// Dispersion: one partial per block in a fixed tree order, then a fixed
+// single-block pass sums the partials (in double) and divides by M — no
+// atomics, so two runs give the same bits. Built with -fmad=false so
+// every product and sum rounds as PyTorch's separate eager ops do.
+#include "plane_common.cuh"
+
+namespace {
+
+enum Kind { kSgd = 0, kMomentum = 1, kAdamw = 2 };
+enum Mode { kNone = 0, kMean = 1, kGroup = 2 };
+
+struct Hyper {
+  float lr, c1, c2, mu, b1, omb1, b2, omb2, eps, wd;
+  int nesterov;
+};
+
+template <int MAXM, int KIND>
+__global__ void __launch_bounds__(kPlaneThreads)
+opt_step_cols(float* __restrict__ x, const float* __restrict__ g,
+              float* __restrict__ s0, float* __restrict__ s1,
+              const float* __restrict__ codes, float* __restrict__ dpart,
+              int m, int64_t p, int mode, int groups, Hyper h) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kPlaneThreads +
+                    threadIdx.x;
+  float dsq = 0.0f;
+  if (j < p) {
+    const float code = codes != nullptr ? codes[j] : 0.0f;
+    float u[MAXM];
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < MAXM; ++i) {
+      if (i < m) {
+        const int64_t o = static_cast<int64_t>(i) * p + j;
+        const float xi = x[o];
+        const float gi = g[o];
+        float upd;
+        if (KIND == kSgd) {
+          upd = xi - h.lr * gi;
+        } else if (KIND == kMomentum) {
+          const float v = h.mu * s0[o] + gi;
+          s0[o] = v;
+          upd = xi - h.lr * (h.nesterov ? gi + h.mu * v : v);
+        } else {
+          const float m2 = h.b1 * s0[o] + h.omb1 * gi;
+          const float v2 = h.b2 * s1[o] + (h.omb2 * gi) * gi;
+          s0[o] = m2;
+          s1[o] = v2;
+          const float d = (m2 / h.c1) / (sqrtf(v2 / h.c2) + h.eps);
+          upd = xi - h.lr * (d + h.wd * xi);
+        }
+        upd = round_code(upd, code);
+        u[i] = upd;
+        sum += upd;
+      }
+    }
+    const float mean = sum / static_cast<float>(m);
+#pragma unroll
+    for (int i = 0; i < MAXM; ++i) {
+      if (i < m) {
+        const float d = u[i] - mean;
+        dsq += d * d;
+      }
+    }
+    if (mode == kNone) {
+#pragma unroll
+      for (int i = 0; i < MAXM; ++i)
+        if (i < m) x[static_cast<int64_t>(i) * p + j] = u[i];
+    } else if (mode == kMean || groups == 1) {
+      const float out = round_code(mean, code);
+#pragma unroll
+      for (int i = 0; i < MAXM; ++i)
+        if (i < m) x[static_cast<int64_t>(i) * p + j] = out;
+    } else {
+      const int gs = m / groups;
+      for (int k = 0; k < groups; ++k) {
+        const int lo = k * gs, hi = lo + gs;
+        float gsum = 0.0f;
+#pragma unroll
+        for (int i = 0; i < MAXM; ++i)
+          if (i >= lo && i < hi) gsum += u[i];
+        const float out = round_code(gsum / static_cast<float>(gs), code);
+#pragma unroll
+        for (int i = 0; i < MAXM; ++i)
+          if (i >= lo && i < hi) x[static_cast<int64_t>(i) * p + j] = out;
+      }
+    }
+  }
+  block_partial(dsq, dpart);
+}
+
+template <int MAXM>
+void launch_kind(int kind, dim3 grid, cudaStream_t st, float* x,
+                 const float* g, float* s0, float* s1, const float* codes,
+                 float* dpart, int m, int64_t p, int mode, int groups,
+                 Hyper h) {
+  if (kind == kSgd)
+    opt_step_cols<MAXM, kSgd><<<grid, kPlaneThreads, 0, st>>>(
+        x, g, s0, s1, codes, dpart, m, p, mode, groups, h);
+  else if (kind == kMomentum)
+    opt_step_cols<MAXM, kMomentum><<<grid, kPlaneThreads, 0, st>>>(
+        x, g, s0, s1, codes, dpart, m, p, mode, groups, h);
+  else
+    opt_step_cols<MAXM, kAdamw><<<grid, kPlaneThreads, 0, st>>>(
+        x, g, s0, s1, codes, dpart, m, p, mode, groups, h);
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes. Pointers are device pointers on the
+// caller's stream; s1 / codes may be null where unused. dpart holds
+// ceil(P / 256) floats of scratch; disp receives the Eq. 4 dispersion.
+// Returns cudaGetLastError() after both launches (0 = success).
+extern "C" int opt_step_launch(
+    float* x, const float* g, float* s0, float* s1, const float* codes,
+    float* dpart, float* disp, int m, long long p, int kind, int mode,
+    int groups, float lr, float c1, float c2, float mu, int nesterov,
+    float b1, float omb1, float b2, float omb2, float eps, float wd,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Hyper h{lr, c1, c2, mu, b1, omb1, b2, omb2, eps, wd, nesterov};
+  const int64_t nblocks = (p + kPlaneThreads - 1) / kPlaneThreads;
+  const dim3 grid(static_cast<unsigned>(nblocks));
+  if (m <= 4)
+    launch_kind<4>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
+                   groups, h);
+  else if (m <= 8)
+    launch_kind<8>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
+                   groups, h);
+  else if (m <= 16)
+    launch_kind<16>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
+                    groups, h);
+  else if (m <= 32)
+    launch_kind<32>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
+                    groups, h);
+  else
+    launch_kind<64>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
+                    groups, h);
+  sum_partials<<<1, kSumThreads, 0, st>>>(dpart, nblocks,
+                                           static_cast<float>(m), disp);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,161 @@
+"""Training CLI: local-SGD training of a language model on the card.
+
+The counterpart of ``repro.launch.train`` for the flags the port
+supports. M workers each read their own synthetic token stream
+(``token_stream(seed * 131 + i)``, the reference's streams), take local
+steps through :class:`repro_torch.core.PhaseEngine`, and average on the
+chosen schedule. Runs on CUDA unless ``--device cpu``.
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+      --steps 6 --workers 4 --avg periodic --phase-len 3
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.core import AveragingSchedule, PhaseEngine
+from repro_torch.data import token_stream
+from repro_torch.device import resolve_device
+from repro_torch.models import init_params, lm_loss
+from repro_torch.optim import AdamW, Momentum
+
+AVG_KINDS = ("oneshot", "minibatch", "periodic", "hierarchical",
+             "adaptive_threshold", "adaptive_budget")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m", choices=ARCHS)
+    ap.add_argument("--reduced", action="store_true",
+                    help="2-layer, d_model 256 variant in float32")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--avg", default="periodic", choices=AVG_KINDS)
+    ap.add_argument("--phase-len", type=int, default=10)
+    ap.add_argument("--inner-groups", type=int, default=2,
+                    help="hierarchical averaging: number of inner worker "
+                         "groups (must divide --workers)")
+    ap.add_argument("--outer-phase-len", type=int, default=0,
+                    help="hierarchical averaging: all-worker period "
+                         "(default 0 -> 8 x --phase-len)")
+    ap.add_argument("--disp-threshold", type=float, default=0.0,
+                    help="adaptive_threshold: average when the running "
+                         "EMA of the Eq. 4 worker dispersion crosses "
+                         "this level (required > 0)")
+    ap.add_argument("--disp-ema-beta", type=float, default=0.9)
+    ap.add_argument("--comm-budget", type=int, default=0,
+                    help="adaptive_budget: max averaging events over "
+                         "the budget horizon (required >= 1)")
+    ap.add_argument("--budget-horizon", type=int, default=0,
+                    help="adaptive_budget: steps the budget spans "
+                         "(default 0 -> --steps)")
+    ap.add_argument("--optimizer", default="momentum",
+                    choices=["momentum", "adamw"])
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for the planes and the model "
+                         "(cuda by default; cpu runs the kernels' plain "
+                         "versions)")
+    return ap
+
+
+def setup(args, ap):
+    """Validate ``args`` (``ap.error`` on a bad combination) and build the
+    run: (config, engine, initial params, batch iterator factory)."""
+    if args.avg == "hierarchical":
+        if args.inner_groups < 1 or args.workers % args.inner_groups:
+            ap.error(f"--workers ({args.workers}) must be divisible by "
+                     f"--inner-groups ({args.inner_groups})")
+        outer_len = args.outer_phase_len or args.phase_len * 8
+        if args.phase_len >= outer_len:
+            ap.error(f"--avg hierarchical needs the inner period "
+                     f"(--phase-len, {args.phase_len}) < the outer period "
+                     f"(--outer-phase-len, {outer_len}); as given it "
+                     "would never inner-average")
+    if args.avg == "adaptive_threshold" and args.disp_threshold <= 0.0:
+        ap.error("--avg adaptive_threshold needs --disp-threshold > 0 "
+                 "(the Eq. 4 dispersion level that triggers averaging)")
+    if args.avg == "adaptive_budget":
+        horizon = args.budget_horizon or args.steps
+        if args.comm_budget < 1:
+            ap.error("--avg adaptive_budget needs --comm-budget >= 1")
+        if args.comm_budget > horizon:
+            ap.error(f"--comm-budget ({args.comm_budget}) cannot exceed "
+                     f"the budget horizon ({horizon} steps): at most one "
+                     "averaging event per step")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(f"--device {args.device}: {e}")
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if args.reduced:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    print(f"[train] {cfg.name}: {cfg.num_params()/1e6:.1f}M params, "
+          f"{args.workers} workers, avg={args.avg}")
+
+    params = init_params(cfg, args.seed, device=device)
+
+    def loss_fn(p, batch, rng):
+        return lm_loss(cfg, p, batch)
+
+    opt = (Momentum(lr=args.lr, mu=0.9) if args.optimizer == "momentum"
+           else AdamW(lr=args.lr))
+    sch = AveragingSchedule(
+        kind=args.avg, phase_len=args.phase_len,
+        inner_phase_len=args.phase_len,
+        outer_phase_len=args.outer_phase_len or args.phase_len * 8,
+        inner_groups=(args.inner_groups if args.avg == "hierarchical"
+                      else 1),
+        disp_threshold=args.disp_threshold,
+        disp_ema_beta=args.disp_ema_beta,
+        comm_budget=args.comm_budget,
+        budget_horizon=args.budget_horizon or args.steps)
+    engine = PhaseEngine(loss_fn, opt, sch, device=str(device))
+
+    # per-worker independent data streams (the reference's seeds)
+    streams = [token_stream(cfg.vocab_size, args.batch, args.seq,
+                            seed=args.seed * 131 + i)
+               for i in range(args.workers)]
+
+    def batches():
+        for _ in range(args.steps):
+            yield {"tokens": np.stack([next(s) for s in streams])}
+
+    return cfg, engine, params, batches
+
+
+def main(argv=None):
+    """Parse ``argv``, train, print the ``[train]`` summary. Returns
+    (final consensus params, history, final EngineState)."""
+    ap = make_parser()
+    args = ap.parse_args(argv)
+    _, engine, params, batches = setup(args, ap)
+    t0 = time.time()
+    final, hist, state = engine.run(
+        params, batches(), num_workers=args.workers, seed=args.seed,
+        record_every=10, return_state=True)
+    dt = time.time() - t0
+    losses = hist["loss"]
+    print(f"[train] {args.steps} steps in {dt:.1f}s "
+          f"({dt / args.steps * 1e3:.0f} ms/step), "
+          f"{hist['averages']} averaging ops")
+    if losses:
+        print(f"[train] loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f}")
+    if hist["dispersion"]:
+        print(f"[train] final pre-average worker dispersion: "
+              f"{hist['dispersion'][-1][1]:.3e}")
+    return final, hist, state
+
+
+if __name__ == "__main__":
+    main()

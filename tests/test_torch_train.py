@@ -1,0 +1,119 @@
+"""The port's training CLI on the CPU, the port's import isolation from
+JAX, and ``chip_smoke.py``'s refusal to run without a card."""
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import train  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_cli_trains_on_cpu(capsys):
+    final, hist, state = train.main(
+        ["--device", "cpu", "--reduced", "--steps", "6", "--workers", "4",
+         "--avg", "periodic", "--phase-len", "3", "--batch", "2",
+         "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "[train] smollm-360m-reduced:" in out
+    assert "[train] 6 steps in" in out
+    assert "2 averaging ops" in out
+    assert hist["averages"] == 2
+    assert state.step == 6 and state.plane.shape[0] == 4
+    assert all(torch.isfinite(x).all() for x in
+               torch.utils._pytree.tree_leaves(final))
+
+
+def test_cli_hierarchical_on_cpu(capsys):
+    _, hist, _ = train.main(
+        ["--device", "cpu", "--reduced", "--steps", "4", "--workers", "4",
+         "--avg", "hierarchical", "--phase-len", "1",
+         "--outer-phase-len", "4", "--inner-groups", "2", "--batch", "1",
+         "--seq", "8"])
+    assert hist["averages"] == 4
+    assert [t for t, _ in hist["dispersion"]] == [1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--avg", "hierarchical", "--inner-groups", "3"],
+    ["--avg", "hierarchical", "--phase-len", "8", "--outer-phase-len", "8"],
+    ["--avg", "adaptive_threshold"],
+    ["--avg", "adaptive_budget"],
+    ["--avg", "stochastic"],
+    ["--avg", "adaptive_bytes"],
+])
+def test_cli_refuses_bad_flags(argv):
+    with pytest.raises(SystemExit) as e:
+        train.main(["--reduced", "--steps", "2"] + argv)
+    assert e.value.code == 2
+
+
+def test_cli_refuses_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        train.main(["--reduced", "--steps", "2"])
+    assert e.value.code == 2
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import importlib.util, pkgutil, sys\n"
+        "import repro_torch, repro_torch.launch.train\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
+        f"{str(ROOT / 'chip_smoke.py')!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith(('jax.', 'jaxlib', 'repro.')) or n == 'repro')\n"
+        "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], env=ENV,
+                          cwd=cwd, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "cuda" in out.stderr.lower()
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert not any(json.loads(ln).get("ok") for ln in
+                   out.stdout.splitlines() if ln.startswith("{"))

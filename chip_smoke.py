@@ -6,25 +6,34 @@
 Phases, each printing one JSON line:
   1. card + build: the device, ``nvidia-smi`` name and power limit, and
      the build of every CUDA kernel under src/repro_torch/kernels/csrc/;
-  2. kernels vs plain: ``opt_step`` and ``avg_disp`` against their plain
-     PyTorch versions over the shape sweep of
-     ``repro_torch.kernels.card_check`` and at full width (M=4 workers x
-     P=361,821,120, smollm-360m), bitwise reproducible across two runs,
-     timed with CUDA events beside their memory bound;
+  2. kernels vs plain: ``opt_step`` (modes none / mean / group / mix and
+     the wire path), ``avg_disp``, ``mix_disp``, ``avg_disp_outer`` and
+     ``compressed_mix`` against their plain PyTorch versions over the
+     sweep of ``repro_torch.kernels.card_check`` and at full width (M=4
+     workers x P=361,821,120, smollm-360m), bitwise reproducible across
+     two runs, timed with CUDA events beside their memory bound; and
+     ``scaled_dot_product_attention`` at smollm-360m's attention shape,
+     the library time of the unported ``flash_attention`` kernel;
   3. the main path at full width: ``repro_torch.launch.train`` trains
-     smollm-360m (bf16, 4 workers, Momentum) — periodic K=2 for 6 steps,
-     then minibatch for 2 — with ``opt_step`` launched on every step;
+     smollm-360m (bf16, 4 workers, Momentum) — periodic K=2, minibatch,
+     minibatch over a ring (``opt_step`` mode mix), periodic K=2 over a
+     ring with the one_bit wire (``compressed_mix``), and minibatch with
+     the bf16 wire (the ``opt_step`` wire path);
   4. the f32 path: the paper's least-squares ``synth-ls-sparse-highrho``
-     (4096 x 1024, 24 workers, SGD on lr0 / (t - 1 + d)) under periodic
-     K=128 and hierarchical averaging, with ``avg_disp`` on every event;
-     then small runs of both paths on the card and on the CPU (the
-     kernels' plain versions), which must agree;
-  5. summary: a ``kernels`` line, then ``{"ok": true, "device": ...}``
-     as the last line.
+     (4096 x 1024, 24 workers, SGD on lr0 / (t - 1 + d)) under periodic,
+     hierarchical, ring and gossip-pairs (``mix_disp``), stochastic,
+     int8 (``compressed_mix``), minibatch over a torus with int8
+     (``opt_step`` mix + wire) and the outer optimizer
+     (``avg_disp_outer``); then small runs on the card and on the CPU
+     (the kernels' plain versions), which must agree;
+  5. summary: the bounds of the unported kernels, a ``kernels`` line, the
+     card, then ``{"ok": true, "device": ...}`` as the last line.
 
-Any failed check raises, so the script exits non-zero without the ``ok``
-line; it also refuses to run without a CUDA device. All of its work
-happens under ``if __name__ == "__main__"``.
+Every launch count is set to 0 just before a main-path run (phases 3-4)
+and read just after; the ``kernels`` line sums those runs. Any failed
+check raises, so the script exits non-zero without the ``ok`` line; it
+also refuses to run without a CUDA device. All of its work happens under
+``if __name__ == "__main__"``.
 """
 from __future__ import annotations
 
@@ -40,8 +49,17 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 tensor cores, dense
 FULL_M, FULL_P = 4, 361_821_120
 NSTATE = {"sgd": 0, "momentum": 1, "adamw": 2}
+# smollm-360m's attention as the reference's --impl pallas trainer runs
+# it: batch, sequence, query heads, key/value heads, head dim
+ATTN = dict(b=4, s=64, h=15, hkv=5, hd=64)
+# the unported scans at their paths' shapes: recurrentgemma-2b's RG-LRU
+# (batch, sequence, rnn width) and rwkv6-7b's WKV (batch, sequence,
+# heads, head dim), batch 4 x sequence 64 as the trainer's defaults
+RGLRU = dict(b=4, s=64, w=2560)
+RWKV6 = dict(b=4, s=64, h=64, n=64)
 
 
 def emit(obj) -> None:
@@ -53,8 +71,9 @@ def check(cond, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float,
+             peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -65,15 +84,19 @@ def steady_step_ms(phase_wall) -> float:
         t1 - t0 + 1 for t0, t1, _ in steady)
 
 
-def opt_step_cost(m, p, kind, has_codes):
-    """(bytes, flops): x, g and the S state planes read once, the codes
-    row read once, x and the state planes written once; per element the
+# ---- cost of each kernel's work: (bytes, flops), each input read once and
+#      each output written once --------------------------------------------
+
+def opt_step_cost(m, p, kind, has_codes, mix=False):
+    """x, g and the S state planes read once, the codes row read once, x
+    and the state planes written once (mode mix: W too); per element the
     update (sgd 2, momentum 4, adamw 14 flops) plus 4 for the column sum
-    and the dispersion term."""
+    and the dispersion term, plus 2M for a mix."""
     s = NSTATE[kind]
     nbytes = (2 + s) * m * p * 4 + (p * 4 if has_codes else 0) \
-        + (1 + s) * m * p * 4
-    per = {"sgd": 2, "momentum": 4, "adamw": 14}[kind] + 4
+        + (1 + s) * m * p * 4 + (m * m * 4 if mix else 0)
+    per = {"sgd": 2, "momentum": 4, "adamw": 14}[kind] + 4 \
+        + (2 * m if mix else 0)
     return nbytes, per * m * p
 
 
@@ -81,6 +104,63 @@ def avg_disp_cost(m, p):
     """(bytes, flops): the plane read once, the output written once; a
     sum, a difference, a square and an add per element."""
     return 2 * m * p * 4, 4 * m * p
+
+
+def mix_disp_cost(m, p):
+    """The plane and W read once, the mixed plane written once; 2M flops
+    of the mix and 4 of the dispersion per element."""
+    return 2 * m * p * 4 + m * m * 4, (2 * m + 4) * m * p
+
+
+def avg_disp_outer_cost(m, p):
+    """The plane, prev and vel read once; the plane, new and vel' written
+    once; 4 flops per element and 7 per column for the momentum step."""
+    return 2 * m * p * 4 + 4 * p * 4, 4 * m * p + 7 * p
+
+
+def compressed_cost(m, p, wire, has_codes, mix=False):
+    """The plane and the residual read and written once, the uniforms
+    (int8) and the codes row read once; per element the encode (bf16 2,
+    int8 6, one_bit 3 flops), the residual 1, the event (1, or 2M for a
+    mix) and the dispersion 4."""
+    planes = 4 + (1 if wire == "int8" else 0)
+    nbytes = planes * m * p * 4 + (p * 4 if has_codes else 0) \
+        + (m * m * 4 if mix else 0)
+    per = {"bf16": 2, "int8": 6, "one_bit": 3}[wire] + 1 \
+        + (2 * m if mix else 1) + 4
+    return nbytes, per * m * p
+
+
+def opt_step_wire_cost(m, p, kind, wire, has_codes, mix=False):
+    """The update's inputs and outputs (``opt_step_cost``) plus the
+    residual read and written and the uniforms read (int8); flops of the
+    update and of the compressed event."""
+    nb, fl = opt_step_cost(m, p, kind, has_codes, mix)
+    cb, cf = compressed_cost(m, p, wire, False)
+    return nb + cb - 2 * m * p * 4, fl + cf
+
+
+def attention_cost(b, s, h, hkv, hd):
+    """q, k, v read once and the output written once, in bf16; causal
+    QKᵀ and PV: 2 * 2 * b * h * hd flops per (query, key) pair with key
+    <= query, s (s + 1) / 2 pairs."""
+    nbytes = (2 * b * s * h * hd + 2 * b * s * hkv * hd) * 2
+    return nbytes, 4 * b * h * hd * s * (s + 1) / 2
+
+
+def rglru_cost(b, s, w):
+    """a and b read once and h written once, in f32; a multiply and an
+    add per element."""
+    return 3 * b * s * w * 4, 2 * b * s * w
+
+
+def rwkv6_cost(b, s, h, n):
+    """r, k, v and the log-decays read once in bf16, u once in f32, the
+    output written once in f32; per (token, head) the rank-1 k vᵀ (n²),
+    u∘kv and S + u∘kv (2n²), r·(...) (2n²) and the decayed state update
+    (2n²): 7n² flops."""
+    return 4 * b * s * h * n * 2 + h * n * 4 + b * s * h * n * 4, \
+        7 * b * s * h * n * n
 
 
 def main() -> None:
@@ -93,8 +173,29 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import card_check as cc
     from repro_torch.kernels import ref
-    from repro_torch.kernels.avg_disp import avg_disp
+    from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
+                                              compressed_mix, mix_disp)
     from repro_torch.kernels.opt_step import opt_step
+
+    kernels = {"opt_step": opt_step, "avg_disp": avg_disp,
+               "mix_disp": mix_disp, "avg_disp_outer": avg_disp_outer,
+               "compressed_mix": compressed_mix}
+    main_launches = dict.fromkeys(kernels, 0)
+
+    def zero_counts():
+        for k in kernels.values():
+            k.launches = 0
+
+    def read_counts(expect: dict, what: str) -> dict:
+        """The counts of the run just driven, held against ``expect``
+        (kernels not named there must not have launched); added to the
+        main path's totals."""
+        got = {n: k.launches for n, k in kernels.items()}
+        want = {n: expect.get(n, 0) for n in kernels}
+        check(got == want, f"{what}: launches {got}, want {want}")
+        for n, c in got.items():
+            main_launches[n] += c
+        return got
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -111,12 +212,15 @@ def main() -> None:
     info = _build.build_all()
     emit({"phase": "build", "device": kind_name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0, "built": info["built"],
           "ptxas": info.get("ptxas", {})})
 
     # ---- 2. kernels against their plain versions ---------------------------
     # the sweep and its criteria: repro_torch.kernels.card_check
+    t0 = time.perf_counter()
     n_cases, err = cc.sweep(dev)
+    sweep_s = time.perf_counter() - t0
 
     def cuda_time(fn, iters):
         """ms per call of ``fn`` with CUDA events, after one warm-up."""
@@ -130,49 +234,145 @@ def main() -> None:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
     full = {}
-    kw_full = dict(kind="momentum", mu=0.9)
+
+    def record(name, k_ms, p_ms, cost, **extra):
+        b_ms, b_by = bound_ms(*cost)
+        full[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, bytes=cost[0], **extra)
+
     x, g, st, scal, codes = cc.make_inputs(dev, FULL_M, FULL_P, "momentum",
                                            "bf16", seed=7, scale=1e-3)
-    for mode in ("none", "mean"):
-        kw = dict(kw_full, mode=mode)
+    ring = cc.mixing_matrix("ring", FULL_M, dev)
+    for mode in ("none", "mean", "mix"):
+        kw = dict(kind="momentum", mu=0.9, mode=mode,
+                  W=ring if mode == "mix" else None)
         e, disp = cc.check_opt_step(f"opt_step/full-momentum-bf16-{mode}",
                                     x, g, st, scal, codes, **kw)
         err["opt_step"] = max(err["opt_step"], e)
-        torch.cuda.empty_cache()
+        free()
         xk, sk = x.clone(), tuple(s.clone() for s in st)
         k_ms = cuda_time(lambda: opt_step(xk, g, sk, scal, codes=codes,
                                           **kw), 10)
         del xk, sk
-        torch.cuda.empty_cache()
+        free()
         p_ms = cuda_time(lambda: ref.opt_step_ref(x, g, st, scal,
                                                   codes=codes, **kw), 3)
-        torch.cuda.empty_cache()
-        nb, fl = opt_step_cost(FULL_M, FULL_P, "momentum", True)
-        b_ms, b_by = bound_ms(nb, fl)
-        full[f"opt_step/{mode}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                        bound_by=b_by, bytes=nb, disp=disp)
-    del g, st, codes
-    torch.cuda.empty_cache()
+        free()
+        record(f"opt_step/{mode}", k_ms, p_ms,
+               opt_step_cost(FULL_M, FULL_P, "momentum", True,
+                             mix=mode == "mix"), disp=disp)
+    # the opt_step wire path, bf16 wire (the main path's third new run)
+    r = cc.wire_inputs(dev, FULL_M, FULL_P, seed=8, uniforms=False)[0]
+    kw = dict(kind="momentum", mu=0.9, mode="mean", wire="bf16")
+    e = cc.check_opt_step_wire("opt_step/full-wire-bf16-mean", x, g, st,
+                               scal, codes, r, None, **kw)
+    err["opt_step"] = max(err["opt_step"], e)
+    free()
+    xk, sk, rk = x.clone(), tuple(s.clone() for s in st), r.clone()
+    k_ms = cuda_time(lambda: opt_step(xk, g, sk, scal, codes=codes,
+                                      resid=rk, **kw), 10)
+    del xk, sk, rk
+    free()
+    p_ms = cuda_time(lambda: ref.opt_step_ref(x, g, st, scal, codes=codes,
+                                              resid=r, **kw), 3)
+    free()
+    record("opt_step/wire-bf16-mean", k_ms, p_ms,
+           opt_step_wire_cost(FULL_M, FULL_P, "momentum", "bf16", True))
+    del g, st
+    free()
+
+    def time_compressed(name, xin, rin, u, codes_in, **kw):
+        e = cc.check_compressed(f"compressed_mix/full-{name}", xin, rin,
+                                u=u, codes=codes_in, **kw)
+        err["compressed_mix"] = max(err["compressed_mix"], e)
+        free()
+        xk, rk = xin.clone(), rin.clone()
+        k_ms = cuda_time(lambda: compressed_mix(xk, rk, u=u, codes=codes_in,
+                                                **kw), 10)
+        del xk, rk
+        free()
+        ckw = dict(wire=kw["wire"], u=u, codes=codes_in)
+        if kw["mode"] == "mix":
+            p_ms = cuda_time(lambda: ref.compressed_mix_ref(
+                xin, rin, kw["W"], **ckw), 3)
+        else:
+            p_ms = cuda_time(lambda: ref.compressed_avg_ref(
+                xin, rin, **ckw), 3)
+        free()
+        record(f"compressed_mix/{name}", k_ms, p_ms,
+               compressed_cost(FULL_M, FULL_P, kw["wire"],
+                               codes_in is not None, kw["mode"] == "mix"))
+
+    # one_bit over a ring with bf16 codes: the main path's event
+    time_compressed("one_bit-mix-codes", x, r, None, codes, wire="one_bit",
+                    mode="mix", W=ring)
+    time_compressed("bf16-mean-codes", x, r, None, codes, wire="bf16",
+                    mode="mean")
+    del codes
+    free()
+    u = cc.wire_inputs(dev, FULL_M, FULL_P, seed=9)[1]
+    time_compressed("int8-mean", x, r, u, None, wire="int8", mode="mean")
+    del u, r
+    free()
+
     for grp in (1, 2):
         e = cc.check_avg_disp(f"avg_disp/full-g{grp}", x, grp)
         err["avg_disp"] = max(err["avg_disp"], e)
-        torch.cuda.empty_cache()
+        free()
         k_ms = cuda_time(lambda: avg_disp(x, groups=grp), 10)
-        torch.cuda.empty_cache()
+        free()
         p_ms = cuda_time(lambda: ref.avg_disp_ref(x, groups=grp), 3)
-        torch.cuda.empty_cache()
-        nb, fl = avg_disp_cost(FULL_M, FULL_P)
-        b_ms, b_by = bound_ms(nb, fl)
-        full[f"avg_disp/g{grp}"] = dict(ms=k_ms, plain_ms=p_ms,
-                                        bound_ms=b_ms, bound_by=b_by,
-                                        bytes=nb)
-    del x
-    torch.cuda.empty_cache()
+        free()
+        record(f"avg_disp/g{grp}", k_ms, p_ms, avg_disp_cost(FULL_M, FULL_P))
+
+    e = cc.check_mix_disp("mix_disp/full-ring", x, ring)
+    err["mix_disp"] = max(err["mix_disp"], e)
+    free()
+    k_ms = cuda_time(lambda: mix_disp(x, ring), 10)
+    free()
+    p_ms = cuda_time(lambda: ref.mix_disp_ref(x, ring), 3)
+    free()
+    # one PyTorch call for the mix (not the dispersion): W @ x in full f32
+    lib_ms = cuda_time(lambda: torch.matmul(ring, x), 10)
+    free()
+    record("mix_disp/ring", k_ms, p_ms, mix_disp_cost(FULL_M, FULL_P),
+           library_ms=lib_ms)
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    prev = torch.randn(FULL_P, device=dev, generator=gen)
+    vel = torch.randn(FULL_P, device=dev, generator=gen) * 1e-2
+    okw = dict(lr=1.0, momentum=0.5, nesterov=True)
+    e = cc.check_avg_disp_outer("avg_disp_outer/full", x, prev, vel, **okw)
+    err["avg_disp_outer"] = max(err["avg_disp_outer"], e)
+    free()
+    k_ms = cuda_time(lambda: avg_disp_outer(x, prev, vel, **okw), 10)
+    free()
+    p_ms = cuda_time(lambda: ref.avg_disp_outer_ref(x, prev, vel, **okw), 3)
+    free()
+    record("avg_disp_outer/nesterov", k_ms, p_ms,
+           avg_disp_outer_cost(FULL_M, FULL_P))
+    del x, prev, vel
+    free()
+
+    # the unported flash_attention's yardstick: one PyTorch call at
+    # smollm-360m's attention shape (the port never calls it)
+    a = ATTN
+    q = torch.randn(a["b"], a["h"], a["s"], a["hd"], device=dev,
+                    dtype=torch.bfloat16, generator=gen)
+    kv = torch.randn(2, a["b"], a["hkv"], a["s"], a["hd"], device=dev,
+                     dtype=torch.bfloat16, generator=gen)
+    sdpa_ms = cuda_time(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kv[0], kv[1], is_causal=True, enable_gqa=True), 100)
+    del q, kv
     emit({"phase": "kernels_vs_plain", "sweep_cases": n_cases,
-          "max_abs_err": err, "full_width": {"M": FULL_M, "P": FULL_P,
-                                             **full},
-          "card": smi})
+          "sweep_s": sweep_s, "max_abs_err": err,
+          "full_width": {"M": FULL_M, "P": FULL_P, **full},
+          "sdpa_ms": sdpa_ms, "card": smi})
 
     # ---- 3. the main path at full width (bf16 smollm-360m) ----------------
     from repro_torch.launch import train
@@ -185,6 +385,7 @@ def main() -> None:
         ap = train.make_parser()
         args = ap.parse_args(argv)
         _, engine, params, batches = train.setup(args, ap)
+        zero_counts()
         t = time.perf_counter()
         final, hist, state = engine.run(
             params, batches(), num_workers=args.workers, seed=args.seed,
@@ -193,43 +394,51 @@ def main() -> None:
         wall = time.perf_counter() - t
         return final, hist, state, wall
 
-    opt_step.launches = avg_disp.launches = 0
     common = ["--arch", "smollm-360m", "--workers", "4", "--batch", "4",
               "--seq", "64", "--optimizer", "momentum", "--lr", "0.01",
               "--device", "cuda"]
     runs = {}
-    for name, extra, phase_len, steps, events in (
+    for name, extra, phase_len, steps, events, expect in (
             ("periodic", ["--avg", "periodic", "--phase-len", "2"], None, 6,
-             3),
-            ("minibatch", ["--avg", "minibatch"], 1, 2, 2)):
-        n0 = opt_step.launches
-        a0 = avg_disp.launches
+             3, {"opt_step": 6}),
+            ("minibatch", ["--avg", "minibatch"], 1, 2, 2, {"opt_step": 2}),
+            ("minibatch-ring", ["--avg", "minibatch", "--topology", "ring"],
+             1, 2, 2, {"opt_step": 2}),
+            ("periodic-ring-one_bit",
+             ["--avg", "periodic", "--phase-len", "2", "--topology", "ring",
+              "--comm-dtype", "one_bit"], None, 4, 2,
+             {"opt_step": 4, "compressed_mix": 2}),
+            ("minibatch-bf16-wire", ["--avg", "minibatch", "--comm-dtype",
+                                     "bf16"], 1, 2, 2, {"opt_step": 2})):
         final, hist, state, wall = train_run(
             common + ["--steps", str(steps)] + extra, phase_len)
+        got = read_counts(expect, name)
         losses = [v for _, v in hist["loss"]]
         check(len(losses) == steps and all(map(math.isfinite, losses)),
               f"{name}: losses {losses}")
         check(hist["averages"] == events,
               f"{name}: {hist['averages']} averaging ops, want {events}")
-        check(opt_step.launches - n0 == steps,
-              f"{name}: opt_step launched {opt_step.launches - n0} times "
-              f"in {steps} steps")
-        check(avg_disp.launches == a0,
-              f"{name}: avg_disp launched on the bf16 path")
         plane = state.plane
         check(plane.shape == (FULL_M, FULL_P), f"plane {plane.shape}")
         on_grid = all(torch.equal(r, r.to(torch.bfloat16).float())
                       for r in plane)
         check(on_grid, f"{name}: plane left the bf16 grid")
-        step_ms = steady_step_ms(hist["phase_wall"])
+        wire = "--comm-dtype" in extra
+        check((state.resid is not None) == wire, f"{name}: residual plane")
+        resid_abs_max = None
+        if wire:
+            check(all(bool(torch.isfinite(r).all()) for r in state.resid),
+                  f"{name}: residual not finite")
+            resid_abs_max = max(float(r.abs().max()) for r in state.resid)
         runs[name] = dict(steps=steps, averages=hist["averages"],
                           loss_first=losses[0], loss_last=losses[-1],
-                          opt_step_launches=opt_step.launches - n0,
-                          step_ms=step_ms, wall_s=wall,
+                          launches=got, step_ms=steady_step_ms(
+                              hist["phase_wall"]),
+                          wall_s=wall, resid_abs_max=resid_abs_max,
                           max_memory_gb=torch.cuda.max_memory_allocated(dev)
                           / 1e9)
         del final, hist, state, plane
-        torch.cuda.empty_cache()
+        free()
     emit({"phase": "main_path_bf16", "arch": "smollm-360m",
           "params": FULL_P, "workers": FULL_M, **runs, "card": smi})
 
@@ -237,12 +446,16 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.configs.paper import CONVEX_SUITE
     from repro_torch.core import AveragingSchedule, PhaseEngine
+    from repro_torch.core.averaging import OuterOptimizer
+    from repro_torch.core.compress import Compression
     from repro_torch.data import convex_dataset, token_stream
     from repro_torch.models import init_params, lm_loss
     from repro_torch.optim import SGD, Momentum
+    from repro_torch.topology import Topology
 
     c = CONVEX_SUITE[0]
     check(c.name == "synth-ls-sparse-highrho", c.name)
+    mw = c.num_workers
     X, y, _ = convex_dataset(c.model, c.num_samples, c.num_dims,
                              sparsity=c.sparsity, noise=c.noise, seed=0)
     lr_d = 200.0
@@ -257,42 +470,62 @@ def main() -> None:
         res = Xd @ w.to(dev) - yd
         return float(0.5 * torch.mean(res * res))
 
-    def convex_run(sched, steps, device):
-        idx = np.random.default_rng(1).integers(
-            0, c.num_samples, (steps, c.num_workers))
+    def convex_run(sched, steps, device, **comm):
+        idx = np.random.default_rng(1).integers(0, c.num_samples,
+                                                (steps, mw))
         Xs, ys = Xd.to(device), yd.to(device)
         data = ({"x": Xs[idx[t]], "y": ys[idx[t]]} for t in range(steps))
-        eng = PhaseEngine(ls_loss, opt, sched, device=device)
+        eng = PhaseEngine(ls_loss, opt, sched, device=device, **comm)
         w0 = {"w": torch.zeros(c.num_dims, device=device)}
-        return eng.run(w0, data, num_workers=c.num_workers, seed=0,
-                       record_every=1, return_state=True)
+        # several phases where the schedule has no period, so that the
+        # step time leaves out only the first
+        block = {"stochastic": 16, "minibatch": 4}.get(sched.kind)
+        return eng.run(w0, data, num_workers=mw, seed=0, record_every=1,
+                       phase_len=block, return_state=True)
 
+    periodic16 = AveragingSchedule("periodic", phase_len=16)
     hier = AveragingSchedule("hierarchical", inner_groups=4,
                              inner_phase_len=8, outer_phase_len=32)
+    int8 = Compression("int8")
     f32 = {}
-    for name, sched, steps, events in (
+    for name, sched, steps, comm, expect in (
             ("periodic", AveragingSchedule("periodic", phase_len=128), 256,
-             2),
-            ("hierarchical", hier, 64, 8)):
-        n0, a0 = opt_step.launches, avg_disp.launches
-        final, hist, _ = convex_run(sched, steps, "cuda")
+             {}, {"avg_disp": 2}),
+            ("hierarchical", hier, 64, {}, {"avg_disp": 8}),
+            ("ring", periodic16, 64, dict(topology=Topology.ring(mw)),
+             {"mix_disp": 4}),
+            ("gossip_pairs", periodic16, 64,
+             dict(topology=Topology.gossip_pairs(mw)), {"mix_disp": 4}),
+            ("stochastic", AveragingSchedule("stochastic", zeta=0.1), 64, {},
+             None),
+            ("int8", periodic16, 64, dict(compression=int8),
+             {"compressed_mix": 4}),
+            ("minibatch-torus-int8", AveragingSchedule("minibatch"), 16,
+             dict(topology=Topology.torus(mw), compression=int8), {}),
+            ("outer", periodic16, 64,
+             dict(outer=OuterOptimizer(lr=1.0, momentum=0.5)),
+             {"avg_disp_outer": 4})):
+        zero_counts()
+        final, hist, state = convex_run(sched, steps, "cuda", **comm)
+        events = hist["averages"]
+        if expect is None:  # stochastic: one avg_disp per drawn event
+            expect = {"avg_disp": events}
+            check(events > 0, f"{name}: no event drawn")
+        got = read_counts(dict(expect, opt_step=steps), name)
         losses = [v for _, v in hist["loss"]]
         check(all(map(math.isfinite, losses)), f"{name}: losses")
-        check(hist["averages"] == events,
-              f"{name}: {hist['averages']} events, want {events}")
-        check(avg_disp.launches - a0 == events,
-              f"{name}: avg_disp launched {avg_disp.launches - a0} times "
-              f"for {events} events")
-        check(opt_step.launches - n0 == steps, f"{name}: opt_step count")
+        check(sched.kind == "minibatch" or events == sum(
+            v for k, v in got.items() if k != "opt_step"),
+            f"{name}: {events} events, launches {got}")
+        if "compression" in comm:
+            check(bool(torch.isfinite(state.resid).all()),
+                  f"{name}: residual not finite")
         f0, f1 = objective(torch.zeros(c.num_dims)), objective(final["w"])
         check(f1 < f0, f"{name}: objective {f0} -> {f1}")
-        f32[name] = dict(steps=steps, events=hist["averages"],
-                         avg_disp_launches=avg_disp.launches - a0,
-                         opt_step_launches=opt_step.launches - n0,
+        f32[name] = dict(steps=steps, events=events, launches=got,
                          objective_start=f0, objective_end=f1,
                          step_ms=steady_step_ms(hist["phase_wall"]))
-    launches = {"opt_step": opt_step.launches,
-                "avg_disp": avg_disp.launches}
+        del final, hist, state
 
     # the same runs on the CPU (the kernels' plain versions) as reference
     final_c, hist_c, _ = convex_run(hier, 64, "cpu")
@@ -304,6 +537,21 @@ def main() -> None:
     np.testing.assert_allclose([v for _, v in hist_g["loss"]],
                                [v for _, v in hist_c["loss"]], rtol=1e-4,
                                atol=1e-7)
+    # gossip matchings + int8 stochastic rounding: the same draws on both
+    # devices, so the same events; the quantizer may round an entry one
+    # int8 quantum apart where the two devices' gradients differ in the
+    # last bit (card_check.count_quantum_flips)
+    gi = dict(topology=Topology.gossip_pairs(mw), compression=int8)
+    fc, hc, sc = convex_run(periodic16, 64, "cpu", **gi)
+    fg, hg, sg = convex_run(periodic16, 64, "cuda", **gi)
+    check([t for t, _ in hc["dispersion"]] == [t for t, _ in hg["dispersion"]]
+          and hc["averages"] == hg["averages"] == 4,
+          "gossip+int8 event steps cuda vs cpu")
+    np.testing.assert_allclose([v for _, v in hg["loss"]],
+                               [v for _, v in hc["loss"]], rtol=1e-4,
+                               atol=1e-7)
+    flips = cc.count_quantum_flips(sg.plane.cpu(), sc.plane, rtol=1e-4,
+                                   atol=1e-6)
     # the LM path at a small size: CPU-initialized f32 params, the same
     # batches, on the card and on the CPU
     rcfg = dataclasses.replace(get_config("smollm-360m", reduced=True),
@@ -326,30 +574,52 @@ def main() -> None:
     check(hl_g["averages"] == hl_c["averages"] == 2, "reduced LM events")
     np.testing.assert_allclose([v for _, v in hl_g["loss"]],
                                [v for _, v in hl_c["loss"]], rtol=1e-4)
-    for a, b in zip(torch.utils._pytree.tree_leaves(lm_g),
-                    torch.utils._pytree.tree_leaves(lm_c)):
-        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+    for a_, b_ in zip(torch.utils._pytree.tree_leaves(lm_g),
+                      torch.utils._pytree.tree_leaves(lm_c)):
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.numpy(), atol=1e-4)
     emit({"phase": "f32_path", "config": c.name, "samples": c.num_samples,
-          "dims": c.num_dims, "workers": c.num_workers, **f32,
+          "dims": c.num_dims, "workers": mw, **f32,
           "cuda_vs_cpu": {"ls_hierarchical_64": "rtol 1e-4",
+                          "ls_gossip_int8_64": {"losses": "rtol 1e-4",
+                                                "quantum_flips": flips},
                           "reduced_lm_periodic_4": "rtol 1e-4 / atol 1e-4"},
           "card": smi})
 
     # ---- 5. summary --------------------------------------------------------
-    o, a = full["opt_step/none"], full["avg_disp/g1"]
+    unported = {}
+    for name, cost, peak in (
+            ("flash_attention", attention_cost(**ATTN), BF16_FLOPS_PER_S),
+            ("rglru_scan", rglru_cost(**RGLRU), F32_FLOPS_PER_S),
+            ("rwkv6_scan", rwkv6_cost(**RWKV6), F32_FLOPS_PER_S)):
+        b_ms, b_by = bound_ms(*cost, peak=peak)
+        unported[name] = dict(bytes=cost[0], flops=cost[1], bound_ms=b_ms,
+                              bound_by=b_by)
+    unported["flash_attention"]["library_ms"] = sdpa_ms
+    emit({"unported_bounds": unported, "shapes": {
+        "flash_attention": ATTN, "rglru_scan": RGLRU, "rwkv6_scan": RWKV6}})
+
+    def line(name, src, replaces, row):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                "replaces": replaces, "launches": main_launches[name],
+                "max_abs_err": err[name], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")}
+
     emit({"kernels": [
-        {"name": "opt_step", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/opt_step.cu",
-         "replaces": "src/repro/kernels/opt_step.py:185",
-         "launches": launches["opt_step"], "max_abs_err": err["opt_step"],
-         "ms": o["ms"], "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
-         "bound_by": o["bound_by"], "library_ms": None},
-        {"name": "avg_disp", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/avg_disp.cu",
-         "replaces": "src/repro/kernels/avg_disp.py:156",
-         "launches": launches["avg_disp"], "max_abs_err": err["avg_disp"],
-         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-         "bound_by": a["bound_by"], "library_ms": None}]})
+        line("opt_step", "opt_step", "src/repro/kernels/opt_step.py:185",
+             full["opt_step/none"]),
+        line("avg_disp", "avg_disp", "src/repro/kernels/avg_disp.py:156",
+             full["avg_disp/g1"]),
+        line("mix_disp", "mix_disp", "src/repro/kernels/avg_disp.py:203",
+             full["mix_disp/ring"]),
+        line("avg_disp_outer", "avg_disp_outer",
+             "src/repro/kernels/avg_disp.py:251",
+             full["avg_disp_outer/nesterov"]),
+        line("compressed_mix", "compressed_mix",
+             "src/repro/kernels/avg_disp.py:295",
+             full["compressed_mix/one_bit-mix-codes"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind_name,
                                  "count": torch.cuda.device_count()}})

@@ -7,13 +7,19 @@ The counterpart of ``repro.core.averaging``'s schedules:
   - hierarchical: inner groups every K_inner, all workers every K_outer
   - adaptive_threshold : average when the running EMA of the Eq. 4
                   dispersion crosses ``disp_threshold``
+  - stochastic(ζ): average with probability ζ each step, a Bernoulli
+                  draw on ``fold_in(dec_key, step)`` — the reference's
+                  draws, bit for bit (:mod:`repro_torch.rng`)
   - adaptive_budget : spend at most ``comm_budget`` events over
                   ``budget_horizon`` steps, paced by the dispersion
+  - adaptive_bytes : the same pacing with the budget in bytes per
+                  worker, each event priced by the engine
+                  (``topology.comm_bytes`` at the wire format)
 
-``stochastic`` (a Bernoulli draw from JAX's threefry ``fold_in`` stream)
-and ``adaptive_bytes`` (priced by topology and wire format) are not
-ported yet and raise ``NotImplementedError`` after the same eager
-validation the reference runs.
+``straggle_aware`` waits for the faults port and raises
+``NotImplementedError`` after the same eager validation the reference
+runs. :class:`OuterOptimizer` is the reference's DiLoCo-style outer
+Nesterov momentum at averaging events.
 
 The PyTorch engine decides on the host, once per step, so the
 transition below runs on numpy float32 / int32 scalars with the same
@@ -27,6 +33,10 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from repro_torch import rng
+from repro_torch.core.flat import tree_map
 
 _F32, _I32 = np.float32, np.int32
 
@@ -62,15 +72,6 @@ class AveragingSchedule:
               "adaptive_bytes")
     _ADAPTIVE = ("adaptive_threshold", "adaptive_budget",
                  "adaptive_bytes")
-    #: kinds validated like the reference but not ported yet, with the
-    #: ROADMAP queue-1 item that brings each
-    _NOT_PORTED = {
-        "stochastic": "its Bernoulli draws need the threefry port "
-                      "(ROADMAP queue 1, item 7)",
-        "adaptive_bytes": "its event cost needs topology and compression "
-                          "(ROADMAP queue 1, items 10-11)",
-    }
-
     def __post_init__(self):
         if self.kind not in self._KINDS:
             raise ValueError(f"unknown schedule kind {self.kind!r}")
@@ -116,10 +117,6 @@ class AveragingSchedule:
                 f"adaptive schedules; {self.kind!r} never consumes "
                 "dispersion — drop straggle_aware or use one of "
                 f"{self._ADAPTIVE}")
-        if self.kind in self._NOT_PORTED:
-            raise NotImplementedError(
-                f"schedule kind {self.kind!r} is not ported to repro_torch "
-                f"yet: {self._NOT_PORTED[self.kind]}")
         if self.straggle_aware:
             raise NotImplementedError(
                 "straggle_aware needs the faults port (ROADMAP queue 1, "
@@ -139,20 +136,26 @@ class AveragingSchedule:
             return 1.0
         if self.kind == "periodic":
             return float(self.phase_len)
+        if self.kind == "stochastic":
+            return 1.0 / max(self.zeta, 1e-12)
         if self.kind == "hierarchical":
             ki, ko = self.inner_phase_len, self.outer_phase_len
             rate = 1.0 / ki + 1.0 / ko - 1.0 / math.lcm(ki, ko)
             return 1.0 / rate
-        if self.kind == "adaptive_threshold":
-            return float("nan")
-        return self.budget_horizon / self.comm_budget  # adaptive_budget
+        if self.kind == "adaptive_budget":
+            return self.budget_horizon / self.comm_budget
+        # adaptive_threshold: data-dependent; adaptive_bytes: the cost of
+        # an event depends on (topology, wire, P), which only the engine
+        # knows
+        return float("nan")
 
     def init_sched_state(self) -> SchedState:
         return SchedState(_F32(0), _F32(0), _F32(0), _I32(0), _I32(0))
 
-    def decision_code(self, step: int) -> int:
+    def decision_code(self, step: int, key=None) -> int:
         """Decision for step ``step`` (1-indexed steps done) of a static
-        kind: 0 none, 1 inner, 2 all."""
+        kind: 0 none, 1 inner, 2 all. ``stochastic`` draws
+        ``bernoulli(fold_in(key, step), zeta)`` from the decision key."""
         if self.is_adaptive:
             raise ValueError(
                 f"{self.kind} decisions depend on SchedState; use "
@@ -163,12 +166,19 @@ class AveragingSchedule:
             return 2
         if self.kind == "periodic":
             return 2 if step % self.phase_len == 0 else 0
+        if self.kind == "stochastic":
+            if key is None:
+                raise ValueError("the stochastic schedule needs the "
+                                 "decision key")
+            return 2 if bool(rng.bernoulli(rng.fold_in(key, step),
+                                           self.zeta)) else 0
         # hierarchical
         if step % self.outer_phase_len == 0:
             return 2
         return 1 if step % self.inner_phase_len == 0 else 0
 
-    def decision_state(self, step: int, sched_state: SchedState, disp):
+    def decision_state(self, step: int, sched_state: SchedState, disp,
+                       key=None, event_cost=None):
         """One transition ``(step, state, dispersion) -> (code, new
         state)``: ``disp`` is the Eq. 4 dispersion measured at THIS step,
         after the local update and before any averaging. The EMA advances
@@ -177,8 +187,12 @@ class AveragingSchedule:
         ``disp_threshold``; ``adaptive_budget`` accrues credit at the rate
         ``comm_budget / budget_horizon`` scaled by the EMA over the
         long-run mean dispersion, fires on a whole credit, and never
-        exceeds ``comm_budget`` events. Static kinds defer to
-        :meth:`decision_code` and only update the bookkeeping."""
+        exceeds ``comm_budget`` events; ``adaptive_bytes`` accrues
+        ``byte_budget / budget_horizon`` bytes per step the same way,
+        fires when the credit covers ``event_cost`` (one event's bytes
+        per worker) and never lets ``(events + 1) * event_cost`` exceed
+        ``byte_budget``. Static kinds defer to :meth:`decision_code`
+        (``key``: the decision key) and only update the bookkeeping."""
         s = sched_state
         disp = _F32(disp)
         beta = _F32(self.disp_ema_beta)
@@ -187,17 +201,30 @@ class AveragingSchedule:
         credit = s.credit
         if self.kind == "adaptive_threshold":
             code = 2 if ema > _F32(self.disp_threshold) else 0
-        elif self.kind == "adaptive_budget":
-            rate = _F32(self.comm_budget / self.budget_horizon)
+        elif self.kind in ("adaptive_budget", "adaptive_bytes"):
+            if self.kind == "adaptive_budget":
+                cost = _F32(1.0)
+                rate = _F32(self.comm_budget / self.budget_horizon)
+                room = s.comm_spent < self.comm_budget
+            else:
+                if event_cost is None:
+                    raise ValueError(
+                        "adaptive_bytes needs event_cost (bytes one event "
+                        "puts on the wire per worker) — the engine passes "
+                        "comm_bytes(topology, 1, P, wire)")
+                cost = _F32(event_cost)
+                rate = _F32(self.byte_budget / self.budget_horizon)
+                room = _F32(s.comm_spent + 1) * cost <= _F32(
+                    self.byte_budget)
             mean = cum / max(_F32(step), _F32(1.0))
             w = ema / max(mean, _F32(1e-30)) if mean > 0 else _F32(0.0)
             credit = credit + rate * w
-            fire = credit >= 1.0 and s.comm_spent < self.comm_budget
+            fire = credit >= cost and room
             code = 2 if fire else 0
             if fire:
-                credit = credit - _F32(1.0)
+                credit = credit - cost
         else:
-            code = self.decision_code(step)
+            code = self.decision_code(step, key)
         avg = code > 0
         new = SchedState(
             disp_ema=_F32(0.0) if avg else _F32(ema),
@@ -206,3 +233,34 @@ class AveragingSchedule:
             comm_spent=_I32(s.comm_spent + int(avg)),
             since_avg=_I32(0) if avg else _I32(s.since_avg + 1))
         return code, new
+
+
+@dataclass(frozen=True)
+class OuterOptimizer:
+    """DiLoCo-style outer Nesterov momentum applied at averaging steps.
+    With lr=1, momentum=0 this reduces exactly to the paper's plain mean.
+    The engine runs it on the flat plane (``avg_disp_outer``);
+    :meth:`apply` is the tree form."""
+    lr: float = 1.0
+    momentum: float = 0.0
+    nesterov: bool = True
+
+    def init(self, avg_tree):
+        return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                        avg_tree)
+
+    def apply(self, prev_avg, new_avg, velocity):
+        """prev_avg/new_avg: trees WITHOUT the worker axis. Returns
+        (updated average in the leaf dtypes, velocity)."""
+        def outer_grad(p, n):
+            return p.float() - n.float()
+
+        velocity = tree_map(
+            lambda p, n, v: self.momentum * v + outer_grad(p, n),
+            prev_avg, new_avg, velocity)
+        updated = tree_map(
+            lambda p, n, v: (p.float() - self.lr * (
+                self.momentum * v + outer_grad(p, n) if self.nesterov else v
+            )).to(p.dtype),
+            prev_avg, new_avg, velocity)
+        return updated, velocity

@@ -7,27 +7,37 @@ each step is
 
     grads_fn(plane, batch)                 # loss + grad of every row
     opt_step(plane, grads, state planes)   # ONE fused pass: update,
-                                           #   Eq. 4 dispersion (+ mean)
+                                           #   Eq. 4 dispersion (+ event)
     schedule.decision_state(step, ...)     # none / inner / all
-    [avg_disp(plane)]                      # the averaging event
+    [the averaging event]                  # rare schedules only
 
-exactly as the reference's scan body orders it: the every-step
-schedule (minibatch) fuses the mean into the update pass (mode "mean");
-the rare ones update first and run the event pass only on the steps the
-decision picks. On the card ``opt_step`` and ``avg_disp`` are the
-hand-written CUDA kernels; on the CPU their plain versions run. Planes
-whose columns carry bf16/f16 rounding codes take the plain
-``plane_average_ref`` for the event, as the reference does
-(``avg_disp`` has no codes input).
+with the reference's dispatch: the every-step schedule (minibatch) fuses
+its event into the update pass — the mean (mode "mean"), the group mean
+of a ``groups`` topology (mode "group"), the gossip mix of a mixing
+topology (mode "mix"), or the compressed event of a wire format; with
+the outer optimizer the update runs alone and ``avg_disp_outer`` follows.
+The rare schedules update first and run the event pass on the steps the
+decision picks: ``avg_disp`` (mean / group mean), ``mix_disp`` (``W @``),
+``avg_disp_outer``, or ``compressed_mix`` with a wire format. On the
+card those are the hand-written CUDA kernels; on the CPU their plain
+versions run. Where the reference itself takes its jnp twin on an
+accelerator — a mix or outer event on a plane whose columns carry
+bf16/f16 rounding codes, which ``mix_disp`` and ``avg_disp_outer`` do
+not take — the port takes the plain version on the card too.
+
+Randomness is the reference's: ``init`` makes ``key, dec_key =
+split(PRNGKey(seed))`` with :mod:`repro_torch.rng`, the data key splits
+once per step, and every per-event draw (the stochastic schedule, the
+gossip matchings, int8 stochastic rounding) folds ``dec_key`` with the
+1-indexed step, so decisions, matchings and quantizations equal the
+reference's bit for bit.
 
 PyTorch runs eagerly, so a "phase" here is a Python loop over a staged
 block of steps: the engine decides on the host each step (one device
 read of the dispersion per step) and fetches the loss trace once per
-phase. On the card ``opt_step`` updates the plane and the state planes
-in place, so a state handed to ``run_phase`` is consumed, as the
-reference's donated state is. The losses take no randomness, so
-``EngineState.key`` and ``dec_key`` are plain seeds until the threefry
-port lands.
+phase. On the card ``opt_step`` and ``compressed_mix`` update the plane,
+the state planes and the residual in place, so a state handed to
+``run_phase`` is consumed, as the reference's donated state is.
 """
 from __future__ import annotations
 
@@ -38,12 +48,20 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.averaging import AveragingSchedule, SchedState
+from repro_torch import rng
+from repro_torch.core.averaging import (AveragingSchedule, OuterOptimizer,
+                                        SchedState)
+from repro_torch.core.compress import Compression, row_uniforms
 from repro_torch.core.flat import FlatSpec, tree_map, tree_unflatten
 from repro_torch.device import resolve_device
-from repro_torch.kernels.avg_disp import avg_disp
-from repro_torch.kernels.opt_step import MAX_WORKERS, opt_step
-from repro_torch.kernels.ref import _div, _row_sum, plane_average_ref
+from repro_torch.kernels._build import MAX_WORKERS
+from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
+                                          compressed_mix, mix_disp)
+from repro_torch.kernels.opt_step import opt_step
+from repro_torch.kernels.ref import (_div, _row_sum, avg_disp_outer_ref,
+                                     mix_disp_ref, plane_average_ref,
+                                     round_to_codes)
+from repro_torch.topology import MIX_KINDS, Topology, comm_bytes
 
 
 def init_history() -> dict:
@@ -103,10 +121,12 @@ class EngineState(NamedTuple):
     plane: Any           # (M, P) f32 worker params
     opt_planes: tuple    # S (M, P) f32 optimizer-state planes
     codes: Any           # (P,) f32 rounding codes on the device, or None
-    key: int             # data seed (no per-step randomness yet)
-    dec_key: int         # decision seed (no stochastic kind yet)
+    key: Any             # threefry data key, split once per step
+    dec_key: Any         # threefry decision root key (constant)
     step: int            # steps completed
     sched: SchedState    # adaptive-schedule carry
+    outer_state: tuple = ()  # (prev_avg, vel) (P,) f32, or ()
+    resid: Any = None    # (M, P) f32 error-feedback residual, or None
 
 
 @dataclass(frozen=True, eq=False)
@@ -114,11 +134,18 @@ class PhaseEngine:
     """loss_fn(params, batch, rng) -> (loss, aux) over a params tree of
     tensors; optimizer from :mod:`repro_torch.optim` (plane protocol);
     ``device`` where the planes live ("cuda" by default; "cpu" runs the
-    kernels' plain versions)."""
+    kernels' plain versions). ``outer``: the DiLoCo-style outer
+    optimizer at all-worker events; ``topology``: the mixing graph of
+    every all-worker event (:mod:`repro_torch.topology`);
+    ``compression``: the wire format of every event
+    (:mod:`repro_torch.core.compress`)."""
     loss_fn: Callable
     optimizer: Any
     schedule: AveragingSchedule
     device: str = "cuda"
+    outer: OuterOptimizer | None = None
+    topology: Topology | None = None
+    compression: Compression | None = None
 
     def __post_init__(self):
         resolve_device(self.device)
@@ -129,6 +156,12 @@ class PhaseEngine:
         if not isinstance(self.schedule, AveragingSchedule):
             raise TypeError("schedule must be a repro_torch "
                             "AveragingSchedule")
+        for name, t, cls in (("outer", self.outer, OuterOptimizer),
+                             ("topology", self.topology, Topology),
+                             ("compression", self.compression, Compression)):
+            if t is not None and not isinstance(t, cls):
+                raise TypeError(f"{name} must be a repro_torch "
+                                f"{cls.__name__}")
 
     @property
     def _dev(self) -> torch.device:
@@ -148,10 +181,74 @@ class PhaseEngine:
                 f"into inner_groups={g} contiguous groups, but "
                 f"num_workers={num_workers} is not divisible by it — "
                 "pick inner_groups dividing the worker count")
+        t = self.topology
+        if t is not None:
+            if t.num_workers != num_workers:
+                raise ValueError(
+                    f"topology '{t.kind}' was built for "
+                    f"{t.num_workers} workers but the engine runs "
+                    f"{num_workers} — build the Topology with the run's "
+                    "worker count")
+            if self.outer is not None and t.kind != "full":
+                raise ValueError(
+                    f"the outer optimizer steps on the consensus mean, "
+                    f"which topology '{t.kind}' never forms (partial "
+                    "mixing keeps per-worker rows) — use topology "
+                    "'full', or drop the outer optimizer")
+        if self._comp() is not None and self.outer is not None:
+            raise ValueError(
+                "the outer optimizer steps on the exact consensus mean, "
+                f"which the '{self.compression.wire}' wire format never "
+                "ships — use the f32 wire, or drop the outer optimizer")
+
+    def _comp(self) -> Compression | None:
+        """The active (non-identity) compression, or None: the ``f32``
+        wire IS the uncompressed path."""
+        c = self.compression
+        if c is None or c.is_identity:
+            return None
+        return c
+
+    def _mix_topology(self) -> Topology | None:
+        """The topology whose events need the generic ``W @ plane`` mix,
+        or None when events take the mean / group-mean paths (no
+        topology, ``full``, or ``groups``)."""
+        t = self.topology
+        if t is None or t.kind not in MIX_KINDS:
+            return None
+        return t
+
+    def _all_groups(self) -> int:
+        """Group count of an all-scope mean event: 1 unless the
+        ``groups`` topology narrows it to its block mean."""
+        t = self.topology
+        if t is not None and t.kind == "groups":
+            return t.groups
+        return 1
+
+    def _event_W(self, step: int, dec_key):
+        """This event's (M, M) f32 mixing matrix on the device, or None
+        when events take the mean path; ``gossip_pairs`` draws its
+        matching from (dec_key, step)."""
+        t = self._mix_topology()
+        if t is None:
+            return None
+        return t.mixing_matrix(step, dec_key, device=self._dev)
+
+    def _sched_event_cost(self, p: int, num_workers: int):
+        """The bytes ONE worker ships per event, the currency of the
+        ``adaptive_bytes`` budget; None for every other kind."""
+        if self.schedule.kind != "adaptive_bytes":
+            return None
+        topo = self.topology or Topology.full(num_workers)
+        wire = self.compression.wire if self.compression else "f32"
+        return float(comm_bytes(topo, 1, p, wire))
 
     def init(self, params, num_workers: int, seed: int = 0) -> EngineState:
         """All workers start at ``params`` (as the paper prescribes);
-        optimizer-state planes start at zero."""
+        optimizer-state planes and the residual start at zero; the outer
+        optimizer starts at the consensus with zero velocity; ``key,
+        dec_key = split(PRNGKey(seed))`` as in the reference."""
         self._check_workers(num_workers)
         dev = self._dev
         params = tree_map(lambda x: x.to(dev), params)
@@ -160,42 +257,175 @@ class PhaseEngine:
         plane = plane.contiguous()
         opt_planes = tuple(torch.zeros_like(plane)
                            for _ in range(self.optimizer.state_planes))
-        return EngineState(spec, plane, opt_planes,
-                           spec.rounding_codes(device=dev), seed, seed, 0,
-                           self.schedule.init_sched_state())
+        codes = spec.rounding_codes(device=dev)
+        outer_state = ()
+        if self.outer is not None:
+            avg = _div(_row_sum(plane), num_workers)
+            if codes is not None:
+                avg = round_to_codes(avg, codes)
+            outer_state = (avg, torch.zeros_like(avg))
+        resid = torch.zeros_like(plane) if self._comp() else None
+        key, dec_key = rng.split(rng.PRNGKey(seed))
+        return EngineState(spec, plane, opt_planes, codes, key, dec_key, 0,
+                           self.schedule.init_sched_state(), outer_state,
+                           resid)
+
+    # ---- the averaging events ----------------------------------------------
+    def _outer_kw(self) -> dict:
+        o = self.outer
+        return dict(lr=o.lr, momentum=o.momentum, nesterov=o.nesterov)
+
+    def _flat_average(self, plane, outer_c, scope: str, W=None):
+        """ONE fused event pass on an f32 plane: ``avg_disp`` (mean or
+        group mean), ``mix_disp`` with a mixing topology, or
+        ``avg_disp_outer`` for the all-scope with an outer optimizer.
+        Returns (plane, outer state)."""
+        if scope == "inner":
+            return avg_disp(plane,
+                            groups=max(self.schedule.inner_groups, 1))[0], \
+                outer_c
+        if W is not None:
+            return mix_disp(plane, W)[0], outer_c
+        if self.outer is not None and outer_c != ():
+            plane, prev, vel, _ = avg_disp_outer(plane, *outer_c,
+                                                 **self._outer_kw())
+            return plane, (prev, vel)
+        return avg_disp(plane, groups=self._all_groups())[0], outer_c
+
+    def _plane_avg_event(self, state: EngineState, plane, outer_c,
+                         scope: str, W=None):
+        """The averaging event alone on the plane (rare schedules). On
+        planes with rounding codes the mix and the outer step take their
+        plain versions, which round through the leaf dtypes, and the mean
+        takes ``plane_average_ref``, as in the reference. Returns (plane,
+        outer state)."""
+        codes = state.codes
+        if codes is None:
+            return self._flat_average(plane, outer_c, scope, W)
+        if scope == "all" and W is not None:
+            return mix_disp_ref(plane, W, codes=codes)[0], outer_c
+        if scope == "all" and self.outer is not None and outer_c != ():
+            plane, prev, vel, _ = avg_disp_outer_ref(
+                plane, *outer_c, codes=codes, **self._outer_kw())
+            return plane, (prev, vel)
+        groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
+                  else self._all_groups())
+        return plane_average_ref(plane, groups=groups, codes=codes)[0], \
+            outer_c
+
+    def _event_uniforms(self, m: int, p: int, step: int, dec_key):
+        """The int8 stochastic-rounding uniforms of this event's rows, or
+        None for the deterministic wire formats."""
+        comp = self._comp()
+        if comp is None or not comp.stochastic:
+            return None
+        return row_uniforms(dec_key, step, range(m), p, device=self._dev)
+
+    def _compressed_plane_event(self, state: EngineState, plane, resid,
+                                scope: str, step: int, W=None):
+        """One compressed averaging / mixing event: the error-feedback
+        encode of the plane, the mean / group mean / ``W @`` of the
+        decoded plane, the residual. Returns (plane, residual)."""
+        comp = self._comp()
+        m, p = plane.shape
+        groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
+                  else self._all_groups())
+        plane, resid, _ = compressed_mix(
+            plane, resid, wire=comp.wire,
+            mode="mix" if W is not None else
+            "group" if groups > 1 else "mean",
+            groups=groups, W=W,
+            u=self._event_uniforms(m, p, step, state.dec_key),
+            codes=state.codes, error_feedback=comp.error_feedback)
+        return plane, resid
+
+    def _fused_step_average(self, state: EngineState, gplane, scalars,
+                            scope: str, step: int, W=None):
+        """The local update and, per ``scope``, the averaging event in
+        one ``opt_step`` pass: mode none / mean / group / mix, or the
+        compressed event with a wire format. The all-scope with an outer
+        optimizer runs the update alone and then ``avg_disp_outer`` (its
+        plain version on planes with codes). Returns (plane, state
+        planes, outer state, residual, dispersion)."""
+        codes = state.codes
+        kw = dict(kind=self.optimizer.plane_kind, codes=codes,
+                  **self.optimizer.plane_hypers())
+        plane, planes = state.plane, state.opt_planes
+        outer_c, resid = state.outer_state, state.resid
+        comp = self._comp()
+        if comp is not None and scope != "none":
+            m, p = plane.shape
+            groups = self._all_groups()
+            plane, planes, resid, disp = opt_step(
+                plane, gplane, planes, scalars,
+                mode=("mix" if W is not None
+                      else "group" if groups > 1 else "mean"),
+                W=W, groups=groups, wire=comp.wire, resid=resid,
+                u=self._event_uniforms(m, p, step, state.dec_key),
+                error_feedback=comp.error_feedback, **kw)
+            return plane, planes, outer_c, resid, disp
+        if scope == "none":
+            plane, planes, disp = opt_step(plane, gplane, planes, scalars,
+                                           mode="none", **kw)
+            return plane, planes, outer_c, resid, disp
+        if W is not None:
+            plane, planes, disp = opt_step(plane, gplane, planes, scalars,
+                                           mode="mix", W=W, **kw)
+            return plane, planes, outer_c, resid, disp
+        if self.outer is not None and outer_c != ():
+            plane, planes, _ = opt_step(plane, gplane, planes, scalars,
+                                        mode="none", **kw)
+            if codes is None:
+                plane, prev, vel, disp = avg_disp_outer(
+                    plane, *outer_c, **self._outer_kw())
+            else:
+                plane, prev, vel, disp = avg_disp_outer_ref(
+                    plane, *outer_c, codes=codes, **self._outer_kw())
+            return plane, planes, (prev, vel), resid, disp
+        groups = self._all_groups()
+        plane, planes, disp = opt_step(
+            plane, gplane, planes, scalars,
+            mode="group" if groups > 1 else "mean", groups=groups, **kw)
+        return plane, planes, outer_c, resid, disp
 
     # ---- one step ----------------------------------------------------------
-    def _plane_avg_event(self, state: EngineState, plane, scope: str):
-        """The averaging event alone on the plane: the fused ``avg_disp``
-        pass on f32 planes; on planes with rounding codes the plain
-        ``plane_average_ref`` (the mean rounds through the leaf dtypes),
-        as in the reference. Returns the averaged plane."""
-        groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
-                  else 1)
-        if state.codes is None:
-            return avg_disp(plane, groups=groups)[0]
-        return plane_average_ref(plane, groups=groups, codes=state.codes)[0]
-
     def _step(self, state: EngineState, batch, grads_fn, gbuf):
-        """One step; returns (state, mean loss tensor, dispersion,
-        decision code)."""
+        """One step, dispatched as the reference's flat-native step;
+        returns (state, mean loss tensor, dispersion, decision code)."""
         sched = self.schedule
         step = state.step + 1
+        # the reference splits the data key every step; the losses here
+        # take no randomness, but the key advances the same way
+        key = rng.split(state.key)[0]
         losses, _, gplane = grads_fn(state.plane, batch, out=gbuf)
-        kw = dict(kind=self.optimizer.plane_kind, codes=state.codes,
-                  **self.optimizer.plane_hypers())
         scal = self.optimizer.plane_scalars(step)
-        mode = "mean" if sched.kind == "minibatch" else "none"
-        plane, planes, disp = opt_step(state.plane, gplane,
-                                       state.opt_planes, scal, mode=mode,
-                                       **kw)
-        disp = float(disp)
-        code, sst = sched.decision_state(step, state.sched, disp)
-        if code and sched.kind != "minibatch":
-            plane = self._plane_avg_event(state, plane,
-                                          "inner" if code == 1 else "all")
-        state = state._replace(plane=plane, opt_planes=planes, step=step,
-                               sched=sst)
+        m, p = state.plane.shape
+        dec = state.dec_key
+        ec = self._sched_event_cost(p, m)
+        if sched.kind == "minibatch":
+            plane, planes, outer_c, resid, disp = self._fused_step_average(
+                state, gplane, scal, "all", step, W=self._event_W(step, dec))
+            disp = float(disp)
+            code, sst = sched.decision_state(step, state.sched, disp, dec,
+                                             event_cost=ec)
+        else:
+            plane, planes, outer_c, resid, disp = self._fused_step_average(
+                state, gplane, scal, "none", step)
+            disp = float(disp)
+            code, sst = sched.decision_state(step, state.sched, disp, dec,
+                                             event_cost=ec)
+            if code:
+                scope = "inner" if code == 1 else "all"
+                W = self._event_W(step, dec) if code == 2 else None
+                if self._comp() is not None:
+                    plane, resid = self._compressed_plane_event(
+                        state, plane, resid, scope, step, W)
+                else:
+                    plane, outer_c = self._plane_avg_event(
+                        state, plane, outer_c, scope, W)
+        state = state._replace(plane=plane, opt_planes=planes, key=key,
+                               step=step, sched=sst, outer_state=outer_c,
+                               resid=resid)
         return state, torch.mean(losses), disp, code
 
     def _stage(self, batch):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,21 +29,80 @@ BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("opt_step", "avg_disp")
+SOURCES = ("opt_step", "avg_disp", "mix_disp", "avg_disp_outer",
+           "compressed_mix")
+#: worker rows the plane kernels take (their register arrays and the
+#: shared-memory mixing matrix are sized for at most this many)
+MAX_WORKERS = 64
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 #: C signatures of the entry points (see the .cu files)
 SIGNATURES = {
     "opt_step": ("opt_step_launch",
-                 [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
                   _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _P]),
     "avg_disp": ("avg_disp_launch", [_P, _P, _P, _P, _I, _LL, _I, _P]),
+    "mix_disp": ("mix_disp_launch", [_P, _P, _P, _P, _P, _I, _LL, _P]),
+    "avg_disp_outer": ("avg_disp_outer_launch",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _F, _F,
+                        _I, _P]),
+    "compressed_mix": ("compressed_mix_launch",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
+                        _I, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
-#: what the last build did: seconds, and ptxas's resource lines per source
+#: what the last build did: seconds, the sources built, and per source
+#: ptxas's resources of each kernel (:func:`ptxas_resources`)
 build_info: dict = {}
+
+
+def _kernel_name(mangled: str) -> str:
+    """``emit_cols<64,1>`` from an Itanium-mangled kernel name: the last
+    name of its (possibly nested, anonymous) namespace path, with its
+    integer template arguments."""
+    nested = mangled.startswith("_ZN")
+    if not mangled.startswith("_Z"):
+        return mangled
+    i, name = 3 if nested else 2, None
+    while i < len(mangled) and mangled[i].isdigit():
+        digits = re.match(r"\d+", mangled[i:]).group()
+        i += len(digits)
+        name = mangled[i:i + int(digits)]
+        i += int(digits)
+        if not nested:
+            break
+    if name is None:
+        return mangled
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[a-z](\d+)E", args.group(1))) \
+            + ">"
+    return name
+
+
+def ptxas_resources(log: str) -> list[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: registers, spill stores
+    and loads, stack frame and shared memory, in bytes."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m:
+            cur.update(registers=int(m.group(1)), smem=int(m.group(2)))
+    return out
 
 
 def nvcc_path() -> str:
@@ -88,8 +148,7 @@ def build_all() -> dict:
         failed = []
         for n, (tmp, proc) in procs.items():
             log, _ = proc.communicate()
-            build_info.setdefault("ptxas", {})[n] = [
-                ln.strip() for ln in log.splitlines() if "Used" in ln]
+            build_info.setdefault("ptxas", {})[n] = ptxas_resources(log)
             if proc.returncode != 0:
                 failed.append(f"--- {n}.cu (exit {proc.returncode}):\n{log}")
             else:
@@ -113,6 +172,39 @@ def library(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
+
+
+def check_plane(what: str, name: str, t, like) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous float32 tensor
+    of ``like``'s shape on ``like``'s device."""
+    import torch
+    if (t.device != like.device or t.dtype != torch.float32
+            or t.shape != like.shape or not t.is_contiguous()):
+        raise ValueError(
+            f"{what}: {name} must be a contiguous float32 tensor of shape "
+            f"{tuple(like.shape)} on {like.device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def check_matrix(what: str, W, plane) -> None:
+    """Raise ``ValueError`` unless ``W`` is a contiguous float32 (M, M)
+    matrix on the (M, P) ``plane``'s device."""
+    import torch
+    m = plane.shape[0]
+    if (W.device != plane.device or W.dtype != torch.float32
+            or tuple(W.shape) != (m, m) or not W.is_contiguous()):
+        raise ValueError(
+            f"{what}: W must be a contiguous float32 ({m}, {m}) tensor on "
+            f"{plane.device}, got {W.dtype} {tuple(W.shape)} on "
+            f"{W.device} (contiguous={W.is_contiguous()})")
+
+
+def check_workers(what: str, m: int) -> None:
+    """Raise ``ValueError`` unless the kernels take ``m`` worker rows."""
+    if not 1 <= m <= MAX_WORKERS:
+        raise ValueError(f"{what}'s kernel takes 1..{MAX_WORKERS} worker "
+                         f"rows, got {m}")
 
 
 def check(err: int, what: str) -> None:

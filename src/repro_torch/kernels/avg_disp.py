@@ -1,20 +1,57 @@
-"""Fused worker average + dispersion over the flat (M, P) plane.
+"""The averaging events on the flat (M, P) plane, each one fused pass.
 
-The counterpart of the TPU kernel ``repro.kernels.avg_disp.avg_disp``:
-the worker mean (or the means of ``groups`` contiguous worker groups —
-the hierarchical schedule's inner event) broadcast back to every row,
-plus the Eq. 4 dispersion against the global mean, in one pass. On CUDA
-tensors it launches ``csrc/avg_disp.cu``; on CPU tensors it runs the
-plain version ``repro_torch.kernels.ref.avg_disp_ref``. A CUDA tensor
-the kernel cannot take raises.
+The counterparts of the TPU kernels of ``repro.kernels.avg_disp``:
+
+  - :func:`avg_disp`: the worker mean (or the means of ``groups``
+    contiguous worker groups — the hierarchical schedule's inner event)
+    broadcast back to every row, plus the Eq. 4 dispersion against the
+    global mean (``csrc/avg_disp.cu``);
+  - :func:`mix_disp`: the gossip mix ``W @ plane`` for a
+    doubly-stochastic (M, M) ``W``, each worker keeping its own mixed
+    row, plus the pre-mix dispersion (``csrc/mix_disp.cu``);
+  - :func:`avg_disp_outer`: the mean, the dispersion and the outer
+    optimizer's momentum step on it, broadcast (``csrc/avg_disp_outer.cu``);
+  - :func:`compressed_mix`: the error-feedback encode through a wire
+    format, the mean / group mean / mix of the decoded plane, the
+    residual and the pre-encode dispersion (``csrc/compressed_mix.cu``).
+
+On CUDA tensors each launches its kernel; on CPU tensors it runs the
+plain version in ``repro_torch.kernels.ref``. A CUDA tensor a kernel
+cannot take raises. ``avg_disp``, ``mix_disp`` and ``avg_disp_outer``
+return new tensors; ``compressed_mix`` updates the plane and the
+residual in place on the card (a full-width plane is 5.8 GB).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.opt_step import MAX_WORKERS
-from repro_torch.kernels.ref import avg_disp_ref
+from repro_torch.kernels.ref import (_WIRES, avg_disp_outer_ref,
+                                     avg_disp_ref, compressed_avg_ref,
+                                     compressed_mix_ref, mix_disp_ref)
+
+_EVENT_MODES = ("mean", "group", "mix")
+#: columns per block of compressed_mix.cu's row-statistic pass
+_STAT_COLS = 4096
+
+
+def _cuda_plane(what: str, plane) -> None:
+    if plane.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {plane.device}")
+    _build.check_workers(what, plane.shape[0])
+    _build.check_plane(what, "plane", plane, plane)
+
+
+def _scratch(plane):
+    """(dispersion partials, dispersion) for a column sweep."""
+    p = plane.shape[1]
+    return (torch.empty(-(-p // 256), dtype=torch.float32,
+                        device=plane.device),
+            torch.empty((), dtype=torch.float32, device=plane.device))
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def avg_disp(plane, *, groups: int = 1):
@@ -27,29 +64,164 @@ def avg_disp(plane, *, groups: int = 1):
         raise ValueError(f"groups={groups} must divide the {m} worker rows")
     if plane.device.type == "cpu":
         return avg_disp_ref(plane, groups=groups)
-    if plane.device.type != "cuda":
-        raise ValueError(f"avg_disp runs on cpu or cuda, not {plane.device}")
-    if not 1 <= m <= MAX_WORKERS:
-        raise ValueError(f"avg_disp's kernel takes 1..{MAX_WORKERS} worker "
-                         f"rows, got {m}")
-    if plane.dtype != torch.float32 or not plane.is_contiguous():
-        raise ValueError(f"avg_disp needs a contiguous float32 plane, got "
-                         f"{plane.dtype} (contiguous="
-                         f"{plane.is_contiguous()})")
+    _cuda_plane("avg_disp", plane)
     out = torch.empty_like(plane)
-    dpart = torch.empty(-(-p // 256), dtype=torch.float32,
-                        device=plane.device)
-    disp = torch.empty((), dtype=torch.float32, device=plane.device)
+    dpart, disp = _scratch(plane)
     lib = _build.library("avg_disp")
     with torch.cuda.device(plane.device):
         err = lib.avg_disp_launch(
             plane.data_ptr(), out.data_ptr(), dpart.data_ptr(),
-            disp.data_ptr(), m, p, groups,
-            torch.cuda.current_stream().cuda_stream)
+            disp.data_ptr(), m, p, groups, _stream())
     _build.check(err, "avg_disp")
     avg_disp.launches += 1
     return out, disp
 
 
+def mix_disp(plane, W):
+    """plane: (M, P) float32, W: (M, M) float32 doubly stochastic ->
+    (W @ plane, Eq. 4 dispersion of the input plane). Each worker keeps
+    its own mixed row. The output is a new tensor."""
+    m, p = plane.shape
+    if tuple(W.shape) != (m, m):
+        raise ValueError(f"W must be ({m}, {m}), got {tuple(W.shape)}")
+    if plane.device.type == "cpu":
+        return mix_disp_ref(plane, W)
+    _cuda_plane("mix_disp", plane)
+    _build.check_matrix("mix_disp", W, plane)
+    out = torch.empty_like(plane)
+    dpart, disp = _scratch(plane)
+    lib = _build.library("mix_disp")
+    with torch.cuda.device(plane.device):
+        err = lib.mix_disp_launch(
+            plane.data_ptr(), W.data_ptr(), out.data_ptr(),
+            dpart.data_ptr(), disp.data_ptr(), m, p, _stream())
+    _build.check(err, "mix_disp")
+    mix_disp.launches += 1
+    return out, disp
+
+
+def avg_disp_outer(plane, prev_avg, vel, *, lr: float, momentum: float,
+                   nesterov: bool = True):
+    """Fused all-average + dispersion + outer momentum step. plane:
+    (M, P) f32; prev_avg/vel: (P,) f32. Returns (averaged plane,
+    new_avg, new_vel, dispersion), all new tensors."""
+    m, p = plane.shape
+    for name, t in (("prev_avg", prev_avg), ("vel", vel)):
+        if tuple(t.shape) != (p,):
+            raise ValueError(f"{name} must be ({p},), got {tuple(t.shape)}")
+    kw = dict(lr=lr, momentum=momentum, nesterov=nesterov)
+    if plane.device.type == "cpu":
+        return avg_disp_outer_ref(plane, prev_avg, vel, **kw)
+    _cuda_plane("avg_disp_outer", plane)
+    _build.check_plane("avg_disp_outer", "prev_avg", prev_avg, plane[0])
+    _build.check_plane("avg_disp_outer", "vel", vel, plane[0])
+    out = torch.empty_like(plane)
+    new_avg, new_vel = torch.empty_like(prev_avg), torch.empty_like(vel)
+    dpart, disp = _scratch(plane)
+    lib = _build.library("avg_disp_outer")
+    with torch.cuda.device(plane.device):
+        err = lib.avg_disp_outer_launch(
+            plane.data_ptr(), prev_avg.data_ptr(), vel.data_ptr(),
+            out.data_ptr(), new_avg.data_ptr(), new_vel.data_ptr(),
+            dpart.data_ptr(), disp.data_ptr(), m, p, lr, momentum,
+            int(nesterov), _stream())
+    _build.check(err, "avg_disp_outer")
+    avg_disp_outer.launches += 1
+    return out, new_avg, new_vel, disp
+
+
+def _check_mix(mode: str, W, m: int) -> None:
+    """Mode "mix" takes an (M, M) ``W``, and only mode "mix" does."""
+    if (W is not None) != (mode == "mix"):
+        raise ValueError("mode 'mix' takes the mixing matrix W, and only "
+                         "mode 'mix' does")
+    if W is not None and tuple(W.shape) != (m, m):
+        raise ValueError(f"W must be ({m}, {m}), got {tuple(W.shape)}")
+
+
+def _check_event(what: str, plane, resid, wire, u) -> None:
+    """The compressed event's arguments, on any device."""
+    if wire not in _WIRES:
+        raise ValueError(f"{what}: wire must be one of {_WIRES}, got "
+                         f"{wire!r} (f32 is the uncompressed path)")
+    if resid is None or resid.shape != plane.shape:
+        raise ValueError(f"{what}: the residual must be a plane of shape "
+                         f"{tuple(plane.shape)}")
+    if (u is not None) != (wire == "int8"):
+        raise ValueError(f"{what}: the uniforms u belong to int8, and int8 "
+                         "needs them")
+    if u is not None and u.shape != plane.shape:
+        raise ValueError(f"{what}: u must be a plane of shape "
+                         f"{tuple(plane.shape)}")
+
+
+def _compressed_event(plane, resid, *, wire, mode, groups, W, u, codes,
+                      error_feedback):
+    """Launch ``csrc/compressed_mix.cu`` on CUDA tensors: the plane and
+    the residual are updated in place. Returns the dispersion."""
+    what = "compressed_mix"
+    _cuda_plane(what, plane)
+    _build.check_plane(what, "resid", resid, plane)
+    if u is not None:
+        _build.check_plane(what, "u", u, plane)
+    if codes is not None:
+        _build.check_plane(what, "codes", codes, plane[0])
+    if W is not None:
+        _build.check_matrix(what, W, plane)
+    m, p = plane.shape
+    dev = plane.device
+    scaled = wire != "bf16"
+    rowpart = torch.empty(-(-p // _STAT_COLS) * m if scaled else 1,
+                          dtype=torch.float64, device=dev)
+    scales = torch.empty(m, dtype=torch.float32, device=dev)
+    dpart, disp = _scratch(plane)
+    lib = _build.library("compressed_mix")
+    with torch.cuda.device(dev):
+        err = lib.compressed_mix_launch(
+            plane.data_ptr(), resid.data_ptr(),
+            u.data_ptr() if u is not None else None,
+            codes.data_ptr() if codes is not None else None,
+            W.data_ptr() if W is not None else None,
+            rowpart.data_ptr(), scales.data_ptr(), dpart.data_ptr(),
+            disp.data_ptr(), m, p, _WIRES.index(wire),
+            _EVENT_MODES.index(mode), groups, int(error_feedback),
+            _stream())
+    _build.check(err, what)
+    return disp
+
+
+def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
+                   W=None, u=None, codes=None, error_feedback: bool = True):
+    """Compressed averaging / mixing event on the (M, P) plane: the
+    error-feedback encode through ``wire`` (``bf16`` / ``int8`` with the
+    uniforms ``u`` / ``one_bit``), the event on the decoded plane (mode
+    "mean" | "group" | "mix" with ``W``), the ``codes`` rounding, and
+    the Eq. 4 dispersion of the input plane. Returns (plane, residual,
+    dispersion); on CUDA the plane and the residual are the inputs,
+    updated in place."""
+    if mode not in _EVENT_MODES:
+        raise ValueError(f"unknown event mode {mode!r}; pick one of "
+                         f"{_EVENT_MODES}")
+    m = plane.shape[0]
+    if groups < 1 or m % groups:
+        raise ValueError(f"groups={groups} must divide the {m} worker rows")
+    _check_mix(mode, W, m)
+    _check_event("compressed_mix", plane, resid, wire, u)
+    kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
+    if plane.device.type == "cpu":
+        if mode == "mix":
+            return compressed_mix_ref(plane, resid, W, **kw)
+        return compressed_avg_ref(plane, resid,
+                                  groups=groups if mode == "group" else 1,
+                                  **kw)
+    disp = _compressed_event(plane, resid, mode=mode, groups=groups, W=W,
+                             **kw)
+    compressed_mix.launches += 1
+    return plane, resid, disp
+
+
 #: kernel launches so far (the CPU plain path does not count)
 avg_disp.launches = 0
+mix_disp.launches = 0
+avg_disp_outer.launches = 0
+compressed_mix.launches = 0

@@ -8,6 +8,18 @@ sum rounds as PyTorch's separate eager ops do); mean / group planes
 within rtol 1e-6 / atol 1e-7 on f32 columns and one dtype ulp on
 bf16/f16 columns; dispersion rtol 1e-5; two runs bitwise identical (no
 atomics). A failed check raises ``AssertionError``.
+
+The communication kernels — ``mix_disp``, ``opt_step`` mode mix,
+``avg_disp_outer``, ``compressed_mix`` and the ``opt_step`` wire path —
+are held bitwise to their plain versions: the mix is the same j-ordered
+sum of separately rounded products, the int8 quantizer the same IEEE
+division, floor and clamp. one_bit's row scale is a float64 sum in
+another order on each side, rounded to float32: the two agree unless
+the float64 sums straddle a float32 rounding tie, so one_bit is held to
+a bound instead — at most one float32 ulp of the row's scale on every
+f32 column and on the residual (a scale one ulp apart moves each
+decoded value by that ulp, and their mean or mix by no more), one dtype
+ulp on top of it on coded columns.
 """
 from __future__ import annotations
 
@@ -15,9 +27,13 @@ import math
 
 import torch
 
+from repro_torch import rng
+from repro_torch.core.compress import row_scales
 from repro_torch.kernels import ref
-from repro_torch.kernels.avg_disp import avg_disp
+from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
+                                          compressed_mix, mix_disp)
 from repro_torch.kernels.opt_step import opt_step
+from repro_torch.topology import Topology, gossip_matrix
 
 # (M, P, groups of mode "group"): ragged P against the 1024-column
 # block, every register-array size M rounds up to (4, 8, 32, 64), and
@@ -31,6 +47,13 @@ OPTS = {"sgd": ("sgd", {}), "momentum": ("momentum", {"mu": 0.9}),
         "adamw": ("adamw", {"b1": 0.9, "b2": 0.95, "eps": 1e-8,
                             "weight_decay": 0.01})}
 NSTATE = {"sgd": 0, "momentum": 1, "adamw": 2}
+# the communication kernels' (M, P, groups): every register-array size,
+# P ragged against both the 256-column sweep block and the 4096-column
+# block of compressed_mix's row-statistic pass (4097: one full block and
+# one column)
+COMM_SHAPES = [(4, 10001, 2), (8, 5003, 4), (24, 4097, 4), (64, 333, 8)]
+MIXES = ("ring", "hypercube", "gossip", "random")
+WIRES = ("bf16", "int8", "one_bit")
 
 
 def _require(cond, what: str) -> None:
@@ -108,7 +131,8 @@ def check_opt_step(name, x, g, st, scal, codes, **kw):
     want_x, want_s, want_d = ref.opt_step_ref(x, g, st, scal, codes=codes,
                                               **kw)
     got_x, got_s, got_d = run()
-    err = max_err(name, got_x, want_x, codes, exact=kw["mode"] == "none")
+    err = max_err(name, got_x, want_x, codes,
+                  exact=kw["mode"] in ("none", "mix"))
     for a, b in zip(got_s, want_s):
         max_err(f"{name}/state", a, b, exact=True)
     # freed before the second run: at full width each plane is 5.8 GB
@@ -121,6 +145,192 @@ def check_opt_step(name, x, g, st, scal, codes, **kw):
              and all(torch.equal(a, b) for a, b in zip(s2, got_s)),
              f"{name}: two runs differ")
     return err, d_k
+
+
+def mixing_matrix(name, m, dev):
+    """An (M, M) f32 doubly-stochastic W on ``dev``: a ring, a hypercube
+    (a torus where M is no power of two), a gossip matching, or a random
+    convex mix of permutation matrices."""
+    if name == "ring":
+        return Topology.ring(m).mixing_matrix(device=dev)
+    if name == "hypercube":
+        t = (Topology.hypercube(m) if m & (m - 1) == 0
+             else Topology.torus(m))
+        return t.mixing_matrix(device=dev)
+    if name == "gossip":
+        return gossip_matrix(rng.PRNGKey(m), 1, m, dev)
+    g = torch.Generator().manual_seed(m)
+    w = torch.rand(4, generator=g, dtype=torch.float64)
+    W = sum(wk / w.sum() * torch.eye(m, dtype=torch.float64)[
+        torch.randperm(m, generator=g)] for wk in w)
+    return W.float().to(dev)
+
+
+def wire_inputs(dev, m, p, seed, uniforms=True):
+    """(residual, uniforms or None) drawn on ``dev`` from ``seed``; the
+    uniforms come from a seeded ``torch.Generator`` — only an input
+    here."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.randn(m, p, device=dev, generator=g) * 1e-2
+    return r, (torch.rand(m, p, device=dev, generator=g) if uniforms
+               else None)
+
+
+def _wire_bound(v, wire):
+    """The allowed |kernel - plain| of a compressed event (module note):
+    0 but for one_bit, one f32 ulp of the largest row scale."""
+    if wire != "one_bit":
+        return 0.0
+    s = float(row_scales(v, "one_bit").max())
+    return math.ulp(s)
+
+
+def max_err_bound(name, got, want, bound, codes=None) -> float:
+    """Max |got - want| row by row; raises unless every entry is within
+    ``bound`` (plus one dtype ulp on coded columns), or equal when the
+    bound is 0."""
+    if bound == 0.0:
+        return max_err(name, got, want, exact=True)
+    worst = 0.0
+    for i in range(got.shape[0]):
+        d = (got[i] - want[i]).abs()
+        worst = max(worst, float(d.max()))
+        lim = torch.full_like(d, bound)
+        if codes is not None:
+            lim = torch.where(codes == 0.0, lim, lim + dtype_ulp(
+                torch.maximum(got[i].abs(), want[i].abs()), codes))
+        _require(bool((d <= lim).all()), f"{name}: row {i} beyond the "
+                 f"one_bit bound (max abs err {float(d.max())})")
+    return worst
+
+
+def count_quantum_flips(got, want, *, rtol, atol, max_frac=0.01) -> int:
+    """Entries of two int8-trained planes outside rtol/atol of each other,
+    counted. Where two devices' gradients differ in the last bit, int8's
+    floor(v / s + u) can land one quantum s = max|v| / 127 apart, and the
+    runs carry that entry on from there. Raises if more than
+    ``max_frac`` of the entries differ so, or any by more than two quanta
+    of the plane's largest row scale; returns the count."""
+    d = (got - want).abs()
+    out = d > atol + rtol * want.abs()
+    n = int(out.sum())
+    quantum = float(want.abs().max()) / 127.0
+    _require(n <= max_frac * want.numel(),
+             f"{n} of {want.numel()} entries beyond rtol {rtol}")
+    worst = float(d[out].max()) if n else 0.0
+    _require(worst <= 2 * quantum, f"an entry differs by {worst}, over "
+             f"two int8 quanta ({quantum})")
+    return n
+
+
+def check_mix_disp(name, x, W) -> float:
+    """Run ``mix_disp`` twice and hold it against ``mix_disp_ref``
+    bitwise. Returns the max abs error of the plane."""
+    want, want_d = ref.mix_disp_ref(x, W)
+    got, got_d = mix_disp(x, W)
+    err = max_err(name, got, want, exact=True)
+    del want
+    _require(math.isclose(float(got_d), float(want_d), rel_tol=1e-5),
+             f"{name}: dispersion {float(got_d)} vs plain {float(want_d)}")
+    got2, d2 = mix_disp(x, W)
+    _require(torch.equal(got2, got) and float(d2) == float(got_d),
+             f"{name}: two runs differ")
+    return err
+
+
+def check_avg_disp_outer(name, x, prev, vel, **kw) -> float:
+    """Run ``avg_disp_outer`` twice and hold the plane and the outer
+    state bitwise against ``avg_disp_outer_ref``. Returns the max abs
+    error."""
+    want = ref.avg_disp_outer_ref(x, prev, vel, **kw)
+    got = avg_disp_outer(x, prev, vel, **kw)
+    err = max_err(name, got[0], want[0], exact=True)
+    for a, b, what in ((got[1], want[1], "avg"), (got[2], want[2], "vel")):
+        _require(torch.equal(a, b), f"{name}: new {what} not bitwise equal")
+    _require(math.isclose(float(got[3]), float(want[3]), rel_tol=1e-5),
+             f"{name}: dispersion {float(got[3])} vs plain "
+             f"{float(want[3])}")
+    del want
+    again = avg_disp_outer(x, prev, vel, **kw)
+    _require(all(torch.equal(a, b) for a, b in zip(again, got)),
+             f"{name}: two runs differ")
+    return err
+
+
+def check_compressed(name, x, r, *, wire, mode, groups=1, W=None, u=None,
+                     codes=None, error_feedback=True) -> float:
+    """Run ``compressed_mix`` twice on fresh copies of the plane and the
+    residual (it updates both in place) and hold both against the plain
+    event, bitwise (one_bit: the bound of the module note). Returns the
+    max abs error."""
+    kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
+    if mode == "mix":
+        want_x, want_r, want_d = ref.compressed_mix_ref(x, r, W, **kw)
+    else:
+        want_x, want_r, want_d = ref.compressed_avg_ref(
+            x, r, groups=groups if mode == "group" else 1, **kw)
+    bound = _wire_bound(x + r if error_feedback else x, wire)
+
+    def run():
+        xk, rk = x.clone(), r.clone()
+        out = compressed_mix(xk, rk, mode=mode, groups=groups, W=W, **kw)
+        # the kernel updates in place; the plain version (CPU) does not
+        _require((out[0] is xk and out[1] is rk) or not xk.is_cuda,
+                 f"{name}: plane / residual not updated in place")
+        return out
+
+    got_x, got_r, got_d = run()
+    err = max(max_err_bound(name, got_x, want_x, bound, codes),
+              max_err_bound(f"{name}/resid", got_r, want_r, bound))
+    del want_x, want_r
+    _require(math.isclose(float(got_d), float(want_d), rel_tol=1e-5),
+             f"{name}: dispersion {float(got_d)} vs plain {float(want_d)}")
+    x2, r2, d2 = run()
+    _require(torch.equal(x2, got_x) and torch.equal(r2, got_r)
+             and float(d2) == float(got_d), f"{name}: two runs differ")
+    return err
+
+
+def check_opt_step_wire(name, x, g, st, scal, codes, r, u, **kw) -> float:
+    """The ``opt_step`` wire path run twice on fresh copies of x, the
+    state planes and the residual, against ``opt_step_ref``: state
+    planes bitwise, plane and residual bitwise (one_bit: the bound of the
+    module note, taken on the plain version's updated plane). Returns
+    the max abs error."""
+    def run():
+        xk, rk = x.clone(), r.clone()
+        sk = tuple(s.clone() for s in st)
+        out = opt_step(xk, g, sk, scal, codes=codes, resid=rk, u=u, **kw)
+        _require((out[0] is xk and out[2] is rk) or not xk.is_cuda,
+                 f"{name}: plane / residual not updated in place")
+        return out
+
+    want_x, want_s, want_r, want_d = ref.opt_step_ref(
+        x, g, st, scal, codes=codes, resid=r, u=u, **kw)
+    bound = 0.0
+    if kw["wire"] == "one_bit":
+        upd = ref.plane_update_ref(x, g, st, scal, codes=codes,
+                                   **{k: v for k, v in kw.items()
+                                      if k in ("kind", "mu", "nesterov",
+                                               "b1", "b2", "eps",
+                                               "weight_decay")})[0]
+        v = upd + r if kw.get("error_feedback", True) else upd
+        bound = _wire_bound(v, "one_bit")
+        del upd, v
+    got_x, got_s, got_r, got_d = run()
+    err = max(max_err_bound(name, got_x, want_x, bound, codes),
+              max_err_bound(f"{name}/resid", got_r, want_r, bound))
+    for a, b in zip(got_s, want_s):
+        max_err(f"{name}/state", a, b, exact=True)
+    del want_x, want_s, want_r
+    _require(math.isclose(float(got_d), float(want_d), rel_tol=1e-5),
+             f"{name}: dispersion {float(got_d)} vs plain {float(want_d)}")
+    x2, s2, r2, d2 = run()
+    _require(torch.equal(x2, got_x) and torch.equal(r2, got_r)
+             and float(d2) == float(got_d)
+             and all(torch.equal(a, b) for a, b in zip(s2, got_s)),
+             f"{name}: two runs differ")
+    return err
 
 
 def check_avg_disp(name, x, groups) -> float:
@@ -138,10 +348,72 @@ def check_avg_disp(name, x, groups) -> float:
     return err
 
 
+def comm_sweep(dev) -> tuple[int, dict]:
+    """The communication kernels over ``COMM_SHAPES``: ``mix_disp`` and
+    ``opt_step`` mode mix under every W of ``MIXES``, ``avg_disp_outer``
+    with Nesterov on and off, and ``compressed_mix`` and the ``opt_step``
+    wire path over every wire x mean / group / mix x codes x error
+    feedback. Returns (number of cases, max abs error per kernel)."""
+    err = {"opt_step": 0.0, "mix_disp": 0.0, "avg_disp_outer": 0.0,
+           "compressed_mix": 0.0}
+    n = 0
+    opts = list(OPTS)
+    for m, p, groups in COMM_SHAPES:
+        for k, wname in enumerate(MIXES):
+            W = mixing_matrix(wname, m, dev)
+            x = make_inputs(dev, m, p, "sgd", seed=2000 + n)[0]
+            e = check_mix_disp(f"mix_disp/{wname}-M{m}P{p}", x, W)
+            err["mix_disp"] = max(err["mix_disp"], e)
+            n += 1
+            kind, hyp = OPTS[opts[k]]
+            for codes_kind in (None, "mixed"):
+                x, g, st, scal, codes = make_inputs(dev, m, p, kind,
+                                                    codes_kind, seed=n)
+                e, _ = check_opt_step(
+                    f"opt_step/mix-{wname}-{opts[k]}-{codes_kind}-M{m}P{p}",
+                    x, g, st, scal, codes, kind=kind, mode="mix", W=W,
+                    **hyp)
+                err["opt_step"] = max(err["opt_step"], e)
+                n += 1
+        for nesterov in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(3000 + n)
+            x, prev, vel = (torch.randn(s, device=dev, generator=gen)
+                            for s in ((m, p), (p,), (p,)))
+            e = check_avg_disp_outer(
+                f"avg_disp_outer/nesterov={nesterov}-M{m}P{p}", x, prev,
+                vel, lr=0.7, momentum=0.5, nesterov=nesterov)
+            err["avg_disp_outer"] = max(err["avg_disp_outer"], e)
+            n += 1
+        W = mixing_matrix("ring", m, dev)
+        for wire in WIRES:
+            for mode in ("mean", "group", "mix"):
+                for codes_kind in (None, "mixed"):
+                    for ef in (True, False):
+                        x, g, st, scal, codes = make_inputs(
+                            dev, m, p, "momentum", codes_kind, seed=n)
+                        r, u = wire_inputs(dev, m, p, seed=n)
+                        kw = dict(wire=wire, mode=mode,
+                                  groups=groups if mode == "group" else 1,
+                                  W=W if mode == "mix" else None,
+                                  error_feedback=ef)
+                        uu = u if wire == "int8" else None
+                        tag = f"{wire}-{mode}-{codes_kind}-ef{int(ef)}-M{m}"
+                        e = check_compressed(f"compressed_mix/{tag}", x, r,
+                                             u=uu, codes=codes, **kw)
+                        err["compressed_mix"] = max(err["compressed_mix"],
+                                                    e)
+                        e = check_opt_step_wire(
+                            f"opt_step/wire-{tag}", x, g, st, scal, codes,
+                            r, uu, kind="momentum", mu=0.9, **kw)
+                        err["opt_step"] = max(err["opt_step"], e)
+                        n += 2
+    return n, err
+
+
 def sweep(dev) -> tuple[int, dict]:
     """Every (shape, optimizer, mode, codes) case of ``opt_step`` and
-    every (shape, groups) case of ``avg_disp``. Returns (number of cases,
-    max abs error per kernel)."""
+    every (shape, groups) case of ``avg_disp``, then :func:`comm_sweep`.
+    Returns (number of cases, max abs error per kernel)."""
     err = {"opt_step": 0.0, "avg_disp": 0.0}
     n = 0
     for m, p, groups in SHAPES:
@@ -162,4 +434,7 @@ def sweep(dev) -> tuple[int, dict]:
             e = check_avg_disp(f"avg_disp/g{grp}-M{m}P{p}", x, grp)
             err["avg_disp"] = max(err["avg_disp"], e)
             n += 1
-    return n, err
+    n2, err2 = comm_sweep(dev)
+    for k, v in err2.items():
+        err[k] = max(err.get(k, 0.0), v)
+    return n + n2, err

@@ -3,23 +3,32 @@
 //
 // Replaces the TPU kernel repro/kernels/opt_step.py::opt_step
 // (_opt_step_kernel, opt_step.py:46; pallas_call at :319) for kinds
-// sgd / momentum (+- Nesterov) / adamw, modes none / mean / group, with
-// optional per-column bf16/f16 rounding codes. The mix mode and the
-// compressed `wire` path are not part of this kernel.
+// sgd / momentum (+- Nesterov) / adamw, modes none / mean / group / mix,
+// with optional per-column bf16/f16 rounding codes. Mode mix (the TPU
+// kernel's :153-161) applies the doubly-stochastic (M, M) W to the
+// updated column; the dispersion stays the pre-mix one. The compressed
+// `wire` path (:101-149) is this kernel in mode none followed by the
+// compressed event of compressed_mix.cu on the updated plane (see the
+// opt_step wrapper): the update is written once and the event reads it,
+// so nothing is updated twice.
 //
 // Bound on an H100 (3.35 TB/s) at the main path's shape, M = 4 workers,
 // P = 361,821,120 (smollm-360m): the pass is memory bound. Momentum with
 // an f32 codes row reads x, g, v and the codes and writes x and v:
 // 5 * M * P * 4 + P * 4 = 30.39 GB, 9.07 ms. SGD moves 18.81 GB
 // (5.61 ms), AdamW 41.97 GB (12.53 ms). It does about 10 flops per
-// element, far below the 295 flop/byte ridge.
+// element, far below the 295 flop/byte ridge; mode mix adds 2 M flops per
+// element (8 at M = 4), still far below it, and the same bytes plus W.
 //
 // Design against that bound: every byte is touched once. One thread owns
 // one column and loops over the M rows, so the column's updated values
 // stay in registers (an M <= 64 array, fully unrolled at a compile-time
 // bound MAXM, so it never goes to local memory) for the mean, the
-// dispersion term sum_i (u_i - mean)^2 and the broadcast; nothing is
-// re-read. Neighbouring threads own neighbouring columns, so each row
+// dispersion term sum_i (u_i - mean)^2 and the broadcast or the mix;
+// nothing is re-read. In mode mix the block stages W (at most 64 x 64
+// f32, 16 KB) in shared memory once, and each thread computes
+// out_i = sum_j W_ij u_j in j order from its registers; every thread of
+// a warp reads the same W entry, a shared-memory broadcast. Neighbouring threads own neighbouring columns, so each row
 // access of a warp is one coalesced 128-byte line. x and the state
 // planes are updated IN PLACE (the caller must hold no other reference
 // to the old planes): at full width that saves 11.6 GB of transient
@@ -35,7 +44,7 @@
 namespace {
 
 enum Kind { kSgd = 0, kMomentum = 1, kAdamw = 2 };
-enum Mode { kNone = 0, kMean = 1, kGroup = 2 };
+enum Mode { kNone = 0, kMean = 1, kGroup = 2, kMix = 3 };
 
 struct Hyper {
   float lr, c1, c2, mu, b1, omb1, b2, omb2, eps, wd;
@@ -46,8 +55,11 @@ template <int MAXM, int KIND>
 __global__ void __launch_bounds__(kPlaneThreads)
 opt_step_cols(float* __restrict__ x, const float* __restrict__ g,
               float* __restrict__ s0, float* __restrict__ s1,
-              const float* __restrict__ codes, float* __restrict__ dpart,
-              int m, int64_t p, int mode, int groups, Hyper h) {
+              const float* __restrict__ codes, const float* __restrict__ w,
+              float* __restrict__ dpart, int m, int64_t p, int mode,
+              int groups, Hyper h) {
+  __shared__ float sw[MAXM * MAXM];
+  if (mode == kMix) stage_matrix(w, m, sw);
   const int64_t j = static_cast<int64_t>(blockIdx.x) * kPlaneThreads +
                     threadIdx.x;
   float dsq = 0.0f;
@@ -93,6 +105,12 @@ opt_step_cols(float* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
       for (int i = 0; i < MAXM; ++i)
         if (i < m) x[static_cast<int64_t>(i) * p + j] = u[i];
+    } else if (mode == kMix) {
+      // the column was read whole above, so it is overwritten in place
+#pragma unroll 1
+      for (int i = 0; i < m; ++i)
+        x[static_cast<int64_t>(i) * p + j] =
+            round_code(mix_row(u, sw, m, i), code);
     } else if (mode == kMean || groups == 1) {
       const float out = round_code(mean, code);
 #pragma unroll
@@ -119,28 +137,30 @@ opt_step_cols(float* __restrict__ x, const float* __restrict__ g,
 template <int MAXM>
 void launch_kind(int kind, dim3 grid, cudaStream_t st, float* x,
                  const float* g, float* s0, float* s1, const float* codes,
-                 float* dpart, int m, int64_t p, int mode, int groups,
-                 Hyper h) {
+                 const float* w, float* dpart, int m, int64_t p, int mode,
+                 int groups, Hyper h) {
   if (kind == kSgd)
     opt_step_cols<MAXM, kSgd><<<grid, kPlaneThreads, 0, st>>>(
-        x, g, s0, s1, codes, dpart, m, p, mode, groups, h);
+        x, g, s0, s1, codes, w, dpart, m, p, mode, groups, h);
   else if (kind == kMomentum)
     opt_step_cols<MAXM, kMomentum><<<grid, kPlaneThreads, 0, st>>>(
-        x, g, s0, s1, codes, dpart, m, p, mode, groups, h);
+        x, g, s0, s1, codes, w, dpart, m, p, mode, groups, h);
   else
     opt_step_cols<MAXM, kAdamw><<<grid, kPlaneThreads, 0, st>>>(
-        x, g, s0, s1, codes, dpart, m, p, mode, groups, h);
+        x, g, s0, s1, codes, w, dpart, m, p, mode, groups, h);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. Pointers are device pointers on the
-// caller's stream; s1 / codes may be null where unused. dpart holds
+// caller's stream; s1 / codes / w may be null where unused (w is the
+// row-major (m, m) mixing matrix of mode mix). dpart holds
 // ceil(P / 256) floats of scratch; disp receives the Eq. 4 dispersion.
 // Returns cudaGetLastError() after both launches (0 = success).
 extern "C" int opt_step_launch(
     float* x, const float* g, float* s0, float* s1, const float* codes,
-    float* dpart, float* disp, int m, long long p, int kind, int mode,
+    const float* w, float* dpart, float* disp, int m, long long p,
+    int kind, int mode,
     int groups, float lr, float c1, float c2, float mu, int nesterov,
     float b1, float omb1, float b2, float omb2, float eps, float wd,
     void* stream) {
@@ -148,21 +168,10 @@ extern "C" int opt_step_launch(
   const Hyper h{lr, c1, c2, mu, b1, omb1, b2, omb2, eps, wd, nesterov};
   const int64_t nblocks = (p + kPlaneThreads - 1) / kPlaneThreads;
   const dim3 grid(static_cast<unsigned>(nblocks));
-  if (m <= 4)
-    launch_kind<4>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
-                   groups, h);
-  else if (m <= 8)
-    launch_kind<8>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
-                   groups, h);
-  else if (m <= 16)
-    launch_kind<16>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
-                    groups, h);
-  else if (m <= 32)
-    launch_kind<32>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
-                    groups, h);
-  else
-    launch_kind<64>(kind, grid, st, x, g, s0, s1, codes, dpart, m, p, mode,
-                    groups, h);
+  dispatch_m(m, [&](auto t) {
+    launch_kind<decltype(t)::value>(kind, grid, st, x, g, s0, s1, codes, w,
+                                    dpart, m, p, mode, groups, h);
+  });
   sum_partials<<<1, kSumThreads, 0, st>>>(dpart, nblocks,
                                            static_cast<float>(m), disp);
   return static_cast<int>(cudaGetLastError());

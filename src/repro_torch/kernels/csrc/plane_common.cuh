@@ -1,6 +1,8 @@
 // Shared pieces of the (M, P) plane kernels: per-column dtype rounding,
-// the fixed-order block reduction of the dispersion partials, and the
-// fixed-order second pass that sums them.
+// the mixing matrix staged in shared memory and one row of its product,
+// the register-array size dispatch, the fixed-order block reduction of
+// the dispersion partials, and the fixed-order second pass that sums
+// them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +22,47 @@ __device__ __forceinline__ float round_code(float x, float code) {
   if (code == 1.0f) return __bfloat162float(__float2bfloat16_rn(x));
   if (code == 2.0f) return __half2float(__float2half_rn(x));
   return x;
+}
+
+// Copy the (m, m) mixing matrix into shared memory, then sync the block.
+// Every thread of the block must call it.
+__device__ __forceinline__ void stage_matrix(const float* __restrict__ w,
+                                             int m, float* sw) {
+  for (int k = threadIdx.x; k < m * m; k += blockDim.x) sw[k] = w[k];
+  __syncthreads();
+}
+
+// Row i of the mix: sum_k W[i, k] * u[k] for k = 0 .. m-1 in order,
+// starting from 0, each product and sum rounded on its own (-fmad=false)
+// — the arithmetic of the plain version's loop.
+template <int MAXM>
+__device__ __forceinline__ float mix_row(const float (&u)[MAXM],
+                                         const float* sw, int m, int i) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < MAXM; ++k)
+    if (k < m) acc += sw[i * m + k] * u[k];
+  return acc;
+}
+
+// Call f(MaxM<N>{}) with the smallest register-array bound N in
+// {4, 8, 16, 32, 64} that holds m worker rows.
+template <int N>
+struct MaxM {
+  static constexpr int value = N;
+};
+template <class F>
+void dispatch_m(int m, F&& f) {
+  if (m <= 4)
+    f(MaxM<4>{});
+  else if (m <= 8)
+    f(MaxM<8>{});
+  else if (m <= 16)
+    f(MaxM<16>{});
+  else if (m <= 32)
+    f(MaxM<32>{});
+  else
+    f(MaxM<64>{});
 }
 
 // Sum one float per thread over the block in a fixed tree order and

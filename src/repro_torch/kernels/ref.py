@@ -9,13 +9,20 @@ CUDA kernels use, so a plain and a kernel mean agree bitwise. The count
 is a 0-dim tensor, not a Python number: PyTorch's CUDA division by a
 host scalar multiplies by its reciprocal, which is not the IEEE quotient
 for counts such as 24.
+
+Mixing products ``W @ x`` are an explicit loop over j in order, one
+multiply and one add each, starting from 0 — not ``torch.matmul`` — the
+arithmetic of the CUDA kernels, which build with ``-fmad=false``, so a
+plain and a kernel mix agree bitwise too.
 """
 from __future__ import annotations
 
 import torch
 
 _KINDS = ("sgd", "momentum", "adamw")
-_MODES = ("none", "mean", "group")
+_MODES = ("none", "mean", "group", "mix")
+#: wire formats of the compressed event (``f32`` lowers to no wire)
+_WIRES = ("bf16", "int8", "one_bit")
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +48,36 @@ def _group_means(plane: torch.Tensor, groups: int) -> torch.Tensor:
 def _dispersion(plane: torch.Tensor, glob: torch.Tensor) -> torch.Tensor:
     """Eq. 4: mean over workers of ||w_i - w̄||², as a 0-dim f32 tensor."""
     return _div(torch.sum(torch.square(plane - glob[None])), plane.shape[0])
+
+
+def _plane_dispersion(plane: torch.Tensor) -> torch.Tensor:
+    """Eq. 4 against the plane's own worker mean."""
+    return _dispersion(plane, _div(_row_sum(plane), plane.shape[0]))
+
+
+def _mix(W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``W @ x`` for (M, M) ``W`` and (M, P) ``x``: each output row summed
+    over j in order from 0, one rounded multiply and add per term. Row
+    by row, so the temporaries are (P,) rows, not planes."""
+    m = x.shape[0]
+    out = torch.empty_like(x)
+    for i in range(m):
+        acc = torch.zeros_like(x[0])
+        for j in range(m):
+            acc += W[i, j] * x[j]
+        out[i] = acc
+    return out
+
+
+def _mean_event(q: torch.Tensor, groups: int, codes=None) -> torch.Tensor:
+    """The (group) mean of ``q``, rounded through ``codes``, broadcast
+    back to a new (M, P) plane."""
+    m, p = q.shape
+    out = (_group_means(q, groups) if groups > 1
+           else _div(_row_sum(q), m)[None, None])
+    if codes is not None:
+        out = round_to_codes(out, codes)
+    return out.expand(groups, m // groups, p).reshape(m, p).contiguous()
 
 
 def round_to_codes(x: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -103,6 +140,71 @@ def plane_average_ref(plane, *, groups: int = 1, codes=None):
     return out.contiguous(), disp  # reshape of a broadcast may be a view
 
 
+def mix_disp_ref(plane, W, *, codes=None):
+    """Gossip mixing event on the (M, P) plane: ``W @ plane`` for a
+    doubly-stochastic (M, M) ``W`` (each worker keeps its own mixed row,
+    no broadcast), the mixed rows rounded through ``codes``, plus the
+    Eq. 4 dispersion of the INPUT plane. Returns (mixed plane,
+    dispersion)."""
+    disp = _plane_dispersion(plane)
+    out = _mix(W.to(plane.device, torch.float32), plane)
+    if codes is not None:
+        out = round_to_codes(out, codes[None])
+    return out, disp
+
+
+def avg_disp_outer_ref(plane, prev_avg, vel, *, lr: float, momentum: float,
+                       nesterov: bool = True, codes=None):
+    """All-average + dispersion + the outer optimizer's momentum step:
+    the consensus mean is the outer gradient target (rounded through
+    ``codes`` first, as the tree path's leaf-dtype mean is), the updated
+    average (rounded through ``codes``) is broadcast back. The
+    dispersion is against the unrounded mean. plane: (M, P);
+    prev_avg/vel: (P,). Returns (plane, new_avg, new_vel, dispersion)."""
+    m = plane.shape[0]
+    avg = _div(_row_sum(plane), m)
+    disp = _dispersion(plane, avg)
+    if codes is not None:
+        avg = round_to_codes(avg, codes)
+    g = prev_avg - avg
+    vel = momentum * vel + g
+    step = momentum * vel + g if nesterov else vel
+    upd = prev_avg - lr * step
+    if codes is not None:
+        upd = round_to_codes(upd, codes)
+    return upd[None].expand(plane.shape).contiguous(), upd, vel, disp
+
+
+def compressed_avg_ref(plane, resid, *, wire, groups: int = 1, u=None,
+                       codes=None, error_feedback: bool = True):
+    """Compressed averaging event: error-feedback encode of the plane
+    (``repro_torch.core.compress.encode_decode``), the (group) mean of
+    the decoded ``q`` broadcast back and rounded through ``codes``; the
+    Eq. 4 dispersion of the input plane. Returns (plane, new residual,
+    dispersion)."""
+    from repro_torch.core.compress import encode_decode
+    disp = _plane_dispersion(plane)
+    q, resid = encode_decode(plane, resid, wire=wire, u=u,
+                             error_feedback=error_feedback)
+    return _mean_event(q, groups, codes), resid, disp
+
+
+def compressed_mix_ref(plane, resid, W, *, wire, u=None, codes=None,
+                       error_feedback: bool = True):
+    """Compressed gossip mixing event: error-feedback encode, then
+    ``W @ q`` on the decoded plane, rounded through ``codes``; the Eq. 4
+    dispersion of the input plane. Returns (mixed plane, new residual,
+    dispersion)."""
+    from repro_torch.core.compress import encode_decode
+    disp = _plane_dispersion(plane)
+    q, resid = encode_decode(plane, resid, wire=wire, u=u,
+                             error_feedback=error_feedback)
+    out = _mix(W.to(plane.device, torch.float32), q)
+    if codes is not None:
+        out = round_to_codes(out, codes[None])
+    return out, resid, disp
+
+
 def avg_disp_ref(plane, *, groups: int = 1):
     """Fused worker-average + dispersion on the flat (M, P) float32 plane
     (no rounding codes). Returns (averaged plane, dispersion)."""
@@ -110,20 +212,40 @@ def avg_disp_ref(plane, *, groups: int = 1):
 
 
 def opt_step_ref(plane, grads, planes, scalars, *, kind, mode="none",
-                 groups: int = 1, mu=0.9, nesterov=False, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.0, codes=None):
+                 groups: int = 1, W=None, mu=0.9, nesterov=False, b1=0.9,
+                 b2=0.95, eps=1e-8, weight_decay=0.0, codes=None,
+                 wire=None, resid=None, u=None,
+                 error_feedback: bool = True):
     """Fused local optimizer step + optional averaging event on the flat
     (M, P) plane. mode: "none" (local step), "mean" (step + worker mean
-    + broadcast) or "group" (per-group means). The Eq. 4 dispersion of
-    the post-update plane is emitted in every mode. Returns
-    (plane, new state planes, dispersion)."""
+    + broadcast), "group" (per-group means) or "mix" (step + ``W @``
+    the updated plane, each worker keeping its own mixed row). The Eq. 4
+    dispersion of the post-update plane is emitted in every mode.
+    Returns (plane, new state planes, dispersion).
+
+    ``wire`` (``bf16`` / ``int8`` / ``one_bit``) makes the event the
+    compressed one: the error-feedback encode of the post-update plane
+    (``resid`` the residual, ``u`` the int8 uniforms), the event on the
+    decoded ``q``; the return gains the residual: (plane, new state
+    planes, new residual, dispersion)."""
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
     upd, planes = plane_update_ref(
         plane, grads, planes, scalars, kind=kind, mu=mu, nesterov=nesterov,
         b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, codes=codes)
+    if wire is not None and mode != "none":
+        kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
+        if mode == "mix":
+            out, resid, disp = compressed_mix_ref(upd, resid, W, **kw)
+        else:
+            out, resid, disp = compressed_avg_ref(
+                upd, resid, groups=groups if mode == "group" else 1, **kw)
+        return out, planes, resid, disp
+    if mode == "mix":
+        out, disp = mix_disp_ref(upd, W, codes=codes)
+        return out, planes, disp
     if mode == "none":
-        return upd, planes, _dispersion(upd, _div(_row_sum(upd), upd.shape[0]))
+        return upd, planes, _plane_dispersion(upd)
     out, disp = plane_average_ref(
         upd, groups=groups if mode == "group" else 1, codes=codes)
     return out, planes, disp

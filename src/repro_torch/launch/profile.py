@@ -13,7 +13,8 @@ multiple of the averaging period, so both windows hold the same events.
   profiled step (kernel durations are not slowed by the profiler), and
   the share of the unprofiled step with no kernel running;
 - ``by_group_ms``: kernel time per step grouped as opt_step / avg_disp /
-  matmul / copy / other (elementwise, reductions, softmax);
+  mix_disp / avg_disp_outer / compressed_mix / matmul / copy / other
+  (elementwise, reductions, softmax);
 - ``top_kernels`` and ``top_cpu_ops``: the ten largest by time per step.
 
 Example (one card):
@@ -32,6 +33,9 @@ from repro_torch.launch import train
 
 GROUPS = (("opt_step", ("opt_step_cols",)),
           ("avg_disp", ("avg_disp_cols",)),
+          ("mix_disp", ("mix_disp_cols",)),
+          ("avg_disp_outer", ("avg_disp_outer_cols",)),
+          ("compressed_mix", ("row_stats", "row_scales", "emit_cols")),
           ("dispersion_sum", ("sum_partials",)),
           ("matmul", ("gemm", "sm90", "sm80", "cutlass", "xmma", "cublas",
                       "nvjet")),
@@ -100,7 +104,8 @@ def main(argv=None):
                   prof.key_averages()), key=lambda kv: -kv[1])[:10]
     out = {
         "arch": args.arch, "workers": args.workers, "batch": args.batch,
-        "seq": args.seq, "avg": args.avg, "profiled_steps": n,
+        "seq": args.seq, "avg": args.avg, "topology": args.topology,
+        "comm_dtype": args.comm_dtype, "profiled_steps": n,
         "averages": hist["averages"],
         "device": torch.cuda.get_device_name(0),
         "step_ms": step_us / 1e3,

@@ -4,7 +4,9 @@ The counterpart of ``repro.launch.train`` for the flags the port
 supports. M workers each read their own synthetic token stream
 (``token_stream(seed * 131 + i)``, the reference's streams), take local
 steps through :class:`repro_torch.core.PhaseEngine`, and average on the
-chosen schedule. Runs on CUDA unless ``--device cpu``.
+chosen schedule, over the chosen topology (``--topology``) and wire
+format (``--comm-dtype``), optionally with the outer optimizer
+(``--outer-momentum``). Runs on CUDA unless ``--device cpu``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
@@ -20,13 +22,18 @@ import numpy as np
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import AveragingSchedule, PhaseEngine
+from repro_torch.core.averaging import OuterOptimizer
+from repro_torch.core.compress import WIRE_FORMATS, Compression
 from repro_torch.data import token_stream
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params, lm_loss
 from repro_torch.optim import AdamW, Momentum
+from repro_torch.topology import KINDS as TOPOLOGY_KINDS
+from repro_torch.topology import Topology, comm_bytes
 
-AVG_KINDS = ("oneshot", "minibatch", "periodic", "hierarchical",
-             "adaptive_threshold", "adaptive_budget")
+AVG_KINDS = ("oneshot", "minibatch", "periodic", "stochastic",
+             "hierarchical", "adaptive_threshold", "adaptive_budget",
+             "adaptive_bytes")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -40,6 +47,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--avg", default="periodic", choices=AVG_KINDS)
     ap.add_argument("--phase-len", type=int, default=10)
+    ap.add_argument("--zeta", type=float, default=0.01,
+                    help="stochastic: per-step averaging probability "
+                         "(0 < zeta <= 1)")
     ap.add_argument("--inner-groups", type=int, default=2,
                     help="hierarchical averaging: number of inner worker "
                          "groups (must divide --workers)")
@@ -55,8 +65,37 @@ def make_parser() -> argparse.ArgumentParser:
                     help="adaptive_budget: max averaging events over "
                          "the budget horizon (required >= 1)")
     ap.add_argument("--budget-horizon", type=int, default=0,
-                    help="adaptive_budget: steps the budget spans "
-                         "(default 0 -> --steps)")
+                    help="adaptive_budget / adaptive_bytes: steps the "
+                         "budget spans (default 0 -> --steps)")
+    ap.add_argument("--comm-dtype", default="f32",
+                    choices=list(WIRE_FORMATS),
+                    help="wire precision of averaging/mixing events: f32 "
+                         "ships the rows uncompressed; bf16/int8/one_bit "
+                         "quantize them, int8/one_bit with an "
+                         "error-feedback residual plane")
+    ap.add_argument("--byte-budget", type=int, default=0,
+                    help="adaptive_bytes: max bytes ONE worker puts on "
+                         "the wire over the budget horizon (required "
+                         ">= the cost of one event at the chosen "
+                         "topology x --comm-dtype)")
+    ap.add_argument("--error-feedback", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="carry the error-feedback residual plane "
+                         "(required for int8/one_bit; "
+                         "--no-error-feedback is only valid for bf16)")
+    ap.add_argument("--topology", default=None,
+                    choices=list(TOPOLOGY_KINDS),
+                    help="mixing topology of the averaging events: every "
+                         "event becomes one doubly-stochastic W @ plane "
+                         "mix over this graph; 'full' is bit-identical "
+                         "to the default mean, 'groups' to the "
+                         "group-mean")
+    ap.add_argument("--topology-groups", type=int, default=2,
+                    help="--topology groups: number of block-diagonal "
+                         "worker groups (must divide --workers)")
+    ap.add_argument("--outer-momentum", type=float, default=0.0,
+                    help=">0 enables the DiLoCo-style outer optimizer "
+                         "at averaging steps")
     ap.add_argument("--optimizer", default="momentum",
                     choices=["momentum", "adamw"])
     ap.add_argument("--lr", type=float, default=0.01)
@@ -92,6 +131,32 @@ def setup(args, ap):
             ap.error(f"--comm-budget ({args.comm_budget}) cannot exceed "
                      f"the budget horizon ({horizon} steps): at most one "
                      "averaging event per step")
+    if args.avg == "stochastic" and not 0.0 < args.zeta <= 1.0:
+        ap.error(f"--avg stochastic needs 0 < --zeta <= 1, got "
+                 f"{args.zeta} (other schedules ignore --zeta)")
+    if args.avg == "adaptive_bytes" and args.byte_budget < 1:
+        ap.error("--avg adaptive_bytes needs --byte-budget >= 1 (bytes "
+                 "one worker may put on the wire over the horizon)")
+    try:
+        compression = Compression(args.comm_dtype,
+                                  error_feedback=args.error_feedback)
+    except ValueError as e:
+        ap.error(f"--comm-dtype {args.comm_dtype}: {e}")
+    if args.outer_momentum > 0 and args.comm_dtype != "f32":
+        ap.error(f"--outer-momentum steps on the exact consensus mean, "
+                 f"which a {args.comm_dtype} wire never forms — use "
+                 "--comm-dtype f32 or drop the outer optimizer")
+    topology = None
+    if args.topology:
+        try:
+            topology = Topology.build(args.topology, args.workers,
+                                      groups=args.topology_groups)
+        except ValueError as e:
+            ap.error(f"--topology {args.topology}: {e}")
+        if args.outer_momentum > 0 and args.topology != "full":
+            ap.error(f"--outer-momentum steps on the consensus mean, "
+                     f"which --topology {args.topology} never forms — "
+                     "use --topology full or drop the outer optimizer")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -102,6 +167,19 @@ def setup(args, ap):
         cfg = dataclasses.replace(cfg, dtype="float32")
     print(f"[train] {cfg.name}: {cfg.num_params()/1e6:.1f}M params, "
           f"{args.workers} workers, avg={args.avg}")
+    if args.avg == "adaptive_bytes":
+        # one event's wire cost at this topology x precision: a budget
+        # below it would never average
+        event_cost = comm_bytes(topology or Topology.full(args.workers),
+                                1, int(cfg.num_params()), args.comm_dtype)
+        if args.byte_budget < event_cost:
+            ap.error(f"--byte-budget ({args.byte_budget}) is below the "
+                     f"cost of ONE averaging event at this configuration "
+                     f"({event_cost} B/worker: "
+                     f"{args.topology or 'full'} topology, "
+                     f"{args.comm_dtype} wire, "
+                     f"{int(cfg.num_params())} params) — the schedule "
+                     "would never fire")
 
     params = init_params(cfg, args.seed, device=device)
 
@@ -111,7 +189,7 @@ def setup(args, ap):
     opt = (Momentum(lr=args.lr, mu=0.9) if args.optimizer == "momentum"
            else AdamW(lr=args.lr))
     sch = AveragingSchedule(
-        kind=args.avg, phase_len=args.phase_len,
+        kind=args.avg, phase_len=args.phase_len, zeta=args.zeta,
         inner_phase_len=args.phase_len,
         outer_phase_len=args.outer_phase_len or args.phase_len * 8,
         inner_groups=(args.inner_groups if args.avg == "hierarchical"
@@ -119,8 +197,19 @@ def setup(args, ap):
         disp_threshold=args.disp_threshold,
         disp_ema_beta=args.disp_ema_beta,
         comm_budget=args.comm_budget,
+        byte_budget=args.byte_budget,
         budget_horizon=args.budget_horizon or args.steps)
-    engine = PhaseEngine(loss_fn, opt, sch, device=str(device))
+    outer = (OuterOptimizer(lr=1.0, momentum=args.outer_momentum)
+             if args.outer_momentum > 0 else None)
+    engine = PhaseEngine(loss_fn, opt, sch, device=str(device), outer=outer,
+                         topology=topology, compression=compression)
+    if topology is not None:
+        print(f"[train] topology={topology.kind} "
+              f"(spectral gap {topology.spectral_gap:.3f}, "
+              f"{topology.comm_degree:.1f} msgs/worker/event)")
+    if not compression.is_identity:
+        print(f"[train] wire={compression.wire} "
+              f"(error_feedback={compression.error_feedback})")
 
     # per-worker independent data streams (the reference's seeds)
     streams = [token_stream(cfg.vocab_size, args.batch, args.seq,

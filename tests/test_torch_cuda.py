@@ -19,7 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import card_check as cc  # noqa: E402
-from repro_torch.kernels.avg_disp import avg_disp  # noqa: E402
+from repro_torch.kernels.avg_disp import (avg_disp,  # noqa: E402
+                                          avg_disp_outer, compressed_mix,
+                                          mix_disp)
 from repro_torch.kernels.opt_step import opt_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -66,6 +68,130 @@ def test_kernels_refuse_what_they_cannot_take(dev):
         opt_step(x, g.double(), st, scal, kind="momentum")
     with pytest.raises(ValueError, match="1..64"):
         avg_disp(torch.zeros(65, 8, device=dev))
+
+
+COMM_IDS = lambda s: f"M{s[0]}P{s[1]}"  # noqa: E731
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("wname", cc.MIXES)
+def test_mix_disp_kernel_matches_plain(dev, wname, shape):
+    m, p, _ = shape
+    x = cc.make_inputs(dev, m, p, "sgd", seed=m)[0]
+    n0 = mix_disp.launches
+    cc.check_mix_disp(wname, x, cc.mixing_matrix(wname, m, dev))
+    assert mix_disp.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("codes", [None, "mixed"], ids=["f32", "codes"])
+@pytest.mark.parametrize("wname", cc.MIXES)
+@pytest.mark.parametrize("opt", list(cc.OPTS))
+def test_opt_step_mix_kernel_matches_plain(dev, opt, wname, codes, shape):
+    m, p, _ = shape
+    kind, hyp = cc.OPTS[opt]
+    x, g, st, scal, cd = cc.make_inputs(dev, m, p, kind, codes)
+    n0 = opt_step.launches
+    cc.check_opt_step(opt, x, g, st, scal, cd, kind=kind, mode="mix",
+                      W=cc.mixing_matrix(wname, m, dev), **hyp)
+    assert opt_step.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("nesterov", [True, False])
+def test_avg_disp_outer_kernel_matches_plain(dev, nesterov, shape):
+    m, p, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(m)
+    x, prev, vel = (torch.randn(s, device=dev, generator=gen)
+                    for s in ((m, p), (p,), (p,)))
+    n0 = avg_disp_outer.launches
+    cc.check_avg_disp_outer("outer", x, prev, vel, lr=0.7, momentum=0.5,
+                            nesterov=nesterov)
+    assert avg_disp_outer.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("ef", [True, False], ids=["ef", "no-ef"])
+@pytest.mark.parametrize("codes", [None, "mixed"], ids=["f32", "codes"])
+@pytest.mark.parametrize("mode", ["mean", "group", "mix"])
+@pytest.mark.parametrize("wire", cc.WIRES)
+def test_compressed_kernels_match_plain(dev, wire, mode, codes, ef, shape):
+    """``compressed_mix`` and the ``opt_step`` wire path on one case."""
+    m, p, groups = shape
+    x, g, st, scal, cd = cc.make_inputs(dev, m, p, "momentum", codes)
+    r, u = cc.wire_inputs(dev, m, p, seed=m)
+    kw = dict(wire=wire, mode=mode, groups=groups if mode == "group" else 1,
+              W=cc.mixing_matrix("ring", m, dev) if mode == "mix" else None,
+              error_feedback=ef)
+    uu = u if wire == "int8" else None
+    n0, o0 = compressed_mix.launches, opt_step.launches
+    cc.check_compressed("compressed_mix", x, r, u=uu, codes=cd, **kw)
+    cc.check_opt_step_wire("opt_step/wire", x, g, st, scal, cd, r, uu,
+                           kind="momentum", mu=0.9, **kw)
+    assert compressed_mix.launches == n0 + 2
+    assert opt_step.launches == o0 + 2
+
+
+def test_comm_kernels_refuse_what_they_cannot_take(dev):
+    x = torch.zeros(4, 64, device=dev)
+    W = torch.eye(4, device=dev)
+    with pytest.raises(ValueError, match="W"):
+        mix_disp(x, W.double())
+    with pytest.raises(ValueError, match="W"):
+        mix_disp(x, W.cpu())
+    with pytest.raises(ValueError, match="prev_avg"):
+        avg_disp_outer(x, torch.zeros(64), torch.zeros(64, device=dev),
+                       lr=1.0, momentum=0.5)
+    with pytest.raises(ValueError, match="resid"):
+        compressed_mix(x, torch.zeros(4, 64, device=dev).t().contiguous()
+                       .t(), wire="bf16")
+    with pytest.raises(ValueError, match="u"):
+        compressed_mix(x, x.clone(), wire="int8",
+                       u=torch.zeros(4, 64, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="1..64"):
+        mix_disp(torch.zeros(65, 8, device=dev),
+                 torch.eye(65, device=dev))
+
+
+def test_engine_gossip_int8_on_card_matches_cpu(dev):
+    """The least squares under gossip_pairs + int8, periodic K=4, on the
+    card and on the CPU: the same decisions, matchings and uniforms, so
+    the same event steps; losses within rtol 1e-4, params within rtol
+    1e-4 but for entries an int8 floor put one quantum apart where the
+    two devices' gradients differ in the last bit, counted and bounded
+    (``card_check.count_quantum_flips``)."""
+    from repro_torch.core import AveragingSchedule, PhaseEngine
+    from repro_torch.core.compress import Compression
+    from repro_torch.optim import Momentum
+    from repro_torch.topology import Topology
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((512, 64)).astype(np.float32)
+    y = (X @ rng.standard_normal(64)).astype(np.float32)
+    idx = rng.integers(0, 512, (16, 8, 4))
+    batches = [{"x": X[idx[t]], "y": y[idx[t]]} for t in range(16)]
+
+    def loss(p, b, r):
+        res = b["x"] @ p["w"] - b["y"]
+        return 0.5 * torch.mean(res * res), {}
+
+    def run(device):
+        eng = PhaseEngine(loss, Momentum(lr=0.01, mu=0.9),
+                          AveragingSchedule("periodic", phase_len=4),
+                          device=device, topology=Topology.gossip_pairs(8),
+                          compression=Compression("int8"))
+        return eng.run({"w": torch.zeros(64)}, iter(batches),
+                       num_workers=8, seed=1, record_every=1,
+                       return_state=True)
+
+    n0 = compressed_mix.launches
+    (_, hg, sg), (_, hc, sc) = run("cuda"), run("cpu")
+    assert compressed_mix.launches == n0 + 4
+    assert [t for t, _ in hg["dispersion"]] == [t for t, _ in
+                                                hc["dispersion"]]
+    np.testing.assert_allclose([v for _, v in hg["loss"]],
+                               [v for _, v in hc["loss"]], rtol=1e-4)
+    cc.count_quantum_flips(sg.plane.cpu(), sc.plane, rtol=1e-4, atol=1e-6)
 
 
 def test_engine_on_card_matches_cpu(dev):

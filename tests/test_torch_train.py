@@ -55,13 +55,61 @@ def test_cli_hierarchical_on_cpu(capsys):
     ["--avg", "hierarchical", "--phase-len", "8", "--outer-phase-len", "8"],
     ["--avg", "adaptive_threshold"],
     ["--avg", "adaptive_budget"],
-    ["--avg", "stochastic"],
+    ["--avg", "stochastic", "--zeta", "0"],
     ["--avg", "adaptive_bytes"],
 ])
 def test_cli_refuses_bad_flags(argv):
     with pytest.raises(SystemExit) as e:
         train.main(["--reduced", "--steps", "2"] + argv)
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["--avg", "stochastic", "--zeta", "1.5"], "--zeta"),
+    (["--comm-dtype", "int8", "--no-error-feedback"], "error-feedback"),
+    (["--comm-dtype", "one_bit", "--no-error-feedback"], "error-feedback"),
+    (["--outer-momentum", "0.5", "--comm-dtype", "bf16"], "consensus"),
+    (["--outer-momentum", "0.5", "--topology", "ring"], "consensus"),
+    (["--topology", "ring", "--workers", "2"], ">= 3 workers"),
+    (["--topology", "torus", "--workers", "5"], "composite"),
+    (["--topology", "hypercube", "--workers", "6"], "power-of-two"),
+    (["--topology", "gossip_pairs", "--workers", "3"], "even count"),
+    (["--topology", "groups", "--topology-groups", "3"], "dividing"),
+    (["--avg", "adaptive_bytes", "--byte-budget", "100"], "below the cost"),
+], ids=lambda v: "-".join(v) if isinstance(v, list) else None)
+def test_cli_refuses_bad_communication_flags(argv, why, capsys):
+    """The reference's parse-time refusals of the topology, wire and
+    outer-optimizer flags, each with its reason, before any training."""
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu", "--reduced", "--steps", "2"] + argv)
+    assert e.value.code == 2
+    assert why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,events,line", [
+    (["--avg", "periodic", "--phase-len", "2", "--topology", "ring"], 2,
+     "[train] topology=ring (spectral gap 0.667, 2.0 msgs/worker/event)"),
+    (["--avg", "minibatch", "--topology", "gossip_pairs", "--comm-dtype",
+      "int8"], 4, "[train] wire=int8 (error_feedback=True)"),
+    (["--avg", "stochastic", "--zeta", "0.5", "--comm-dtype", "one_bit"],
+     None, "[train] wire=one_bit (error_feedback=True)"),
+    (["--avg", "periodic", "--phase-len", "2", "--outer-momentum", "0.5"],
+     2, "2 averaging ops"),
+    (["--avg", "adaptive_bytes", "--byte-budget", "100000000",
+      "--comm-dtype", "bf16", "--no-error-feedback"], None,
+     "[train] wire=bf16 (error_feedback=False)"),
+], ids=["ring", "gossip-int8-mb", "stochastic-1bit", "outer", "bytes-bf16"])
+def test_cli_communication_flags_train_on_cpu(argv, events, line, capsys):
+    final, hist, state = train.main(
+        ["--device", "cpu", "--reduced", "--steps", "4", "--workers", "4",
+         "--batch", "1", "--seq", "8"] + argv)
+    assert line in capsys.readouterr().out
+    if events is not None:
+        assert hist["averages"] == events
+    assert all(torch.isfinite(x).all() for x in
+               torch.utils._pytree.tree_leaves(final))
+    assert (state.resid is not None) == ("--comm-dtype" in argv)
+    assert (state.outer_state != ()) == ("--outer-momentum" in argv)
 
 
 def test_cli_refuses_missing_cuda():

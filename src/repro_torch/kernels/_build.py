@@ -58,38 +58,15 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_info: dict = {}
 
 
-def _kernel_name(mangled: str) -> str:
-    """``emit_cols<64,1>`` from an Itanium-mangled kernel name: the last
-    name of its (possibly nested, anonymous) namespace path, with its
-    integer template arguments."""
-    nested = mangled.startswith("_ZN")
-    if not mangled.startswith("_Z"):
-        return mangled
-    i, name = 3 if nested else 2, None
-    while i < len(mangled) and mangled[i].isdigit():
-        digits = re.match(r"\d+", mangled[i:]).group()
-        i += len(digits)
-        name = mangled[i:i + int(digits)]
-        i += int(digits)
-        if not nested:
-            break
-    if name is None:
-        return mangled
-    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
-    if args:
-        name += "<" + ",".join(re.findall(r"L[a-z](\d+)E", args.group(1))) \
-            + ">"
-    return name
-
-
 def ptxas_resources(log: str) -> list[dict]:
-    """Per kernel of an ``nvcc -Xptxas -v`` log: registers, spill stores
-    and loads, stack frame and shared memory, in bytes."""
+    """Per kernel of an ``nvcc -Xptxas -v`` log, under its mangled name
+    (``...emit_colsILi64ELi0EE...`` is ``emit_cols<64, 0>``): registers,
+    spill stores and loads, stack frame and shared memory, in bytes."""
     out, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            cur = {"kernel": _kernel_name(m.group(1))}
+            cur = {"kernel": m.group(1)}
             out.append(cur)
             continue
         if cur is None:

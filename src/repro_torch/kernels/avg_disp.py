@@ -158,7 +158,9 @@ def _check_event(what: str, plane, resid, wire, u) -> None:
 def _compressed_event(plane, resid, *, wire, mode, groups, W, u, codes,
                       error_feedback):
     """Launch ``csrc/compressed_mix.cu`` on CUDA tensors: the plane and
-    the residual are updated in place. Returns the dispersion."""
+    the residual are updated in place. Counts the launch in
+    ``compressed_mix.launches``, whichever wrapper calls it. Returns the
+    dispersion."""
     what = "compressed_mix"
     _cuda_plane(what, plane)
     _build.check_plane(what, "resid", resid, plane)
@@ -187,6 +189,7 @@ def _compressed_event(plane, resid, *, wire, mode, groups, W, u, codes,
             _EVENT_MODES.index(mode), groups, int(error_feedback),
             _stream())
     _build.check(err, what)
+    compressed_mix.launches += 1
     return disp
 
 
@@ -216,7 +219,6 @@ def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
                                   **kw)
     disp = _compressed_event(plane, resid, mode=mode, groups=groups, W=W,
                              **kw)
-    compressed_mix.launches += 1
     return plane, resid, disp
 
 

@@ -50,8 +50,10 @@ NSTATE = {"sgd": 0, "momentum": 1, "adamw": 2}
 # the communication kernels' (M, P, groups): every register-array size,
 # P ragged against both the 256-column sweep block and the 4096-column
 # block of compressed_mix's row-statistic pass (4097: one full block and
-# one column)
-COMM_SHAPES = [(4, 10001, 2), (8, 5003, 4), (24, 4097, 4), (64, 333, 8)]
+# one column), and (24, 1024), the plane the f32 main path gives mix_disp,
+# avg_disp_outer, compressed_mix and opt_step's mix and wire paths
+COMM_SHAPES = [(4, 10001, 2), (8, 5003, 4), (24, 1024, 4), (24, 4097, 4),
+               (64, 333, 8)]
 MIXES = ("ring", "hypercube", "gossip", "random")
 WIRES = ("bf16", "int8", "one_bit")
 

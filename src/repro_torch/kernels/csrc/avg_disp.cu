@@ -33,22 +33,8 @@ avg_disp_cols(const float* __restrict__ x, float* __restrict__ out,
   float dsq = 0.0f;
   if (j < p) {
     float u[MAXM];
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < MAXM; ++i) {
-      if (i < m) {
-        u[i] = x[static_cast<int64_t>(i) * p + j];
-        sum += u[i];
-      }
-    }
-    const float mean = sum / static_cast<float>(m);
-#pragma unroll
-    for (int i = 0; i < MAXM; ++i) {
-      if (i < m) {
-        const float d = u[i] - mean;
-        dsq += d * d;
-      }
-    }
+    load_column(x, m, p, j, u);
+    const float mean = column_mean_dsq(u, m, &dsq);
     if (groups == 1) {
 #pragma unroll
       for (int i = 0; i < MAXM; ++i)
@@ -82,21 +68,10 @@ extern "C" int avg_disp_launch(const float* x, float* out, float* dpart,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t nblocks = (p + kPlaneThreads - 1) / kPlaneThreads;
   const dim3 grid(static_cast<unsigned>(nblocks));
-  if (m <= 4)
-    avg_disp_cols<4><<<grid, kPlaneThreads, 0, st>>>(x, out, dpart, m, p,
-                                                     groups);
-  else if (m <= 8)
-    avg_disp_cols<8><<<grid, kPlaneThreads, 0, st>>>(x, out, dpart, m, p,
-                                                     groups);
-  else if (m <= 16)
-    avg_disp_cols<16><<<grid, kPlaneThreads, 0, st>>>(x, out, dpart, m, p,
-                                                      groups);
-  else if (m <= 32)
-    avg_disp_cols<32><<<grid, kPlaneThreads, 0, st>>>(x, out, dpart, m, p,
-                                                      groups);
-  else
-    avg_disp_cols<64><<<grid, kPlaneThreads, 0, st>>>(x, out, dpart, m, p,
-                                                      groups);
+  dispatch_m(m, [&](auto t) {
+    avg_disp_cols<decltype(t)::value><<<grid, kPlaneThreads, 0, st>>>(
+        x, out, dpart, m, p, groups);
+  });
   sum_partials<<<1, kSumThreads, 0, st>>>(dpart, nblocks,
                                            static_cast<float>(m), disp);
   return static_cast<int>(cudaGetLastError());

@@ -40,22 +40,8 @@ avg_disp_outer_cols(const float* __restrict__ x,
   float dsq = 0.0f;
   if (j < p) {
     float u[MAXM];
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < MAXM; ++i) {
-      if (i < m) {
-        u[i] = x[static_cast<int64_t>(i) * p + j];
-        sum += u[i];
-      }
-    }
-    const float mean = sum / static_cast<float>(m);
-#pragma unroll
-    for (int i = 0; i < MAXM; ++i) {
-      if (i < m) {
-        const float d = u[i] - mean;
-        dsq += d * d;
-      }
-    }
+    load_column(x, m, p, j, u);
+    const float mean = column_mean_dsq(u, m, &dsq);
     const float pa = prev[j];
     const float g = pa - mean;
     const float v = momentum * vel[j] + g;

@@ -39,22 +39,8 @@ mix_disp_cols(const float* __restrict__ x, const float* __restrict__ w,
   float dsq = 0.0f;
   if (j < p) {
     float u[MAXM];
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < MAXM; ++i) {
-      if (i < m) {
-        u[i] = x[static_cast<int64_t>(i) * p + j];
-        sum += u[i];
-      }
-    }
-    const float mean = sum / static_cast<float>(m);
-#pragma unroll
-    for (int i = 0; i < MAXM; ++i) {
-      if (i < m) {
-        const float d = u[i] - mean;
-        dsq += d * d;
-      }
-    }
+    load_column(x, m, p, j, u);
+    column_mean_dsq(u, m, &dsq);
 #pragma unroll 1
     for (int i = 0; i < m; ++i)
       out[static_cast<int64_t>(i) * p + j] = mix_row(u, sw, m, i);

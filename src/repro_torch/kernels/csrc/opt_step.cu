@@ -66,7 +66,6 @@ opt_step_cols(float* __restrict__ x, const float* __restrict__ g,
   if (j < p) {
     const float code = codes != nullptr ? codes[j] : 0.0f;
     float u[MAXM];
-    float sum = 0.0f;
 #pragma unroll
     for (int i = 0; i < MAXM; ++i) {
       if (i < m) {
@@ -88,19 +87,10 @@ opt_step_cols(float* __restrict__ x, const float* __restrict__ g,
           const float d = (m2 / h.c1) / (sqrtf(v2 / h.c2) + h.eps);
           upd = xi - h.lr * (d + h.wd * xi);
         }
-        upd = round_code(upd, code);
-        u[i] = upd;
-        sum += upd;
+        u[i] = round_code(upd, code);
       }
     }
-    const float mean = sum / static_cast<float>(m);
-#pragma unroll
-    for (int i = 0; i < MAXM; ++i) {
-      if (i < m) {
-        const float d = u[i] - mean;
-        dsq += d * d;
-      }
-    }
+    const float mean = column_mean_dsq(u, m, &dsq);
     if (mode == kNone) {
 #pragma unroll
       for (int i = 0; i < MAXM; ++i)

@@ -1,8 +1,8 @@
 // Shared pieces of the (M, P) plane kernels: per-column dtype rounding,
-// the mixing matrix staged in shared memory and one row of its product,
-// the register-array size dispatch, the fixed-order block reduction of
-// the dispersion partials, and the fixed-order second pass that sums
-// them.
+// a column loaded into registers with its mean and dispersion term, the
+// mixing matrix staged in shared memory and one row of its product, the
+// register-array size dispatch, the fixed-order block reduction of the
+// dispersion partials, and the fixed-order second pass that sums them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +22,40 @@ __device__ __forceinline__ float round_code(float x, float code) {
   if (code == 1.0f) return __bfloat162float(__float2bfloat16_rn(x));
   if (code == 2.0f) return __half2float(__float2half_rn(x));
   return x;
+}
+
+// Load column j of the m rows of the (m, p) plane x into registers.
+template <int MAXM>
+__device__ __forceinline__ void load_column(const float* __restrict__ x,
+                                            int m, int64_t p, int64_t j,
+                                            float (&u)[MAXM]) {
+#pragma unroll
+  for (int i = 0; i < MAXM; ++i)
+    if (i < m) u[i] = x[static_cast<int64_t>(i) * p + j];
+}
+
+// The mean of a column held in registers, and its Eq. 4 dispersion term
+// sum_i (u_i - mean)^2 into *dsq: both summed over i = 0 .. m-1 in order
+// from 0, each step rounded on its own (-fmad=false), as the plain
+// versions sum.
+template <int MAXM>
+__device__ __forceinline__ float column_mean_dsq(const float (&u)[MAXM],
+                                                 int m, float* dsq) {
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXM; ++i)
+    if (i < m) sum += u[i];
+  const float mean = sum / static_cast<float>(m);
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXM; ++i) {
+    if (i < m) {
+      const float d = u[i] - mean;
+      acc += d * d;
+    }
+  }
+  *dsq = acc;
+  return mean;
 }
 
 // Copy the (m, m) mixing matrix into shared memory, then sync the block.

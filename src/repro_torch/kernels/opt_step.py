@@ -105,15 +105,14 @@ def opt_step(plane, grads, planes, scalars, *, kind, mode="none",
             _MODES.index(kmode), groups, lr, c1, c2, mu, int(nesterov),
             b1, 1 - b1, b2, 1 - b2, eps, weight_decay, stream)
     _build.check(err, "opt_step")
-    if wire is not None:
-        _compressed_event(plane, resid, wire=wire, mode=mode,
-                          groups=groups, W=W, u=u, codes=codes,
-                          error_feedback=error_feedback)
     opt_step.launches += 1
-    if wire is not None:
-        return plane, tuple(planes), resid, disp
-    return plane, tuple(planes), disp
+    if wire is None:
+        return plane, tuple(planes), disp
+    _compressed_event(plane, resid, wire=wire, mode=mode, groups=groups,
+                      W=W, u=u, codes=codes, error_feedback=error_feedback)
+    return plane, tuple(planes), resid, disp
 
 
-#: kernel launches so far (the CPU plain path does not count)
+#: opt_step.cu launches so far (the CPU plain path does not count; the
+#: wire path's compressed event counts in ``compressed_mix.launches``)
 opt_step.launches = 0

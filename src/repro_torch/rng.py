@@ -18,10 +18,12 @@ it needs the same bits, so this module re-implements the pieces of
                           (key, sub = split(key); stable sort by
                           random_bits(sub, (n,)))
 
-A key is a (2,) int64 tensor holding two uint32 words. uint32
-arithmetic runs in int64 tensors masked to 32 bits (PyTorch has no
-uint32 arithmetic on every device), on whatever device the counters
-live: keys on the CPU, bulk uniforms on the plane's device.
+A key is a (2,) int64 tensor holding two uint32 words. The key
+operations (``split``, ``fold_in``) hash a handful of counters, so they
+run the same hash on Python ints, which costs microseconds per call
+where tensor ops would cost a launch each; the bulk draws
+(``random_bits``) run it in int64 tensors masked to 32 bits (PyTorch has
+no uint32 arithmetic on every device), on the device the draws are for.
 """
 from __future__ import annotations
 
@@ -35,13 +37,14 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl(v, r: int):
     return ((v << r) | (v >> (32 - r))) & _MASK
 
 
-def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+def threefry2x32(k1: int, k2: int, x1, x2):
     """The Threefry-2x32 hash (20 rounds) of the counter pairs (x1, x2)
-    under the key (k1, k2): two int64 tensors of uint32 words."""
+    under the key (k1, k2): uint32 words as Python ints or as int64
+    tensors."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x1 + ks[0]) & _MASK
     y0 = (x2 + ks[1]) & _MASK
@@ -60,10 +63,6 @@ def _words(key) -> tuple[int, int]:
     return k1, k2
 
 
-def _key(b1, b2) -> torch.Tensor:
-    return torch.stack([b1, b2], dim=-1).to(device="cpu")
-
-
 def PRNGKey(seed: int) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` in 32-bit mode: the seed as an int32,
     key words [0, seed mod 2**32]."""
@@ -77,17 +76,15 @@ def PRNGKey(seed: int) -> torch.Tensor:
 def split(key, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: a (num, 2) tensor of keys."""
     k1, k2 = _words(key)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros(num, dtype=torch.int64),
-                          torch.arange(num, dtype=torch.int64))
-    return _key(b1, b2)
+    return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
+                        dtype=torch.int64).reshape(num, 2)
 
 
 def fold_in(key, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``, ``data`` taken as a uint32."""
     k1, k2 = _words(key)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros(1, dtype=torch.int64),
-                          torch.tensor([data & _MASK]))
-    return _key(b1[0], b2[0])
+    return torch.tensor(threefry2x32(k1, k2, 0, data & _MASK),
+                        dtype=torch.int64)
 
 
 def random_bits(key, shape, *, device=None, start: int = 0) -> torch.Tensor:

@@ -435,13 +435,13 @@ def test_event_wrappers_refuse_bad_args():
 
 def test_ptxas_resources_parse_nvcc_log():
     """The build reports each kernel's registers and spills from
-    ``nvcc -Xptxas -v``: names demangled from the anonymous namespace
-    nvcc emits, integer template arguments kept."""
+    ``nvcc -Xptxas -v``, each under the entry function's name as ptxas
+    prints it."""
     from repro_torch.kernels._build import ptxas_resources
+    emit = ("_ZN50_GLOBAL__N__5b0b1f41_17_compressed_mix_cu_42f445ae9emit_"
+            "colsILi64ELi0EEEvPfS1_PKfS3_S3_S3_S1_iliii")
     log = (
-        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__5b0b1f4"
-        "1_17_compressed_mix_cu_42f445ae9emit_colsILi64ELi0EEEvPfS1_PKfS3_"
-        "S3_S3_S1_iliii' for 'sm_90a'\n"
+        f"ptxas info    : Compiling entry function '{emit}' for 'sm_90a'\n"
         "ptxas info    : Function properties for _ZN50_GLOBAL__N__5b0b1f4\n"
         "    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill "
         "loads\n"
@@ -452,7 +452,7 @@ def test_ptxas_resources_parse_nvcc_log():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 32 registers, used 1 barriers, 8192 bytes smem")
     assert ptxas_resources(log) == [
-        {"kernel": "emit_cols<64,0>", "stack": 24, "spill_stores": 24,
+        {"kernel": emit, "stack": 24, "spill_stores": 24,
          "spill_loads": 24, "registers": 254, "smem": 17408},
-        {"kernel": "sum_partials", "stack": 0, "spill_stores": 0,
+        {"kernel": "_Z12sum_partialsPKflfPf", "stack": 0, "spill_stores": 0,
          "spill_loads": 0, "registers": 32, "smem": 8192}]

@@ -11,9 +11,12 @@ Phases, each printing one JSON line:
      ``compressed_mix`` against their plain PyTorch versions over the
      sweep of ``repro_torch.kernels.card_check`` and at full width (M=4
      workers x P=361,821,120, smollm-360m), bitwise reproducible across
-     two runs, timed with CUDA events beside their memory bound; and
-     ``scaled_dot_product_attention`` at smollm-360m's attention shape,
-     the library time of the unported ``flash_attention`` kernel;
+     two runs, timed with CUDA events beside their memory bound; then
+     ``flash_attention`` and ``rglru_scan`` over card_check's serving
+     sweep (the JAX suite's shapes in float32 and bfloat16, and both
+     serving shapes) and timed at the serving shapes beside their
+     bounds, their plain versions and, for flash attention,
+     ``scaled_dot_product_attention`` (the backend that ran is named);
   3. the main path at full width: ``repro_torch.launch.train`` trains
      smollm-360m (bf16, 4 workers, Momentum) — periodic K=2, minibatch,
      minibatch over a ring (``opt_step`` mode mix), periodic K=2 over a
@@ -26,10 +29,18 @@ Phases, each printing one JSON line:
      (``opt_step`` mix + wire) and the outer optimizer
      (``avg_disp_outer``); then small runs on the card and on the CPU
      (the kernels' plain versions), which must agree;
-  5. summary: the bounds of the unported kernels, a ``kernels`` line, the
+  5. serving at full width (``repro_torch.launch.serve``, bf16, random
+     weights): recurrentgemma-2b, batch 4, a prompt of 3072 (beyond its
+     2048 window), 32 tokens generated — the prefill launches
+     ``flash_attention`` 8 times and ``rglru_scan`` 18 times, decode
+     neither; smollm-360m, batch 4, a prompt of 2048, 32 generated — 32
+     ``flash_attention`` launches; prefill ms, decode ms per token,
+     tokens/s and peak memory; the kernel path against ``impl="plain"``
+     on the card (reported, not gated); and the serve CLI once;
+  6. summary: the bound of the unported kernel, a ``kernels`` line, the
      card, then ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-4)
+Every launch count is set to 0 just before a main-path run (phases 3-5)
 and read just after; the ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
 also refuses to run without a CUDA device. All of its work happens under
@@ -52,13 +63,17 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 tensor cores, dense
 FULL_M, FULL_P = 4, 361_821_120
 NSTATE = {"sgd": 0, "momentum": 1, "adamw": 2}
-# smollm-360m's attention as the reference's --impl pallas trainer runs
-# it: batch, sequence, query heads, key/value heads, head dim
-ATTN = dict(b=4, s=64, h=15, hkv=5, hd=64)
-# the unported scans at their paths' shapes: recurrentgemma-2b's RG-LRU
-# (batch, sequence, rnn width) and rwkv6-7b's WKV (batch, sequence,
-# heads, head dim), batch 4 x sequence 64 as the trainer's defaults
-RGLRU = dict(b=4, s=64, w=2560)
+# the serving runs of phase 5: batch, prompt length, tokens generated,
+# and each prefill's kernel launches
+SERVE = {"recurrentgemma-2b": dict(batch=4, prompt=3072, gen=32,
+                                   launches={"flash_attention": 8,
+                                             "rglru_scan": 18}),
+         "smollm-360m": dict(batch=4, prompt=2048, gen=32,
+                             launches={"flash_attention": 32})}
+# rglru_scan at recurrentgemma-2b's prefill: batch, sequence, rnn width
+RGLRU = dict(b=4, s=3072, w=2560)
+# the unported WKV scan at rwkv6-7b's shape (batch, sequence, heads,
+# head dim), batch 4 x sequence 64 as the trainer's defaults
 RWKV6 = dict(b=4, s=64, h=64, n=64)
 
 
@@ -140,12 +155,23 @@ def opt_step_wire_cost(m, p, kind, wire, has_codes, mix=False):
     return nb + cb - 2 * m * p * 4, fl + cf
 
 
-def attention_cost(b, s, h, hkv, hd):
-    """q, k, v read once and the output written once, in bf16; causal
-    QKᵀ and PV: 2 * 2 * b * h * hd flops per (query, key) pair with key
-    <= query, s (s + 1) / 2 pairs."""
+def band_pairs(s, causal, window):
+    """(query, key) pairs of one (batch, head) that the mask keeps: key <
+    s, key <= query when ``causal``, key > query - window when
+    ``window`` > 0."""
+    n = 0
+    for qpos in range(s):
+        hi = qpos + 1 if causal else s
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        n += hi - lo
+    return n
+
+
+def attention_cost(b, s, h, hkv, hd, causal, window):
+    """q, k, v read once and the output written once, in bf16; QKᵀ and PV:
+    2 * 2 * b * h * hd flops per (query, key) pair of the band."""
     nbytes = (2 * b * s * h * hd + 2 * b * s * hkv * hd) * 2
-    return nbytes, 4 * b * h * hd * s * (s + 1) / 2
+    return nbytes, 4 * b * h * hd * band_pairs(s, causal, window)
 
 
 def rglru_cost(b, s, w):
@@ -163,6 +189,45 @@ def rwkv6_cost(b, s, h, n):
         7 * b * s * h * n * n
 
 
+def sdpa_time(q, k, v, cuda_time, *, causal, window):
+    """The library's yardstick for flash attention, timed but never used
+    by the port: ``scaled_dot_product_attention`` on the same inputs (the
+    key / value heads repeated to the query heads, the window as a
+    boolean band mask), under the first backend that takes them. Returns
+    (ms, backend name, max |SDPA - flash_attention|)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
+    kw = {"is_causal": causal}
+    if window > 0:
+        pos = torch.arange(q.shape[1], device=q.device)
+        band = pos[None, :] > pos[:, None] - window
+        if causal:
+            band &= pos[None, :] <= pos[:, None]
+        kw = {"attn_mask": band}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel([backend]):
+            ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, **kw), 5)
+        ours = flash_attention(q, k, v, causal=causal, window=window)
+        diff = float((out.transpose(1, 2).float() - ours.float()).abs().max())
+        return ms, backend.name, diff
+    raise RuntimeError("no scaled_dot_product_attention backend took the "
+                       "inputs")
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -175,11 +240,14 @@ def main() -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
                                               compressed_mix, mix_disp)
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.opt_step import opt_step
+    from repro_torch.kernels.rglru_scan import rglru_scan
 
     kernels = {"opt_step": opt_step, "avg_disp": avg_disp,
                "mix_disp": mix_disp, "avg_disp_outer": avg_disp_outer,
-               "compressed_mix": compressed_mix}
+               "compressed_mix": compressed_mix,
+               "flash_attention": flash_attention, "rglru_scan": rglru_scan}
     main_launches = dict.fromkeys(kernels, 0)
 
     def zero_counts():
@@ -240,10 +308,11 @@ def main() -> None:
 
     full = {}
 
-    def record(name, k_ms, p_ms, cost, **extra):
-        b_ms, b_by = bound_ms(*cost)
+    def record(name, k_ms, p_ms, cost, peak=F32_FLOPS_PER_S, **extra):
+        b_ms, b_by = bound_ms(*cost, peak=peak)
         full[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by, bytes=cost[0], **extra)
+                          bound_by=b_by, bytes=cost[0], flops=cost[1],
+                          **extra)
 
     x, g, st, scal, codes = cc.make_inputs(dev, FULL_M, FULL_P, "momentum",
                                            "bf16", seed=7, scale=1e-3)
@@ -359,20 +428,44 @@ def main() -> None:
     del x, prev, vel
     free()
 
-    # the unported flash_attention's yardstick: one PyTorch call at
-    # smollm-360m's attention shape (the port never calls it)
-    a = ATTN
-    q = torch.randn(a["b"], a["h"], a["s"], a["hd"], device=dev,
-                    dtype=torch.bfloat16, generator=gen)
-    kv = torch.randn(2, a["b"], a["hkv"], a["s"], a["hd"], device=dev,
-                     dtype=torch.bfloat16, generator=gen)
-    sdpa_ms = cuda_time(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, kv[0], kv[1], is_causal=True, enable_gqa=True), 100)
-    del q, kv
+    # the serving kernels: card_check's sweep, then each timed at its
+    # serving shape beside its bound, its plain version and (flash
+    # attention) scaled_dot_product_attention
+    t0 = time.perf_counter()
+    n_serve, serve_err = cc.serve_sweep(dev)
+    serve_sweep_s = time.perf_counter() - t0
+    err["flash_attention"] = max(serve_err["flash_attention/float32"],
+                                 serve_err["flash_attention/bfloat16"])
+    err["rglru_scan"] = serve_err["rglru_scan"]
+    free()
+    for arch, (shape, causal, window) in cc.FLASH_SERVE.items():
+        q, k, v = cc.flash_inputs(dev, shape, torch.bfloat16, seed=11)
+        fkw = dict(causal=causal, window=window)
+        k_ms = cuda_time(lambda: flash_attention(q, k, v, **fkw), 5)
+        p_ms = cuda_time(lambda: ref.flash_attention_ref(q, k, v, **fkw), 2)
+        free()
+        lib_ms, backend, lib_err = sdpa_time(q, k, v, cuda_time, **fkw)
+        free()
+        b_, s_, h_, hkv_, hd_ = shape
+        record(f"flash_attention/{arch}", k_ms, p_ms,
+               attention_cost(b_, s_, h_, hkv_, hd_, causal, window),
+               peak=BF16_FLOPS_PER_S, library_ms=lib_ms,
+               library=f"scaled_dot_product_attention ({backend})",
+               library_max_abs_diff=lib_err,
+               pairs_per_head=band_pairs(s_, causal, window))
+        del q, k, v
+        free()
+    a, b = cc.rglru_inputs(dev, (RGLRU["b"], RGLRU["s"], RGLRU["w"]), seed=12)
+    k_ms = cuda_time(lambda: rglru_scan(a, b), 10)
+    p_ms = cuda_time(lambda: ref.rglru_scan_ref(a, b), 2)
+    record("rglru_scan/recurrentgemma-2b", k_ms, p_ms, rglru_cost(**RGLRU))
+    del a, b
+    free()
     emit({"phase": "kernels_vs_plain", "sweep_cases": n_cases,
-          "sweep_s": sweep_s, "max_abs_err": err,
-          "full_width": {"M": FULL_M, "P": FULL_P, **full},
-          "sdpa_ms": sdpa_ms, "card": smi})
+          "serve_sweep_cases": n_serve, "sweep_s": sweep_s,
+          "serve_sweep_s": serve_sweep_s, "max_abs_err": err,
+          "serve_max_abs_err": serve_err,
+          "full_width": {"M": FULL_M, "P": FULL_P, **full}, "card": smi})
 
     # ---- 3. the main path at full width (bf16 smollm-360m) ----------------
     from repro_torch.launch import train
@@ -594,18 +687,76 @@ def main() -> None:
                           "reduced_lm_periodic_4": "rtol 1e-4 / atol 1e-4"},
           "card": smi})
 
-    # ---- 5. summary --------------------------------------------------------
-    unported = {}
-    for name, cost, peak in (
-            ("flash_attention", attention_cost(**ATTN), BF16_FLOPS_PER_S),
-            ("rglru_scan", rglru_cost(**RGLRU), F32_FLOPS_PER_S),
-            ("rwkv6_scan", rwkv6_cost(**RWKV6), F32_FLOPS_PER_S)):
-        b_ms, b_by = bound_ms(*cost, peak=peak)
-        unported[name] = dict(bytes=cost[0], flops=cost[1], bound_ms=b_ms,
-                              bound_by=b_by)
-    unported["flash_attention"]["library_ms"] = sdpa_ms
-    emit({"unported_bounds": unported, "shapes": {
-        "flash_attention": ATTN, "rglru_scan": RGLRU, "rwkv6_scan": RWKV6}})
+    # ---- 5. serving at full width (bf16, random weights) ------------------
+    from repro_torch.launch import serve
+    served = {}
+    for arch, run in SERVE.items():
+        cfg = get_config(arch)
+        batch, plen, gen = run["batch"], run["prompt"], run["gen"]
+        params = init_params(cfg, 0, device=dev)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                               generator=torch.Generator().manual_seed(1)
+                               ).to(dev)
+        # warm-up prefill (cuBLAS set-up, the kernels' first launches)
+        serve.prefill(cfg, params, prompt, max_len=gen)
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = serve.prefill(cfg, params, prompt, max_len=gen)
+        torch.cuda.synchronize(dev)
+        t_pre = time.perf_counter() - t0
+        pre = read_counts(run["launches"], f"serve {arch} prefill")
+        zero_counts()
+        t0 = time.perf_counter()
+        toks = serve.decode(cfg, params, logits, cache, max_len=gen)
+        torch.cuda.synchronize(dev)
+        t_dec = time.perf_counter() - t0
+        dec = read_counts({}, f"serve {arch} decode")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(tuple(toks.shape) == (batch, gen), f"{arch}: tokens "
+              f"{tuple(toks.shape)}")
+        check(0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+              f"{arch}: a token beyond the vocabulary")
+        check(bool(torch.isfinite(logits).all()), f"{arch}: logits")
+        del cache
+        free()
+        # the plain path on the card (einsum attention, the associative
+        # scan): launches none of the kernels; reported, not gated, since
+        # random-init logits over the vocabulary sit close together
+        zero_counts()
+        plogits, pcache = serve.prefill(cfg, params, prompt, max_len=gen,
+                                        impl="plain")
+        ptoks = serve.decode(cfg, params, plogits, pcache, max_len=gen)
+        read_counts({}, f"serve {arch} plain")
+        served[arch] = dict(
+            batch=batch, prompt=plen, gen=gen, params=cfg.num_params(),
+            prefill_ms=t_pre * 1e3, decode_ms_per_token=t_dec * 1e3 / gen,
+            prefill_tokens_per_s=batch * plen / t_pre,
+            decode_tokens_per_s=batch * gen / t_dec,
+            end_to_end_tokens_per_s=batch * gen / (t_pre + t_dec),
+            launches_prefill=pre, launches_decode=dec,
+            peak_memory_gb=peak_gb,
+            kernel_vs_plain_last_logits_max_abs_diff=float(
+                (logits - plogits).abs().max()),
+            kernel_vs_plain_equal_tokens=float(
+                (toks == ptoks).float().mean()),
+            tokens_first_row=toks[0, :12].tolist())
+        del params, prompt, logits, plogits, pcache, toks, ptoks
+        free()
+    # the CLI on the card, once
+    zero_counts()
+    cli_toks = serve.main(["--arch", "smollm-360m", "--batch", "2",
+                           "--prompt-len", "64", "--gen", "4"])
+    read_counts({"flash_attention": 32}, "serve CLI")
+    check(tuple(cli_toks.shape) == (2, 4), "serve CLI tokens")
+    emit({"phase": "serve", **served, "card": smi})
+
+    # ---- 6. summary --------------------------------------------------------
+    b_ms, b_by = bound_ms(*rwkv6_cost(**RWKV6), peak=F32_FLOPS_PER_S)
+    emit({"unported_bounds": {"rwkv6_scan": dict(
+        bytes=rwkv6_cost(**RWKV6)[0], flops=rwkv6_cost(**RWKV6)[1],
+        bound_ms=b_ms, bound_by=b_by)}, "shapes": {"rwkv6_scan": RWKV6}})
 
     def line(name, src, replaces, row):
         return {"name": name, "route": "cuda",
@@ -628,7 +779,12 @@ def main() -> None:
              full["avg_disp_outer/nesterov"]),
         line("compressed_mix", "compressed_mix",
              "src/repro/kernels/avg_disp.py:295",
-             full["compressed_mix/one_bit-mix-codes"])]})
+             full["compressed_mix/one_bit-mix-codes"]),
+        line("flash_attention", "flash_attention",
+             "src/repro/kernels/flash_attention.py:75",
+             full["flash_attention/recurrentgemma-2b"]),
+        line("rglru_scan", "rglru_scan", "src/repro/kernels/rglru_scan.py:46",
+             full["rglru_scan/recurrentgemma-2b"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind_name,
                                  "count": torch.cuda.device_count()}})

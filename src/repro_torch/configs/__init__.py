@@ -1,9 +1,10 @@
 """Model configs: the reference package's dataclasses, registry cut to the
-architectures the port runs (``smollm-360m``).
+architectures the port runs (``smollm-360m``, ``recurrentgemma-2b``).
 
 The dataclasses keep every field of the reference's, so a config built
 here and one built there compare field for field; the port's model code
-implements the dense-attention subset (``models/transformer.py``).
+implements the dense-attention, local-attention and RG-LRU blocks
+(``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -99,7 +100,11 @@ class ModelConfig:
         return -(-self.vocab_size // 256) * 256
 
     def num_params(self) -> int:
-        """Analytic parameter count of the dense-attention stack."""
+        """Parameter count of the blocks the port runs: every leaf of
+        ``init_params`` but the final norm (left out, as the reference's
+        analytic count leaves it out). An RG-LRU block counts its
+        block-diagonal gates ``wa``/``wi`` (2 W²/H), which the
+        reference's count leaves out too."""
         d = self.d_model
         n = self.padded_vocab * d  # embed
         if not self.tie_embeddings:
@@ -107,6 +112,11 @@ class ModelConfig:
         for spec in self.layers:
             if spec.mixer in ("attn", "attn_local"):
                 n += d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+            elif spec.mixer == "rglru":
+                w = self.rnn_width or d
+                # w_gate, w_x, w_out; conv taps + bias; wa, wi; lam
+                n += 3 * d * w + (self.conv_width + 1) * w \
+                    + 2 * w * w // self.num_heads + w
             if spec.ffn == "dense":
                 mult = 3 if self.gated_mlp else 2
                 n += mult * d * self.d_ff
@@ -114,9 +124,10 @@ class ModelConfig:
         return n
 
 
-ARCHS = ["smollm-360m"]
+ARCHS = ["smollm-360m", "recurrentgemma-2b"]
 
-_MODULES = {"smollm-360m": "smollm_360m"}
+_MODULES = {"smollm-360m": "smollm_360m",
+            "recurrentgemma-2b": "recurrentgemma_2b"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

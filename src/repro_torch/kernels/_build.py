@@ -12,6 +12,8 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` with no
 ``--use_fast_math``: every product and sum rounds on its own, exactly as
 PyTorch's separate eager ops round, so a kernel's float32 update matches
 its plain version bit for bit and cannot flip a bf16 rounding.
+``flash_attention.cu`` writes its dot products as explicit ``fmaf``
+(fused whatever the flag); it is held to a tolerance, not bitwise.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SOURCES = ("opt_step", "avg_disp", "mix_disp", "avg_disp_outer",
-           "compressed_mix")
+           "compressed_mix", "flash_attention", "rglru_scan")
 #: worker rows the plane kernels take (their register arrays and the
 #: shared-memory mixing matrix are sized for at most this many)
 MAX_WORKERS = 64
@@ -50,6 +52,10 @@ SIGNATURES = {
     "compressed_mix": ("compressed_mix_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
                         _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _P]),
+    "rglru_scan": ("rglru_scan_launch", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -76,9 +82,13 @@ def ptxas_resources(log: str) -> list[dict]:
         if m:
             cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
                        spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        m = re.search(r"Used (\d+) registers", ln)
         if m:
-            cur.update(registers=int(m.group(1)), smem=int(m.group(2)))
+            # static shared memory; a kernel with only dynamic shared
+            # memory prints none
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur.update(registers=int(m.group(1)),
+                       smem=int(sm.group(1)) if sm else 0)
     return out
 
 

@@ -9,6 +9,15 @@ within rtol 1e-6 / atol 1e-7 on f32 columns and one dtype ulp on
 bf16/f16 columns; dispersion rtol 1e-5; two runs bitwise identical (no
 atomics). A failed check raises ``AssertionError``.
 
+The serving kernels: ``flash_attention`` is held to its plain version
+within the JAX suite's tolerance — rtol / atol 2e-5 in float32 (the dot
+products are summed in another order, with FMAs, than the plain
+version's cuBLAS float32 products) and 3e-2 in bfloat16 (both round the
+float32 result to bfloat16 once, so they differ by at most about one
+bfloat16 ulp). ``rglru_scan`` is held bitwise: a multiply and an add,
+each rounded on its own, step by step, as the plain version computes.
+Both run twice and must agree bitwise with themselves (no atomics).
+
 The communication kernels — ``mix_disp``, ``opt_step`` mode mix,
 ``avg_disp_outer``, ``compressed_mix`` and the ``opt_step`` wire path —
 are held bitwise to their plain versions: the mix is the same j-ordered
@@ -32,7 +41,9 @@ from repro_torch.core.compress import row_scales
 from repro_torch.kernels import ref
 from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
                                           compressed_mix, mix_disp)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.opt_step import opt_step
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.topology import Topology, gossip_matrix
 
 # (M, P, groups of mode "group"): ragged P against the 1024-column
@@ -440,3 +451,101 @@ def sweep(dev) -> tuple[int, dict]:
     for k, v in err2.items():
         err[k] = max(err.get(k, 0.0), v)
     return n + n2, err
+
+
+# ---- the serving kernels ---------------------------------------------------
+
+#: flash_attention's (batch, sequence, heads, kv heads, head_dim): the JAX
+#: suite's four shapes (tests/test_kernels.py: GQA, MHA, MQA, a sequence
+#: below one tile) and one of head_dim 256 at a small size
+FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 4, 4, 32), (1, 384, 8, 1, 128),
+                (2, 96, 6, 3, 64), (2, 160, 4, 1, 256)]
+#: (causal, window) of the suite's sweep
+FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
+#: the serving path's shapes, bf16: recurrentgemma-2b's local attention
+#: (MQA, head_dim 256, window 2048, a prompt of 3072) and smollm-360m's
+#: (GQA 15 / 5, head_dim 64, a prompt of 2048), each as (shape, causal,
+#: window)
+FLASH_SERVE = {"recurrentgemma-2b": ((4, 3072, 10, 1, 256), True, 2048),
+               "smollm-360m": ((4, 2048, 15, 5, 64), True, 0)}
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: rglru_scan's (batch, sequence, width): the suite's three and
+#: recurrentgemma-2b's prefill of 3072 tokens at rnn width 2560
+RGLRU_SHAPES = [(2, 64, 512), (1, 300, 1024), (3, 17, 512), (4, 3072, 2560)]
+
+
+def flash_inputs(dev, shape, dtype, seed=0):
+    """(q, k, v) of ``shape`` = (B, S, H, Hkv, hd), standard normal, in
+    ``dtype`` on ``dev``."""
+    b, s, h, hkv, hd = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(sh, device=dev, generator=g).to(dtype)
+                 for sh in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+
+def check_flash(name, q, k, v, *, causal, window) -> float:
+    """Run ``flash_attention`` twice and hold it against
+    ``flash_attention_ref`` within ``FLASH_TOL``. Returns the max abs
+    error."""
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    _require(got.dtype == q.dtype and got.shape == q.shape,
+             f"{name}: output {got.dtype} {tuple(got.shape)}")
+    tol = FLASH_TOL[q.dtype]
+    d = (got.float() - want.float()).abs()
+    err = float(d.max())
+    _require(bool((d <= tol + tol * want.float().abs()).all()),
+             f"{name}: out of tolerance (max abs err {err})")
+    del want, d
+    _require(torch.equal(flash_attention(q, k, v, causal=causal,
+                                         window=window), got),
+             f"{name}: two runs differ")
+    return err
+
+
+def rglru_inputs(dev, shape, seed=0):
+    """(a, b) of ``shape`` (B, S, W), float32 on ``dev``: a uniform on
+    [0.2, 0.999), b normal with std 0.3 (the suite's draws)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(shape, device=dev, generator=g) * 0.799 + 0.2
+    return a, torch.randn(shape, device=dev, generator=g) * 0.3
+
+
+def check_rglru(name, a, b) -> float:
+    """Run ``rglru_scan`` twice and hold it bitwise against
+    ``rglru_scan_ref``. Returns the max abs error (0.0)."""
+    want = ref.rglru_scan_ref(a, b)
+    got = rglru_scan(a, b)
+    _require(torch.equal(got, want), f"{name}: not bitwise equal (max abs "
+             f"err {float((got - want).abs().max())})")
+    _require(torch.equal(rglru_scan(a, b), got), f"{name}: two runs differ")
+    return 0.0
+
+
+def serve_sweep(dev) -> tuple[int, dict]:
+    """``flash_attention`` over ``FLASH_SHAPES`` x ``FLASH_MASKS`` x
+    ``FLASH_DTYPES`` and at the ``FLASH_SERVE`` shapes, ``rglru_scan``
+    over ``RGLRU_SHAPES``. Returns (number of cases, max abs error per
+    kernel and dtype)."""
+    err = {"flash_attention/float32": 0.0, "flash_attention/bfloat16": 0.0,
+           "rglru_scan": 0.0}
+    n = 0
+    cases = [(f"flash_attention/B{sh[0]}S{sh[1]}H{sh[2]}K{sh[3]}D{sh[4]}"
+              f"-c{int(c)}w{w}", sh, c, w, dt)
+             for sh in FLASH_SHAPES for c, w in FLASH_MASKS
+             for dt in FLASH_DTYPES]
+    cases += [(f"flash_attention/{arch}", sh, c, w, torch.bfloat16)
+              for arch, (sh, c, w) in FLASH_SERVE.items()]
+    for name, sh, c, w, dt in cases:
+        q, k, v = flash_inputs(dev, sh, dt, seed=n)
+        key = f"flash_attention/{str(dt).split('.')[1]}"
+        err[key] = max(err[key], check_flash(name, q, k, v, causal=c,
+                                             window=w))
+        n += 1
+    for shape in RGLRU_SHAPES:
+        a, b = rglru_inputs(dev, shape, seed=n)
+        err["rglru_scan"] = max(err["rglru_scan"], check_rglru(
+            "rglru_scan/B{}S{}W{}".format(*shape), a, b))
+        n += 1
+    return n, err

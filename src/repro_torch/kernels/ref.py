@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels — straightforward,
 obviously-correct eager code. The CPU tests use them, the wrappers take
 them for tensors that lie on the CPU, and ``chip_smoke.py`` holds each
-CUDA kernel against them on the card.
+CUDA kernel against them on the card. The serving kernels' versions,
+:func:`flash_attention_ref` and :func:`rglru_scan_ref`, are ports of the
+reference's oracles of the same names.
 
 Column means are summed over the worker rows in row order (0, 1, ...,
 M-1, starting from 0) and then divided by the row count, the order the
@@ -16,6 +18,8 @@ arithmetic of the CUDA kernels, which build with ``-fmad=false``, so a
 plain and a kernel mix agree bitwise too.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -249,3 +253,43 @@ def opt_step_ref(plane, grads, planes, scalars, *, kind, mode="none",
     out, disp = plane_average_ref(
         upd, groups=groups if mode == "group" else 1, codes=codes)
     return out, planes, disp
+
+
+def flash_attention_ref(q, k, v, *, causal: bool, window: int = 0,
+                        scale: float | None = None):
+    """q: (B,S,H,hd), k/v: (B,S,Hkv,hd) -> (B,S,H,hd) in ``q.dtype``.
+
+    Softmax attention in float32 with a ``-inf`` mask (causal: key <=
+    query; ``window`` > 0: key > query - window) and GQA by repeating
+    each key/value head over its H / Hkv query heads. Fully masked rows
+    give 0."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kr = torch.repeat_interleave(k.float(), g, dim=2)
+    vr = torch.repeat_interleave(v.float(), g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    scores = scores.masked_fill(~mask, -math.inf)
+    p = torch.softmax(scores, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # fully masked rows
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    return out.to(q.dtype)
+
+
+def rglru_scan_ref(a, b):
+    """h_t = a_t h_{t-1} + b_t, h_0 = 0. a, b: (B,S,W) float32 -> (B,S,W)
+    float32. Sequential over S: one multiply and one add per step, each
+    rounded on its own."""
+    h = torch.zeros_like(a[:, 0])
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

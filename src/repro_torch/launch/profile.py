@@ -1,4 +1,4 @@
-"""Where a training step's time goes, on the card.
+"""Where a training step's, or a served batch's, time goes, on the card.
 
 Takes the training CLI's flags (``repro_torch.launch.train``), runs
 ``--warmup`` steps, times ``--profile-steps`` more without the profiler,
@@ -20,18 +20,30 @@ multiple of the averaging period, so both windows hold the same events.
 Example (one card):
   PYTHONPATH=src python -m repro_torch.launch.profile --arch smollm-360m \
       --workers 4 --avg periodic --phase-len 2 --warmup 2 --profile-steps 2
+
+``serve`` as the first argument profiles serving instead, with the
+serving CLI's flags (``repro_torch.launch.serve``): one warm-up
+``generate``, then the prefill and the ``--gen`` decode steps timed
+without the profiler, then each profiled again; the same fields per
+prefill and per decoded token (kernel groups add flash_attention and
+rglru_scan):
+  PYTHONPATH=src python -m repro_torch.launch.profile serve \
+      --arch recurrentgemma-2b --batch 4 --prompt-len 3072 --gen 8
 """
 from __future__ import annotations
 
 import json
+import sys
 import time
 from collections import defaultdict
 
 import torch
 
-from repro_torch.launch import train
+from repro_torch.launch import serve, train
 
-GROUPS = (("opt_step", ("opt_step_cols",)),
+GROUPS = (("flash_attention", ("flash_fwd",)),
+          ("rglru_scan", ("rglru_scan_cols",)),
+          ("opt_step", ("opt_step_cols",)),
           ("avg_disp", ("avg_disp_cols",)),
           ("mix_disp", ("mix_disp_cols",)),
           ("avg_disp_outer", ("avg_disp_outer_cols",)),
@@ -78,15 +90,37 @@ def main(argv=None):
                              state=state, record_every=1, return_state=True)
     torch.cuda.synchronize()
     step_us = (time.perf_counter() - t0) * 1e6 / n
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with _profiler() as prof:
         t0 = time.perf_counter()
         _, hist, state = engine.run(None, data, num_workers=args.workers,
                                     steps=n, state=state,
                                     record_every=1, return_state=True)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    out = {
+        "arch": args.arch, "workers": args.workers, "batch": args.batch,
+        "seq": args.seq, "avg": args.avg, "topology": args.topology,
+        "comm_dtype": args.comm_dtype, "profiled_steps": n,
+        "averages": hist["averages"],
+        "device": torch.cuda.get_device_name(0),
+        "step_ms": step_us / 1e3,
+        "profiled_step_ms": wall_us / n / 1e3,
+        **_breakdown(prof, n, step_us),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _profiler():
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    return torch.profiler.profile(activities=acts)
+
+
+def _breakdown(prof, n: int, unit_us: float) -> dict:
+    """Device busy time, idle share against ``unit_us`` (an unprofiled
+    step, prefill or token), kernels, kernel groups and the top kernels
+    and CPU ops, each per one of the ``n`` profiled units."""
     kernels, spans = defaultdict(float), []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -102,16 +136,9 @@ def main(argv=None):
         groups[_group(name)] += us
     cpu = sorted(((a.key, a.self_cpu_time_total) for a in
                   prof.key_averages()), key=lambda kv: -kv[1])[:10]
-    out = {
-        "arch": args.arch, "workers": args.workers, "batch": args.batch,
-        "seq": args.seq, "avg": args.avg, "topology": args.topology,
-        "comm_dtype": args.comm_dtype, "profiled_steps": n,
-        "averages": hist["averages"],
-        "device": torch.cuda.get_device_name(0),
-        "step_ms": step_us / 1e3,
-        "profiled_step_ms": wall_us / n / 1e3,
+    return {
         "device_busy_ms": busy / n / 1e3,
-        "idle_share": (1.0 - busy / n / step_us) if spans else None,
+        "idle_share": (1.0 - busy / n / unit_us) if spans else None,
         "kernels_per_step": len(spans) / n,
         "by_group_ms": {k: v / n / 1e3 for k, v in
                         sorted(groups.items(), key=lambda kv: -kv[1])},
@@ -119,9 +146,47 @@ def main(argv=None):
                         sorted(kernels.items(), key=lambda kv: -kv[1])[:10]],
         "top_cpu_ops": [(k[:80], v / n / 1e3) for k, v in cpu],
     }
+
+
+def serve_main(argv=None):
+    """Profile serving (module note): prints one JSON line with a
+    ``prefill`` and a ``decode`` (per token) breakdown."""
+    ap = serve.make_parser()
+    args = ap.parse_args(argv)
+    cfg, params, prompt = serve.setup(args, ap)
+    if prompt.device.type != "cuda":
+        ap.error("the profile reads device time: run it on a CUDA device")
+    gen = args.gen
+    serve.generate(cfg, params, prompt, max_len=gen)  # warm-up
+
+    def prefill():
+        return serve.prefill(cfg, params, prompt, max_len=gen)
+
+    def decode(logits, cache):
+        return serve.decode(cfg, params, logits, cache, max_len=gen)
+
+    out = {"arch": cfg.name, "batch": args.batch, "prompt": args.prompt_len,
+           "gen": gen, "device": torch.cuda.get_device_name(0)}
+    for phase, n, fn in (("prefill", 1, prefill), ("decode", gen, decode)):
+        arg = () if phase == "prefill" else prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*arg)
+        torch.cuda.synchronize()
+        unit_us = (time.perf_counter() - t0) * 1e6 / n
+        arg = () if phase == "prefill" else prefill()
+        torch.cuda.synchronize()
+        with _profiler() as prof:
+            fn(*arg)
+            torch.cuda.synchronize()
+        out[phase] = {"ms": unit_us / 1e3, **_breakdown(prof, n, unit_us)}
+        del arg
     print(json.dumps(out), flush=True)
     return out
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["serve"]:
+        serve_main(sys.argv[2:])
+    else:
+        main()

@@ -1,12 +1,23 @@
-"""GQA self-attention for training (full or sliding-window causal): the
-plain-einsum path of ``repro.models.attention`` (its ``impl="xla"``
-branch). The flash-attention kernel path is not ported yet."""
+"""GQA attention: training / prefill (full or sliding-window causal) and
+single-token decode against a KV cache — the counterpart of
+``repro.models.attention``.
+
+Two interchangeable compute paths for the full sequence (``impl``):
+  - "plain":  einsum attention (the reference's ``impl="xla"``);
+  - "kernel": ``repro_torch.kernels.flash_attention`` (the reference's
+    ``impl="pallas"``): the CUDA kernel on the card, its plain twin on
+    the CPU.
+Decode always takes the einsum path, as the reference's does. The
+reference's banded and cross-attention branches are not ported and
+raise.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
                                        rope_freqs)
 
@@ -68,20 +79,82 @@ def make_mask(sq: int, sk: int, *, causal: bool, window: int = 0,
     return m
 
 
-def attention(cfg: ModelConfig, p, x, *, layer):
-    """Full-sequence causal self-attention (training). Returns
-    (B, S, d_model)."""
+def attention(cfg: ModelConfig, p, x, *, layer, impl="plain",
+              pos_offset: int = 0, return_kv: bool = False):
+    """Full-sequence self-attention (training / prefill): (B, S, d_model),
+    or (out, (k, v)) with the post-RoPE k / v when ``return_kv`` (prefill
+    cache capture). Query i sits at absolute position pos_offset + i.
+    ``impl="kernel"`` takes the flash_attention kernel, anything else the
+    einsum path (``forward`` checks the name)."""
     b, sq, _ = x.shape
     q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
     k = _split_heads(x @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
     v = _split_heads(x @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
     if cfg.pos_emb == "rope":
-        cos, sin = rope_freqs(cfg, torch.arange(sq, device=x.device))
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        cos_k, sin_k = rope_freqs(cfg, torch.arange(sq, device=x.device))
+        cos_q, sin_q = (rope_freqs(cfg, pos_offset + torch.arange(
+            sq, device=x.device)) if pos_offset else (cos_k, sin_k))
+        q = apply_rope(q, cos_q, sin_q)
+        k = apply_rope(k, cos_k, sin_k)
     window = cfg.sliding_window if layer.mixer == "attn_local" else 0
     scale = 1.0 / np.sqrt(cfg.head_dim)
-    mask = make_mask(sq, sq, causal=layer.causal, window=window,
-                     device=x.device)[None, None]
-    out = _sdpa_xla(q, k, v, mask, scale, getattr(torch, cfg.score_dtype))
-    return out.reshape(b, sq, cfg.q_dim) @ p["wo"]
+    if impl == "kernel":
+        out = flash_attention(q, k, v, causal=layer.causal, window=window,
+                              scale=scale)
+    elif cfg.attn_banded and window > 0 and layer.causal and pos_offset == 0:
+        raise NotImplementedError("banded sliding-window attention "
+                                  "(cfg.attn_banded) is not ported")
+    else:
+        mask = make_mask(sq, sq, causal=layer.causal, window=window,
+                         q_offset=pos_offset, device=x.device)[None, None]
+        out = _sdpa_xla(q, k, v, mask, scale, getattr(torch, cfg.score_dtype))
+    out = out.reshape(b, sq, cfg.q_dim) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Decode path (single token, KV cache)
+# --------------------------------------------------------------------------
+
+def init_attn_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
+                    device="cpu"):
+    shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(cfg: ModelConfig, p, x, cache, pos: int, *, layer):
+    """x: (B, 1, d). cache: {"k","v"} (B, S, Hkv, hd). pos: the index at
+    which the new token is written; it attends to [0, pos]. The new K/V
+    are written into the cache tensors in place (the reference returns
+    updated copies); returns (out, cache).
+
+    Sliding-window layers attend only to the last ``window`` positions
+    through a slice of static size ``window`` (O(window), not O(S))."""
+    b = x.shape[0]
+    s_cache = cache["k"].shape[1]
+    q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
+    k = _split_heads(x @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
+    if cfg.pos_emb == "rope":
+        cos, sin = rope_freqs(cfg, torch.full((1,), pos, device=x.device))
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, pos] = k[:, 0].to(ck.dtype)
+    cv[:, pos] = v[:, 0].to(cv.dtype)
+
+    window = cfg.sliding_window if layer.mixer == "attn_local" else 0
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    if window and window < s_cache:
+        start = min(max(pos - window + 1, 0), s_cache - window)
+        ks, vs = ck[:, start:start + window], cv[:, start:start + window]
+        kpos = torch.arange(start, start + window, device=x.device)
+    else:
+        ks, vs = ck, cv
+        kpos = torch.arange(s_cache, device=x.device)
+    mask = (kpos <= pos)[None, None, None, :]
+    out = _sdpa_xla(q, ks, vs, mask, scale)
+    return out.reshape(b, 1, cfg.q_dim) @ p["wo"], {"k": ck, "v": cv}

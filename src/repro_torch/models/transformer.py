@@ -1,8 +1,11 @@
-"""Dense decoder-only transformer: init, full-sequence forward and the
-next-token loss — the ``attn`` + dense-FFN blocks of
-``repro.models.transformer``, over the same nested-dict params layout
-(so params convert 1:1, see ``repro_torch.convert``). Other mixers
-(recurrent, rwkv, moe, cross-attention) are not ported yet and raise.
+"""Model assembly: block stacks of dense attention, local (sliding-window)
+attention and RG-LRU recurrent mixers with dense FFNs; init, the
+full-sequence forward (training, and prefill with cache capture), the
+next-token loss and single-token decode with per-layer caches — the
+counterpart of ``repro.models.transformer``, over the same nested-dict
+params layout (so params convert 1:1, see ``repro_torch.convert``).
+Other mixers (rwkv), MoE FFNs, cross-attention and encoders are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -13,54 +16,104 @@ from repro_torch.configs import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as rec_mod
+
+_MIXERS = ("attn", "attn_local", "rglru")
+#: compute paths of the full-sequence forward: the reference's "xla" and
+#: "pallas"
+IMPLS = ("plain", "kernel")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.layers:
-        if spec.mixer not in ("attn", "attn_local") or spec.ffn != "dense" \
+        if spec.mixer not in _MIXERS or spec.ffn != "dense" \
                 or spec.cross_attn:
             raise NotImplementedError(
-                f"layer {spec} is not ported yet: repro_torch runs dense "
-                "attention blocks (ROADMAP queue 1, item 18)")
+                f"layer {spec} is not ported yet: repro_torch runs "
+                f"{_MIXERS} mixers with dense FFNs (ROADMAP queue 1, "
+                "item 18)")
     if cfg.encoder_layers or cfg.family in ("audio", "vlm"):
         raise NotImplementedError("encoder / media stacks are not ported")
 
 
-def _init_block(cfg: ModelConfig, gen, device):
-    return {"norm1": L.init_norm(cfg, device),
-            "mixer": attn_mod.init_attn(cfg, gen, device),
-            "norm2": L.init_norm(cfg, device),
-            "ffn": L.init_mlp(cfg, gen, device)}
+def _init_block(cfg: ModelConfig, spec: LayerSpec, gen, device):
+    p = {"norm1": L.init_norm(cfg, device)}
+    if spec.mixer == "rglru":
+        p["mixer"] = rec_mod.init_rglru(cfg, gen, device)
+    else:
+        p["mixer"] = attn_mod.init_attn(cfg, gen, device)
+    p["norm2"] = L.init_norm(cfg, device)
+    p["ffn"] = L.init_mlp(cfg, gen, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
-    """Random params in the config's dtype, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    """Random params in the config's dtype (RG-LRU ``lam`` in float32),
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return {
         "embed": L.init_embed(cfg, gen, dev),
         "final_norm": L.init_norm(cfg, dev),
-        "layers": [_init_block(cfg, gen, dev) for _ in cfg.layers],
+        "layers": [_init_block(cfg, spec, gen, dev) for spec in cfg.layers],
     }
 
 
-def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x):
+# --------------------------------------------------------------------------
+# Full-sequence block / forward (train & prefill)
+# --------------------------------------------------------------------------
+
+def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
+                 capture: int = 0):
+    """capture > 0: also return the decode cache of this block, with the
+    attention K/V padded to ``capture`` positions (prefill)."""
+    cache = {}
     h = L.apply_norm(cfg, p["norm1"], x)
-    x = x + attn_mod.attention(cfg, p["mixer"], h, layer=spec)
+    if spec.mixer == "rglru":
+        if capture:
+            h, cache["rglru"] = rec_mod.apply_rglru(
+                cfg, p["mixer"], h, impl=impl, return_state=True)
+        else:
+            h = rec_mod.apply_rglru(cfg, p["mixer"], h, impl=impl)
+    elif capture:
+        h, (k, v) = attn_mod.attention(cfg, p["mixer"], h, layer=spec,
+                                       impl=impl, return_kv=True)
+        pad = (0, 0, 0, 0, 0, capture - k.shape[1])
+        cache["attn"] = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    else:
+        h = attn_mod.attention(cfg, p["mixer"], h, layer=spec, impl=impl)
+    x = x + h
     h = L.apply_norm(cfg, p["norm2"], x)
-    return x + L.apply_mlp(cfg, p["ffn"], h)
+    x = x + L.apply_mlp(cfg, p["ffn"], h)
+    return (x, cache) if capture else x
 
 
-def forward(cfg: ModelConfig, params, batch):
-    """batch: {"tokens": (B, S) int}. Returns fp32 logits (B, S, V)."""
+def forward(cfg: ModelConfig, params, batch, *, impl="plain",
+            return_cache: bool = False, cache_len: int = 0):
+    """batch: {"tokens": (B, S) int}. Returns fp32 logits (B, S, V); with
+    ``return_cache`` (prefill) also a decode cache sized ``cache_len``
+    (>= S), ready for :func:`decode_step`. ``impl``: "plain" (einsum
+    attention, the associative scan) or "kernel" (the flash_attention and
+    rglru_scan kernels)."""
     _check_ported(cfg)
-    x = L.embed(cfg, params["embed"], batch["tokens"])
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    tokens = batch["tokens"]
+    x = L.embed(cfg, params["embed"], tokens)
+    capture = max(cache_len, tokens.shape[1]) if return_cache else 0
+    caches = []
     for spec, p in zip(cfg.layers, params["layers"]):
-        x = _apply_block(cfg, spec, p, x)
+        if capture:
+            x, c = _apply_block(cfg, spec, p, x, impl, capture)
+            caches.append(c)
+        else:
+            x = _apply_block(cfg, spec, p, x, impl)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return L.unembed(cfg, params["embed"], x)
+    logits = L.unembed(cfg, params["embed"], x)
+    if return_cache:
+        return logits, {"pos": tokens.shape[1], "layers": caches}
+    return logits
 
 
 def lm_loss(cfg: ModelConfig, params, batch):
@@ -78,3 +131,50 @@ def lm_loss(cfg: ModelConfig, params, batch):
     nll = -torch.gather(logp, -1, labels_c[..., None])[..., 0]
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return loss, {"ce": loss}
+
+
+# --------------------------------------------------------------------------
+# Decode (single token, per-layer caches)
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cpu"):
+    """The per-layer decode cache: {"pos": 0, "layers": [...]}, attention
+    K/V of ``seq_len`` positions, RG-LRU state and conv history."""
+    _check_ported(cfg)
+    dt = L.cdtype(cfg)
+    layers = []
+    for spec in cfg.layers:
+        if spec.mixer == "rglru":
+            layers.append({"rglru": rec_mod.init_rglru_cache(
+                cfg, batch, dt, device)})
+        else:
+            layers.append({"attn": attn_mod.init_attn_cache(
+                cfg, batch, seq_len, dt, device)})
+    return {"pos": 0, "layers": layers}
+
+
+def _decode_block(cfg: ModelConfig, spec: LayerSpec, p, x, cache, pos):
+    h = L.apply_norm(cfg, p["norm1"], x)
+    if spec.mixer == "rglru":
+        h, cache["rglru"] = rec_mod.decode_rglru(cfg, p["mixer"], h,
+                                                 cache["rglru"])
+    else:
+        h, cache["attn"] = attn_mod.decode_attention(
+            cfg, p["mixer"], h, cache["attn"], pos, layer=spec)
+    x = x + h
+    h = L.apply_norm(cfg, p["norm2"], x)
+    return x + L.apply_mlp(cfg, p["ffn"], h), cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache):
+    """tokens: (B, 1) int. Returns (logits (B, 1, V) fp32, new cache); the
+    attention K/V are written into the cache's tensors in place."""
+    pos = cache["pos"]
+    x = L.embed(cfg, params["embed"], tokens, pos_offset=pos)
+    new_layers = []
+    for spec, p, c in zip(cfg.layers, params["layers"], cache["layers"]):
+        x, c = _decode_block(cfg, spec, p, x, dict(c), pos)
+        new_layers.append(c)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(cfg, params["embed"], x)
+    return logits, {"pos": pos + 1, "layers": new_layers}

@@ -22,7 +22,9 @@ from repro_torch.kernels import card_check as cc  # noqa: E402
 from repro_torch.kernels.avg_disp import (avg_disp,  # noqa: E402
                                           avg_disp_outer, compressed_mix,
                                           mix_disp)
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.opt_step import opt_step  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +229,91 @@ def test_engine_on_card_matches_cpu(dev):
     for a, b in zip(torch.utils._pytree.tree_leaves(fg),
                     torch.utils._pytree.tree_leaves(fc)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+# ---- the serving kernels -----------------------------------------------------
+
+FLASH_CASES = [(sh, c, w, dt) for sh in cc.FLASH_SHAPES
+               for c, w in cc.FLASH_MASKS for dt in cc.FLASH_DTYPES]
+
+
+@pytest.mark.parametrize(
+    "shape,causal,window,dtype", FLASH_CASES,
+    ids=lambda v: ("B{}S{}H{}K{}D{}".format(*v) if isinstance(v, tuple)
+                   else str(v).replace("torch.", "")))
+def test_flash_attention_kernel_matches_plain(dev, shape, causal, window,
+                                              dtype):
+    q, k, v = cc.flash_inputs(dev, shape, dtype)
+    n0 = flash_attention.launches
+    cc.check_flash("flash", q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n0 + 2
+
+
+@pytest.mark.parametrize("arch", list(cc.FLASH_SERVE))
+def test_flash_attention_kernel_at_serving_shape(dev, arch):
+    shape, causal, window = cc.FLASH_SERVE[arch]
+    q, k, v = cc.flash_inputs(dev, shape, torch.bfloat16)
+    cc.check_flash(arch, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("shape", cc.RGLRU_SHAPES,
+                         ids=lambda s: "B{}S{}W{}".format(*s))
+def test_rglru_scan_kernel_matches_plain(dev, shape):
+    a, b = cc.rglru_inputs(dev, shape)
+    n0 = rglru_scan.launches
+    cc.check_rglru("rglru", a, b)
+    assert rglru_scan.launches == n0 + 2
+
+
+def test_serving_kernels_refuse_what_they_cannot_take(dev):
+    q, k, v = cc.flash_inputs(dev, (1, 16, 4, 2, 32), torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :16], k[..., :16], v[..., :16])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="on cuda"):
+        flash_attention(q, k.cpu(), v)
+    a, b = cc.rglru_inputs(dev, (2, 8, 16))
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan(a.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(0, 1), b.transpose(0, 1))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m"])
+def test_serve_on_card_matches_cpu(dev, arch):
+    """Reduced float32 model, CPU-initialized params: the prefill's
+    logits and cache and the decode logits on the card (the kernels)
+    against the CPU (their plain versions) within rtol / atol 1e-4, the
+    launches one per attention / RG-LRU layer of the prefill and none in
+    decode, and the greedy tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flat import tree_flatten
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    gparams = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 80)))
+    n0 = (flash_attention.launches, rglru_scan.launches)
+    gl, gc = serve.prefill(cfg, gparams, prompt.to(dev), max_len=6)
+    n_rg = sum(s.mixer == "rglru" for s in cfg.layers)
+    assert (flash_attention.launches - n0[0], rglru_scan.launches - n0[1]) \
+        == (cfg.num_layers - n_rg, n_rg)
+    cl, cc_ = serve.prefill(cfg, params, prompt, max_len=6)
+    np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    for a, b in zip(tree_flatten(gc["layers"])[0],
+                    tree_flatten(cc_["layers"])[0]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    n1 = (flash_attention.launches, rglru_scan.launches)
+    gt = serve.decode(cfg, gparams, gl, gc, max_len=6)
+    assert (flash_attention.launches, rglru_scan.launches) == n1
+    ct = serve.decode(cfg, params, cl, cc_, max_len=6)
+    np.testing.assert_array_equal(gt.cpu().numpy(), ct.numpy())

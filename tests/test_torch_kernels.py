@@ -456,3 +456,19 @@ def test_ptxas_resources_parse_nvcc_log():
          "spill_loads": 24, "registers": 254, "smem": 17408},
         {"kernel": "_Z12sum_partialsPKflfPf", "stack": 0, "spill_stores": 0,
          "spill_loads": 0, "registers": 32, "smem": 8192}]
+
+
+def test_ptxas_resources_without_static_smem():
+    """A kernel with dynamic shared memory only (flash_attention's) gets
+    its registers, and 0 bytes of static shared memory."""
+    from repro_torch.kernels._build import ptxas_resources
+    log = (
+        "ptxas info    : Compiling entry function '_Z9flash_fwdv' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 404 bytes "
+        "cmem[0]")
+    assert ptxas_resources(log) == [
+        {"kernel": "_Z9flash_fwdv", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 128, "smem": 0}]

@@ -234,6 +234,33 @@ def test_decode_from_empty_cache_equals_forward(model):
                                rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("jimpl,pimpl", [("xla", "plain"),
+                                         ("pallas", "kernel")],
+                         ids=["plain", "kernel"])
+@pytest.mark.parametrize("pos_offset", [0, 5])
+def test_attention_matches_jax(model, jimpl, pimpl, pos_offset):
+    """The attention block alone, with the captured k / v, at a query
+    offset too (the reference's kernel branch ignores the offset in its
+    mask, and so does the port's)."""
+    from repro.models import attention as jax_attn
+    from repro_torch.models import attention as attn
+    _, jcfg, pcfg, params, tparams, _ = model
+    i = next(n for n, s in enumerate(jcfg.layers)
+             if s.mixer in ("attn", "attn_local"))
+    x = np.random.default_rng(2).standard_normal(
+        (B, 70, jcfg.d_model)).astype(np.float32)
+    want, (wk, wv) = jax_attn.attention(
+        jcfg, params["layers"][i]["mixer"], jnp.asarray(x),
+        layer=jcfg.layers[i], impl=jimpl, pos_offset=pos_offset,
+        return_kv=True)
+    got, (gk, gv) = attn.attention(
+        pcfg, tparams["layers"][i]["mixer"], torch.from_numpy(x),
+        layer=pcfg.layers[i], impl=pimpl, pos_offset=pos_offset,
+        return_kv=True)
+    for a, b in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
 def test_forward_refuses_unknown_impl(model):
     _, _, pcfg, _, tparams, toks = model
     with pytest.raises(ValueError, match="impl"):

@@ -465,6 +465,7 @@ def main() -> None:
           "serve_sweep_cases": n_serve, "sweep_s": sweep_s,
           "serve_sweep_s": serve_sweep_s, "max_abs_err": err,
           "serve_max_abs_err": serve_err,
+          "flash_serve_tol": dict(zip(("atol", "rtol"), cc.FLASH_SERVE_TOL)),
           "full_width": {"M": FULL_M, "P": FULL_P, **full}, "card": smi})
 
     # ---- 3. the main path at full width (bf16 smollm-360m) ----------------

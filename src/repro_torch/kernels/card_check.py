@@ -14,7 +14,10 @@ within the JAX suite's tolerance — rtol / atol 2e-5 in float32 (the dot
 products are summed in another order, with FMAs, than the plain
 version's cuBLAS float32 products) and 3e-2 in bfloat16 (both round the
 float32 result to bfloat16 once, so they differ by at most about one
-bfloat16 ulp). ``rglru_scan`` is held bitwise: a multiply and an add,
+bfloat16 ulp). At the bf16 serving shapes, where most rows see 1-3k
+keys and their outputs are several times smaller, it is held within
+atol 4e-3 + rtol 2**-7 (``FLASH_SERVE_TOL``): one ulp at any magnitude,
+and a tenth of such a row's rms below it. ``rglru_scan`` is held bitwise: a multiply and an add,
 each rounded on its own, step by step, as the plain version computes.
 Both run twice and must agree bitwise with themselves (no atomics).
 
@@ -469,7 +472,15 @@ FLASH_DTYPES = (torch.float32, torch.bfloat16)
 #: window)
 FLASH_SERVE = {"recurrentgemma-2b": ((4, 3072, 10, 1, 256), True, 2048),
                "smollm-360m": ((4, 2048, 15, 5, 64), True, 0)}
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: (atol, rtol) of the suite's shapes, as the JAX suite holds them
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
+#: (atol, rtol) of the bf16 serving shapes. Most rows there see 1-3k keys
+#: of unit-normal values, so their outputs have an rms of only 0.036-0.05
+#: and the suite's 3e-2 would pass an error of a typical output's size.
+#: rtol 2**-7 admits one bf16 rounding step of the output at any
+#: magnitude (the kernel and its twin both accumulate in f32 and round
+#: once); atol 4e-3 is about a tenth of such a row's rms
+FLASH_SERVE_TOL = (4e-3, 2.0 ** -7)
 #: rglru_scan's (batch, sequence, width): the suite's three and
 #: recurrentgemma-2b's prefill of 3072 tokens at rnn width 2560
 RGLRU_SHAPES = [(2, 64, 512), (1, 300, 1024), (3, 17, 512), (4, 3072, 2560)]
@@ -484,24 +495,28 @@ def flash_inputs(dev, shape, dtype, seed=0):
                  for sh in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
 
 
-def check_flash(name, q, k, v, *, causal, window) -> float:
+def check_flash(name, q, k, v, *, causal, window,
+                tol=None) -> tuple[float, float]:
     """Run ``flash_attention`` twice and hold it against
-    ``flash_attention_ref`` within ``FLASH_TOL``. Returns the max abs
-    error."""
+    ``flash_attention_ref`` within ``tol`` = (atol, rtol), by default
+    ``FLASH_TOL`` of the inputs' dtype. Returns (max abs error, rms of
+    the twin's output)."""
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     got = flash_attention(q, k, v, causal=causal, window=window)
     _require(got.dtype == q.dtype and got.shape == q.shape,
              f"{name}: output {got.dtype} {tuple(got.shape)}")
-    tol = FLASH_TOL[q.dtype]
+    atol, rtol = tol or FLASH_TOL[q.dtype]
     d = (got.float() - want.float()).abs()
     err = float(d.max())
-    _require(bool((d <= tol + tol * want.float().abs()).all()),
-             f"{name}: out of tolerance (max abs err {err})")
+    rms = float(want.float().square().mean().sqrt())
+    _require(bool((d <= atol + rtol * want.float().abs()).all()),
+             f"{name}: out of tolerance (max abs err {err}, output rms "
+             f"{rms}, atol {atol}, rtol {rtol})")
     del want, d
     _require(torch.equal(flash_attention(q, k, v, causal=causal,
                                          window=window), got),
              f"{name}: two runs differ")
-    return err
+    return err, rms
 
 
 def rglru_inputs(dev, shape, seed=0):
@@ -525,24 +540,32 @@ def check_rglru(name, a, b) -> float:
 
 def serve_sweep(dev) -> tuple[int, dict]:
     """``flash_attention`` over ``FLASH_SHAPES`` x ``FLASH_MASKS`` x
-    ``FLASH_DTYPES`` and at the ``FLASH_SERVE`` shapes, ``rglru_scan``
-    over ``RGLRU_SHAPES``. Returns (number of cases, max abs error per
-    kernel and dtype)."""
+    ``FLASH_DTYPES`` within ``FLASH_TOL`` and at the ``FLASH_SERVE``
+    shapes within ``FLASH_SERVE_TOL``, ``rglru_scan`` over
+    ``RGLRU_SHAPES``. Returns (number of cases, max abs error per kernel
+    and dtype, and per serving shape its max abs error and output rms)."""
     err = {"flash_attention/float32": 0.0, "flash_attention/bfloat16": 0.0,
            "rglru_scan": 0.0}
     n = 0
-    cases = [(f"flash_attention/B{sh[0]}S{sh[1]}H{sh[2]}K{sh[3]}D{sh[4]}"
-              f"-c{int(c)}w{w}", sh, c, w, dt)
-             for sh in FLASH_SHAPES for c, w in FLASH_MASKS
-             for dt in FLASH_DTYPES]
-    cases += [(f"flash_attention/{arch}", sh, c, w, torch.bfloat16)
-              for arch, (sh, c, w) in FLASH_SERVE.items()]
-    for name, sh, c, w, dt in cases:
-        q, k, v = flash_inputs(dev, sh, dt, seed=n)
-        key = f"flash_attention/{str(dt).split('.')[1]}"
-        err[key] = max(err[key], check_flash(name, q, k, v, causal=c,
-                                             window=w))
+    for sh in FLASH_SHAPES:
+        for c, w in FLASH_MASKS:
+            for dt in FLASH_DTYPES:
+                q, k, v = flash_inputs(dev, sh, dt, seed=n)
+                key = f"flash_attention/{str(dt).split('.')[1]}"
+                e, _ = check_flash(
+                    "flash_attention/B{}S{}H{}K{}D{}".format(*sh)
+                    + f"-c{int(c)}w{w}", q, k, v, causal=c, window=w)
+                err[key] = max(err[key], e)
+                n += 1
+    for arch, (sh, c, w) in FLASH_SERVE.items():
+        q, k, v = flash_inputs(dev, sh, torch.bfloat16, seed=n)
+        e, rms = check_flash(f"flash_attention/{arch}", q, k, v, causal=c,
+                             window=w, tol=FLASH_SERVE_TOL)
+        err["flash_attention/bfloat16"] = max(
+            err["flash_attention/bfloat16"], e)
+        err[f"flash_attention/{arch}"] = {"max_abs_err": e, "rms": rms}
         n += 1
+    del q, k, v
     for shape in RGLRU_SHAPES:
         a, b = rglru_inputs(dev, shape, seed=n)
         err["rglru_scan"] = max(err["rglru_scan"], check_rglru(

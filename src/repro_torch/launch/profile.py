@@ -1,4 +1,4 @@
-"""Where a training step's, or a served batch's, time goes, on the card.
+"""Where a training step's time goes, on the card.
 
 Takes the training CLI's flags (``repro_torch.launch.train``), runs
 ``--warmup`` steps, times ``--profile-steps`` more without the profiler,
@@ -12,34 +12,25 @@ multiple of the averaging period, so both windows hold the same events.
 - ``device_busy_ms`` / ``idle_share``: the union of kernel intervals per
   profiled step (kernel durations are not slowed by the profiler), and
   the share of the unprofiled step with no kernel running;
-- ``by_group_ms``: kernel time per step grouped as opt_step / avg_disp /
-  mix_disp / avg_disp_outer / compressed_mix / matmul / copy / other
-  (elementwise, reductions, softmax);
+- ``by_group_ms``: kernel time per step grouped as flash_attention /
+  rglru_scan / opt_step / avg_disp / mix_disp / avg_disp_outer /
+  compressed_mix / matmul / copy / other (elementwise, reductions,
+  softmax);
 - ``top_kernels`` and ``top_cpu_ops``: the ten largest by time per step.
 
 Example (one card):
   PYTHONPATH=src python -m repro_torch.launch.profile --arch smollm-360m \
       --workers 4 --avg periodic --phase-len 2 --warmup 2 --profile-steps 2
-
-``serve`` as the first argument profiles serving instead, with the
-serving CLI's flags (``repro_torch.launch.serve``): one warm-up
-``generate``, then the prefill and the ``--gen`` decode steps timed
-without the profiler, then each profiled again; the same fields per
-prefill and per decoded token (kernel groups add flash_attention and
-rglru_scan):
-  PYTHONPATH=src python -m repro_torch.launch.profile serve \
-      --arch recurrentgemma-2b --batch 4 --prompt-len 3072 --gen 8
 """
 from __future__ import annotations
 
 import json
-import sys
 import time
 from collections import defaultdict
 
 import torch
 
-from repro_torch.launch import serve, train
+from repro_torch.launch import train
 
 GROUPS = (("flash_attention", ("flash_fwd",)),
           ("rglru_scan", ("rglru_scan_cols",)),
@@ -148,45 +139,5 @@ def _breakdown(prof, n: int, unit_us: float) -> dict:
     }
 
 
-def serve_main(argv=None):
-    """Profile serving (module note): prints one JSON line with a
-    ``prefill`` and a ``decode`` (per token) breakdown."""
-    ap = serve.make_parser()
-    args = ap.parse_args(argv)
-    cfg, params, prompt = serve.setup(args, ap)
-    if prompt.device.type != "cuda":
-        ap.error("the profile reads device time: run it on a CUDA device")
-    gen = args.gen
-    serve.generate(cfg, params, prompt, max_len=gen)  # warm-up
-
-    def prefill():
-        return serve.prefill(cfg, params, prompt, max_len=gen)
-
-    def decode(logits, cache):
-        return serve.decode(cfg, params, logits, cache, max_len=gen)
-
-    out = {"arch": cfg.name, "batch": args.batch, "prompt": args.prompt_len,
-           "gen": gen, "device": torch.cuda.get_device_name(0)}
-    for phase, n, fn in (("prefill", 1, prefill), ("decode", gen, decode)):
-        arg = () if phase == "prefill" else prefill()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(*arg)
-        torch.cuda.synchronize()
-        unit_us = (time.perf_counter() - t0) * 1e6 / n
-        arg = () if phase == "prefill" else prefill()
-        torch.cuda.synchronize()
-        with _profiler() as prof:
-            fn(*arg)
-            torch.cuda.synchronize()
-        out[phase] = {"ms": unit_us / 1e3, **_breakdown(prof, n, unit_us)}
-        del arg
-    print(json.dumps(out), flush=True)
-    return out
-
-
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["serve"]:
-        serve_main(sys.argv[2:])
-    else:
-        main()
+    main()

@@ -1,0 +1,66 @@
+"""Where a served batch's time goes, on the card.
+
+Takes the serving CLI's flags (``repro_torch.launch.serve``), runs one
+warm-up ``generate``, then times the prefill and the ``--gen`` decode
+steps without the profiler, then profiles each again under
+``torch.profiler``, and prints one JSON line with a ``prefill`` and a
+``decode`` (per token) entry. Each holds ``ms`` (host clock, ending in a
+synchronize) and the fields of ``repro_torch.launch.profile``'s
+breakdown: device busy time, idle share against ``ms``, kernel groups
+(flash_attention and rglru_scan among them), top kernels and CPU ops.
+The decode is profiled from a fresh prefill, since it consumes its
+cache.
+
+Example (one card):
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch recurrentgemma-2b --batch 4 --prompt-len 3072 --gen 8
+"""
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+from repro_torch.launch import serve
+from repro_torch.launch.profile import _breakdown, _profiler
+
+
+def main(argv=None):
+    """Profile serving (module note); returns the printed dict."""
+    ap = serve.make_parser()
+    args = ap.parse_args(argv)
+    cfg, params, prompt = serve.setup(args, ap)
+    if prompt.device.type != "cuda":
+        ap.error("the profile reads device time: run it on a CUDA device")
+    gen = args.gen
+    serve.generate(cfg, params, prompt, max_len=gen)  # warm-up
+
+    def prefill():
+        return serve.prefill(cfg, params, prompt, max_len=gen)
+
+    def decode(logits, cache):
+        return serve.decode(cfg, params, logits, cache, max_len=gen)
+
+    out = {"arch": cfg.name, "batch": args.batch, "prompt": args.prompt_len,
+           "gen": gen, "device": torch.cuda.get_device_name(0)}
+    for phase, n, fn in (("prefill", 1, prefill), ("decode", gen, decode)):
+        arg = () if phase == "prefill" else prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*arg)
+        torch.cuda.synchronize()
+        unit_us = (time.perf_counter() - t0) * 1e6 / n
+        arg = () if phase == "prefill" else prefill()
+        torch.cuda.synchronize()
+        with _profiler() as prof:
+            fn(*arg)
+            torch.cuda.synchronize()
+        out[phase] = {"ms": unit_us / 1e3, **_breakdown(prof, n, unit_us)}
+        del arg
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

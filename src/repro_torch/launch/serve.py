@@ -26,7 +26,8 @@ import torch
 from repro_torch import rng
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, forward, init_params
+from repro_torch.launch.steps import make_decode_step
+from repro_torch.models import forward, init_params
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -55,13 +56,15 @@ def decode(cfg, params, logits, cache, *, max_len: int, greedy: bool = True,
            seed: int = 0):
     """From the prefill's last logits and cache: ``max_len`` tokens (B,
     max_len), the first the prefill's argmax, each next one from a
-    decode step."""
+    decode step. Consumes ``cache``: its attention K/V tensors are
+    written in place (``decode_step``)."""
+    step = make_decode_step(cfg)
     key = rng.PRNGKey(seed)
     tok = torch.argmax(logits[:, -1], -1, keepdim=True)
     out = []
     for _ in range(max_len):
         out.append(tok[:, 0])
-        logits, cache = decode_step(cfg, params, tok, cache)
+        logits, cache = step(params, tok, cache)
         if greedy:
             tok = torch.argmax(logits[:, -1], -1, keepdim=True)
         else:

@@ -97,17 +97,13 @@ def init_embed(cfg: ModelConfig, gen, device="cpu"):
                               cdtype(cfg), device)}
 
 
-def embed(cfg: ModelConfig, p, tokens, pos_offset: int = 0):
-    """Token embeddings (B, S, d); ``pos_offset`` is the absolute position
-    of the first token (decode), read by learned position tables."""
+def embed(cfg: ModelConfig, p, tokens):
+    """Token embeddings (B, S, d)."""
     x = p["tok"][tokens]
     if cfg.family != "ssm":  # gemma-style sqrt(d) scaling for attn models
         # sqrt(d) rounded to the activation dtype first, as the reference
         # does; a Python scalar keeps the stream free of host copies
         x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype))
-    if cfg.pos_emb == "learned":
-        s = tokens.shape[-1]
-        x = x + p["pos"][pos_offset:pos_offset + s]
     return x
 
 

@@ -167,10 +167,12 @@ def _decode_block(cfg: ModelConfig, spec: LayerSpec, p, x, cache, pos):
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache):
-    """tokens: (B, 1) int. Returns (logits (B, 1, V) fp32, new cache); the
-    attention K/V are written into the cache's tensors in place."""
+    """tokens: (B, 1) int. Returns (logits (B, 1, V) fp32, new cache).
+    The attention K/V are written into the given cache's tensors in place
+    and the new cache shares them, so the given cache is consumed: a
+    caller that decodes twice from one cache copies it first."""
     pos = cache["pos"]
-    x = L.embed(cfg, params["embed"], tokens, pos_offset=pos)
+    x = L.embed(cfg, params["embed"], tokens)
     new_layers = []
     for spec, p, c in zip(cfg.layers, params["layers"], cache["layers"]):
         x, c = _decode_block(cfg, spec, p, x, dict(c), pos)

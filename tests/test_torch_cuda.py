@@ -253,7 +253,10 @@ def test_flash_attention_kernel_matches_plain(dev, shape, causal, window,
 def test_flash_attention_kernel_at_serving_shape(dev, arch):
     shape, causal, window = cc.FLASH_SERVE[arch]
     q, k, v = cc.flash_inputs(dev, shape, torch.bfloat16)
-    cc.check_flash(arch, q, k, v, causal=causal, window=window)
+    n0 = flash_attention.launches
+    cc.check_flash(arch, q, k, v, causal=causal, window=window,
+                   tol=cc.FLASH_SERVE_TOL)
+    assert flash_attention.launches == n0 + 2
 
 
 @pytest.mark.parametrize("shape", cc.RGLRU_SHAPES,

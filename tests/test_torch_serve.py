@@ -304,10 +304,10 @@ def test_serve_imports_no_jax():
 
 
 def test_serve_profile_needs_the_card():
-    from repro_torch.launch import profile
+    from repro_torch.launch import profile, profile_serve
     assert profile._group("void flash_fwd<__nv_bfloat16, 256>") \
         == "flash_attention"
     assert profile._group("rglru_scan_cols") == "rglru_scan"
     with pytest.raises(SystemExit) as e:
-        profile.serve_main(["--device", "cpu", "--reduced", "--gen", "1"])
+        profile_serve.main(["--device", "cpu", "--reduced", "--gen", "1"])
     assert e.value.code == 2

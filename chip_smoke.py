@@ -12,10 +12,10 @@ Phases, each printing one JSON line:
      sweep of ``repro_torch.kernels.card_check`` and at full width (M=4
      workers x P=361,821,120, smollm-360m), bitwise reproducible across
      two runs, timed with CUDA events beside their memory bound; then
-     ``flash_attention`` and ``rglru_scan`` over card_check's serving
-     sweep (the JAX suite's shapes in float32 and bfloat16, and both
-     serving shapes) and timed at the serving shapes beside their
-     bounds, their plain versions and, for flash attention,
+     ``flash_attention``, ``rglru_scan`` and ``rwkv6_scan`` over
+     card_check's serving sweep (the JAX suite's shapes in float32 and
+     bfloat16, and the serving shapes) and timed at the serving shapes
+     beside their bounds, their plain versions and, for flash attention,
      ``scaled_dot_product_attention`` (the backend that ran is named);
   3. the main path at full width: ``repro_torch.launch.train`` trains
      smollm-360m (bf16, 4 workers, Momentum) — periodic K=2, minibatch,
@@ -34,11 +34,16 @@ Phases, each printing one JSON line:
      2048 window), 32 tokens generated — the prefill launches
      ``flash_attention`` 8 times and ``rglru_scan`` 18 times, decode
      neither; smollm-360m, batch 4, a prompt of 2048, 32 generated — 32
-     ``flash_attention`` launches; prefill ms, decode ms per token,
-     tokens/s and peak memory; the kernel path against ``impl="plain"``
-     on the card (reported, not gated); and the serve CLI once;
-  6. summary: the bound of the unported kernel, a ``kernels`` line, the
-     card, then ``{"ok": true, "device": ...}`` as the last line.
+     ``flash_attention`` launches; rwkv6-7b, batch 4, a prompt of 2048,
+     32 generated — its cache-capturing prefill takes the chunked WKV and
+     launches no kernel, as the reference's does, and its cacheless
+     prefill step (``steps.make_prefill_step``) launches ``rwkv6_scan``
+     32 times, timed and held against the serve prefill's last logits
+     (reported, not gated); prefill ms, decode ms per token, tokens/s and
+     peak memory; the kernel path against ``impl="plain"`` on the card
+     (reported, not gated); and the serve CLI once;
+  6. summary: a ``kernels`` line over all eight kernels, the card, then
+     ``{"ok": true, "device": ...}`` as the last line.
 
 Every launch count is set to 0 just before a main-path run (phases 3-5)
 and read just after; the ``kernels`` line sums those runs. Any failed
@@ -64,17 +69,19 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 tensor cores, dense
 FULL_M, FULL_P = 4, 361_821_120
 NSTATE = {"sgd": 0, "momentum": 1, "adamw": 2}
 # the serving runs of phase 5: batch, prompt length, tokens generated,
-# and each prefill's kernel launches
+# each serve prefill's kernel launches and, where given, those of the
+# cacheless prefill step
 SERVE = {"recurrentgemma-2b": dict(batch=4, prompt=3072, gen=32,
                                    launches={"flash_attention": 8,
                                              "rglru_scan": 18}),
          "smollm-360m": dict(batch=4, prompt=2048, gen=32,
-                             launches={"flash_attention": 32})}
+                             launches={"flash_attention": 32}),
+         "rwkv6-7b": dict(batch=4, prompt=2048, gen=32, launches={},
+                          step_launches={"rwkv6_scan": 32})}
 # rglru_scan at recurrentgemma-2b's prefill: batch, sequence, rnn width
 RGLRU = dict(b=4, s=3072, w=2560)
-# the unported WKV scan at rwkv6-7b's shape (batch, sequence, heads,
-# head dim), batch 4 x sequence 64 as the trainer's defaults
-RWKV6 = dict(b=4, s=64, h=64, n=64)
+# rwkv6_scan at rwkv6-7b's prefill: batch, sequence, heads, head dim
+RWKV6 = dict(b=4, s=2048, h=64, n=64)
 
 
 def emit(obj) -> None:
@@ -181,12 +188,12 @@ def rglru_cost(b, s, w):
 
 
 def rwkv6_cost(b, s, h, n):
-    """r, k, v and the log-decays read once in bf16, u once in f32, the
-    output written once in f32; per (token, head) the rank-1 k vᵀ (n²),
-    u∘kv and S + u∘kv (2n²), r·(...) (2n²) and the decayed state update
-    (2n²): 7n² flops."""
-    return 4 * b * s * h * n * 2 + h * n * 4 + b * s * h * n * 4, \
-        7 * b * s * h * n * n
+    """r, k and v read once in bf16, the log-decays (float32, as the
+    model's ``_project`` gives them) and u once in f32, the output written
+    once in f32; per (token, head) the rank-1 k vᵀ (n²), u∘kv and S + u∘kv
+    (2n²), r·(...) (2n²) and the decayed state update (2n²): 7n² flops."""
+    e = b * s * h * n
+    return 3 * e * 2 + e * 4 + h * n * 4 + e * 4, 7 * e * n
 
 
 def sdpa_time(q, k, v, cuda_time, *, causal, window):
@@ -243,11 +250,13 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.opt_step import opt_step
     from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
     kernels = {"opt_step": opt_step, "avg_disp": avg_disp,
                "mix_disp": mix_disp, "avg_disp_outer": avg_disp_outer,
                "compressed_mix": compressed_mix,
-               "flash_attention": flash_attention, "rglru_scan": rglru_scan}
+               "flash_attention": flash_attention, "rglru_scan": rglru_scan,
+               "rwkv6_scan": rwkv6_scan}
     main_launches = dict.fromkeys(kernels, 0)
 
     def zero_counts():
@@ -437,6 +446,7 @@ def main() -> None:
     err["flash_attention"] = max(serve_err["flash_attention/float32"],
                                  serve_err["flash_attention/bfloat16"])
     err["rglru_scan"] = serve_err["rglru_scan"]
+    err["rwkv6_scan"] = serve_err["rwkv6_scan"]
     free()
     for arch, (shape, causal, window) in cc.FLASH_SERVE.items():
         q, k, v = cc.flash_inputs(dev, shape, torch.bfloat16, seed=11)
@@ -461,11 +471,20 @@ def main() -> None:
     record("rglru_scan/recurrentgemma-2b", k_ms, p_ms, rglru_cost(**RGLRU))
     del a, b
     free()
+    shape, dt, u_shape, decay = cc.RWKV6_SERVE
+    check(shape == tuple(RWKV6.values()), f"rwkv6 shapes {shape}, {RWKV6}")
+    wkv_in = cc.rwkv6_inputs(dev, shape, dt, u_shape, decay, seed=13)
+    k_ms = cuda_time(lambda: rwkv6_scan(*wkv_in), 10)
+    p_ms = cuda_time(lambda: ref.rwkv6_scan_ref(*wkv_in), 2)
+    record("rwkv6_scan/rwkv6-7b", k_ms, p_ms, rwkv6_cost(**RWKV6))
+    del wkv_in
+    free()
     emit({"phase": "kernels_vs_plain", "sweep_cases": n_cases,
           "serve_sweep_cases": n_serve, "sweep_s": sweep_s,
           "serve_sweep_s": serve_sweep_s, "max_abs_err": err,
           "serve_max_abs_err": serve_err,
           "flash_serve_tol": dict(zip(("atol", "rtol"), cc.FLASH_SERVE_TOL)),
+          "rwkv6_tol": dict(zip(("atol", "rtol"), cc.RWKV6_TOL)),
           "full_width": {"M": FULL_M, "P": FULL_P, **full}, "card": smi})
 
     # ---- 3. the main path at full width (bf16 smollm-360m) ----------------
@@ -689,7 +708,7 @@ def main() -> None:
           "card": smi})
 
     # ---- 5. serving at full width (bf16, random weights) ------------------
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, steps
     served = {}
     for arch, run in SERVE.items():
         cfg = get_config(arch)
@@ -730,6 +749,35 @@ def main() -> None:
                                         impl="plain")
         ptoks = serve.decode(cfg, params, plogits, pcache, max_len=gen)
         read_counts({}, f"serve {arch} plain")
+        step_run = {}
+        if "step_launches" in run:
+            # the cacheless prefill step, the path of the arch's kernel,
+            # after a warm-up; its last logits against the serve
+            # prefill's (kernel against the chunked path; reported)
+            step = steps.make_prefill_step(cfg)
+            step(params, {"tokens": prompt})
+            free()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            last = step(params, {"tokens": prompt})
+            torch.cuda.synchronize(dev)
+            t_step = time.perf_counter() - t0
+            got = read_counts(run["step_launches"], f"{arch} prefill step")
+            step_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            check(tuple(last.shape) == (batch, cfg.padded_vocab)
+                  and bool(torch.isfinite(last).all()),
+                  f"{arch}: prefill step logits")
+            step_run = dict(
+                prefill_step_ms=t_step * 1e3, launches_prefill_step=got,
+                prefill_step_peak_memory_gb=step_peak_gb,
+                prefill_step_vs_serve_last_logits_max_abs_diff=float(
+                    (last - logits[:, -1]).abs().max()),
+                prefill_step_vs_serve_equal_argmax=float(
+                    (last.argmax(-1) == logits[:, -1].argmax(-1))
+                    .float().mean()))
+            del last
+            free()
         served[arch] = dict(
             batch=batch, prompt=plen, gen=gen, params=cfg.num_params(),
             prefill_ms=t_pre * 1e3, decode_ms_per_token=t_dec * 1e3 / gen,
@@ -742,7 +790,7 @@ def main() -> None:
                 (logits - plogits).abs().max()),
             kernel_vs_plain_equal_tokens=float(
                 (toks == ptoks).float().mean()),
-            tokens_first_row=toks[0, :12].tolist())
+            tokens_first_row=toks[0, :12].tolist(), **step_run)
         del params, prompt, logits, plogits, pcache, toks, ptoks
         free()
     # the CLI on the card, once
@@ -754,11 +802,6 @@ def main() -> None:
     emit({"phase": "serve", **served, "card": smi})
 
     # ---- 6. summary --------------------------------------------------------
-    b_ms, b_by = bound_ms(*rwkv6_cost(**RWKV6), peak=F32_FLOPS_PER_S)
-    emit({"unported_bounds": {"rwkv6_scan": dict(
-        bytes=rwkv6_cost(**RWKV6)[0], flops=rwkv6_cost(**RWKV6)[1],
-        bound_ms=b_ms, bound_by=b_by)}, "shapes": {"rwkv6_scan": RWKV6}})
-
     def line(name, src, replaces, row):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -785,7 +828,9 @@ def main() -> None:
              "src/repro/kernels/flash_attention.py:75",
              full["flash_attention/recurrentgemma-2b"]),
         line("rglru_scan", "rglru_scan", "src/repro/kernels/rglru_scan.py:46",
-             full["rglru_scan/recurrentgemma-2b"])]})
+             full["rglru_scan/recurrentgemma-2b"]),
+        line("rwkv6_scan", "rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:47",
+             full["rwkv6_scan/rwkv6-7b"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind_name,
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
 """Model configs: the reference package's dataclasses, registry cut to the
-architectures the port runs (``smollm-360m``, ``recurrentgemma-2b``).
+architectures the port runs (``smollm-360m``, ``recurrentgemma-2b``,
+``rwkv6-7b``).
 
 The dataclasses keep every field of the reference's, so a config built
 here and one built there compare field for field; the port's model code
-implements the dense-attention, local-attention and RG-LRU blocks
-(``models/transformer.py``).
+implements the dense-attention, local-attention, RG-LRU and RWKV6
+time-mix / channel-mix blocks (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -103,8 +104,10 @@ class ModelConfig:
         """Parameter count of the blocks the port runs: every leaf of
         ``init_params`` but the final norm (left out, as the reference's
         analytic count leaves it out). An RG-LRU block counts its
-        block-diagonal gates ``wa``/``wi`` (2 W²/H), which the
-        reference's count leaves out too."""
+        block-diagonal gates ``wa``/``wi`` (2 W²/H), and an RWKV block
+        its decay LoRA, token-shift mixes and per-channel vectors, which
+        the reference's approximate count leaves out; layernorm counts
+        its bias."""
         d = self.d_model
         n = self.padded_vocab * d  # embed
         if not self.tie_embeddings:
@@ -117,17 +120,26 @@ class ModelConfig:
                 # w_gate, w_x, w_out; conv taps + bias; wa, wi; lam
                 n += 3 * d * w + (self.conv_width + 1) * w \
                     + 2 * w * w // self.num_heads + w
+            elif spec.mixer == "rwkv":
+                lora = max(32, d // 64)
+                # wr, wk, wv, wg, wo; the decay LoRA wA, wB; mu_r/k/v/w/g,
+                # w0, u, ln_out
+                n += 5 * d * d + 2 * d * lora + 8 * d
             if spec.ffn == "dense":
                 mult = 3 if self.gated_mlp else 2
                 n += mult * d * self.d_ff
-            n += 2 * d  # norms
+            elif spec.ffn == "rwkv_cmix":
+                n += 2 * d * self.d_ff + d  # wk, wv; mu_k
+            # norm1, norm2: a scale, and a bias for layernorm
+            n += (4 if self.norm == "layernorm" else 2) * d
         return n
 
 
-ARCHS = ["smollm-360m", "recurrentgemma-2b"]
+ARCHS = ["smollm-360m", "recurrentgemma-2b", "rwkv6-7b"]
 
 _MODULES = {"smollm-360m": "smollm_360m",
-            "recurrentgemma-2b": "recurrentgemma_2b"}
+            "recurrentgemma-2b": "recurrentgemma_2b",
+            "rwkv6-7b": "rwkv6_7b"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SOURCES = ("opt_step", "avg_disp", "mix_disp", "avg_disp_outer",
-           "compressed_mix", "flash_attention", "rglru_scan")
+           "compressed_mix", "flash_attention", "rglru_scan", "rwkv6_scan")
 #: worker rows the plane kernels take (their register arrays and the
 #: shared-memory mixing matrix are sized for at most this many)
 MAX_WORKERS = 64
@@ -56,6 +56,8 @@ SIGNATURES = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P]),
     "rglru_scan": ("rglru_scan_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "rwkv6_scan": ("rwkv6_scan_launch",
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -19,7 +19,12 @@ keys and their outputs are several times smaller, it is held within
 atol 4e-3 + rtol 2**-7 (``FLASH_SERVE_TOL``): one ulp at any magnitude,
 and a tenth of such a row's rms below it. ``rglru_scan`` is held bitwise: a multiply and an add,
 each rounded on its own, step by step, as the plain version computes.
-Both run twice and must agree bitwise with themselves (no atomics).
+``rwkv6_scan`` carries the plain version's state bit for bit but sums
+each output's dot product in another order, so it is held within the
+JAX suite's rtol / atol 2e-5 (``RWKV6_TOL``) at the suite's shapes and
+at rwkv6-7b's serving shape (bf16 r, k, v, the model's decay range).
+All three run twice and must agree bitwise with themselves (no
+atomics).
 
 The communication kernels — ``mix_disp``, ``opt_step`` mode mix,
 ``avg_disp_outer``, ``compressed_mix`` and the ``opt_step`` wire path —
@@ -47,6 +52,7 @@ from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.opt_step import opt_step
 from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.topology import Topology, gossip_matrix
 
 # (M, P, groups of mode "group"): ragged P against the 1024-column
@@ -542,8 +548,10 @@ def serve_sweep(dev) -> tuple[int, dict]:
     """``flash_attention`` over ``FLASH_SHAPES`` x ``FLASH_MASKS`` x
     ``FLASH_DTYPES`` within ``FLASH_TOL`` and at the ``FLASH_SERVE``
     shapes within ``FLASH_SERVE_TOL``, ``rglru_scan`` over
-    ``RGLRU_SHAPES``. Returns (number of cases, max abs error per kernel
-    and dtype, and per serving shape its max abs error and output rms)."""
+    ``RGLRU_SHAPES``, ``rwkv6_scan`` by :func:`rwkv6_sweep`. Returns
+    (number of cases, max abs error per kernel and dtype, per serving
+    shape its max abs error and output rms, and per rwkv6_scan case its
+    max abs error)."""
     err = {"flash_attention/float32": 0.0, "flash_attention/bfloat16": 0.0,
            "rglru_scan": 0.0}
     n = 0
@@ -571,4 +579,81 @@ def serve_sweep(dev) -> tuple[int, dict]:
         err["rglru_scan"] = max(err["rglru_scan"], check_rglru(
             "rglru_scan/B{}S{}W{}".format(*shape), a, b))
         n += 1
-    return n, err
+    del a, b
+    n_rwkv, err_rwkv = rwkv6_sweep(dev)
+    err.update(err_rwkv)
+    return n + n_rwkv, err
+
+
+#: rwkv6_scan's cases: (batch, sequence, heads, head dim), the dtype of
+#: r / k / v, u given as (H*n,) or (H, n), and the decay law ("suite":
+#: the JAX suite's clip(-exp(N(0, 1)), -5, -1e-5); "model":
+#: ``init_rwkv``'s w0 ramp). The suite's three shapes
+#: (tests/test_kernels.py), a ragged sequence, bf16 inputs, and
+#: rwkv6-7b's serving prefill (B 4, S 2048, 64 heads of 64)
+RWKV6_CASES = [((2, 64, 4, 32), torch.float32, "flat", "suite"),
+               ((1, 100, 2, 64), torch.float32, "flat", "suite"),
+               ((1, 48, 1, 16), torch.float32, "flat", "suite"),
+               ((2, 37, 4, 32), torch.float32, "heads", "suite"),
+               ((2, 64, 4, 64), torch.bfloat16, "heads", "model")]
+RWKV6_SERVE = ((4, 2048, 64, 64), torch.bfloat16, "flat", "model")
+#: (atol, rtol), the JAX suite's
+RWKV6_TOL = (2e-5, 2e-5)
+
+
+def rwkv6_inputs(dev, shape, dtype, u_shape="flat", decay="suite", seed=0):
+    """(r, k, v, log_w, u) on ``dev``: r, k, v standard normal x 0.5 (the
+    suite's draws) rounded to ``dtype``; log_w float32, by the suite's
+    law or, for ``decay="model"``, clip(-exp(w0 + dw), -5, -1e-5) with
+    ``init_rwkv``'s w0 ramp from -6 to 2 over the H * n channels and dw
+    normal x 0.5, so the slowest channels remember about 400 steps; u
+    float32 normal x 0.1, (H*n,) or (H, n)."""
+    b, s, h, n = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(shape, device=dev, generator=g).mul(0.5)
+               .to(dtype) for _ in range(3))
+    z = torch.randn(shape, device=dev, generator=g)
+    if decay == "model":
+        ramp = torch.arange(h * n, dtype=torch.float32, device=dev) \
+            / max(h * n - 1, 1)
+        w0 = (-6.0 + 8.0 * ramp ** 3).reshape(h, n)
+        log_w = -torch.exp(w0 + 0.5 * z)
+    else:
+        log_w = -torch.exp(z)
+    log_w = torch.clamp(log_w, -5.0, -1e-5)
+    u = torch.randn(h * n, device=dev, generator=g) * 0.1
+    return r, k, v, log_w, (u if u_shape == "flat" else u.reshape(h, n))
+
+
+def check_rwkv6(name, r, k, v, log_w, u) -> float:
+    """Run ``rwkv6_scan`` twice and hold it against ``rwkv6_scan_ref``
+    within ``RWKV6_TOL``. Returns the max abs error."""
+    want = ref.rwkv6_scan_ref(r, k, v, log_w, u)
+    got = rwkv6_scan(r, k, v, log_w, u)
+    _require(got.dtype == torch.float32 and got.shape == want.shape,
+             f"{name}: output {got.dtype} {tuple(got.shape)}")
+    atol, rtol = RWKV6_TOL
+    d = (got - want).abs()
+    err = float(d.max())
+    _require(bool((d <= atol + rtol * want.abs()).all()),
+             f"{name}: out of tolerance (max abs err {err}, atol {atol}, "
+             f"rtol {rtol})")
+    del want, d
+    _require(torch.equal(rwkv6_scan(r, k, v, log_w, u), got),
+             f"{name}: two runs differ")
+    return err
+
+
+def rwkv6_sweep(dev) -> tuple[int, dict]:
+    """``rwkv6_scan`` over ``RWKV6_CASES`` and at ``RWKV6_SERVE``. Returns
+    (number of cases, {"rwkv6_scan": max abs error over all cases, and per
+    case its max abs error})."""
+    err = {"rwkv6_scan": 0.0}
+    for i, (shape, dt, ush, decay) in enumerate(RWKV6_CASES + [RWKV6_SERVE]):
+        name = "rwkv6_scan/B{}S{}H{}N{}".format(*shape) \
+            + f"-{str(dt).split('.')[1]}-u{ush}-{decay}"
+        e = check_rwkv6(name, *rwkv6_inputs(dev, shape, dt, ush, decay,
+                                            seed=i))
+        err[name] = e
+        err["rwkv6_scan"] = max(err["rwkv6_scan"], e)
+    return len(RWKV6_CASES) + 1, err

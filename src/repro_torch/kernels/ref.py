@@ -293,3 +293,23 @@ def rglru_scan_ref(a, b):
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def rwkv6_scan_ref(r, k, v, log_w, u):
+    """Exact sequential WKV6, float32. r, k, v, log_w: (B,S,H,n) (r, k, v
+    in any float type); u: (H*n,) or (H,n). Returns (B,S,H,n) float32:
+      y_t = r_t · (S_{t-1} + (u∘k_t) v_tᵀ);  S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
+    with w = exp(log_w) and S_0 = 0; each product and sum of the state
+    update rounded on its own."""
+    bsz, s, h, n = r.shape
+    u = u.float().reshape(h, n)
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    w = torch.exp(log_w.float())
+    S = torch.zeros((bsz, h, n, n), dtype=torch.float32, device=r.device)
+    out = torch.empty((bsz, s, h, n), dtype=torch.float32, device=r.device)
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B,H,n,n)
+        out[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t],
+                                 S + u[None, :, :, None] * kv)
+        S = w[:, t, :, :, None] * S + kv
+    return out

@@ -13,7 +13,7 @@ multiple of the averaging period, so both windows hold the same events.
   profiled step (kernel durations are not slowed by the profiler), and
   the share of the unprofiled step with no kernel running;
 - ``by_group_ms``: kernel time per step grouped as flash_attention /
-  rglru_scan / opt_step / avg_disp / mix_disp / avg_disp_outer /
+  rglru_scan / rwkv6_scan / opt_step / avg_disp / mix_disp / avg_disp_outer /
   compressed_mix / matmul / copy / other (elementwise, reductions,
   softmax);
 - ``top_kernels`` and ``top_cpu_ops``: the ten largest by time per step.
@@ -34,6 +34,7 @@ from repro_torch.launch import train
 
 GROUPS = (("flash_attention", ("flash_fwd",)),
           ("rglru_scan", ("rglru_scan_cols",)),
+          ("rwkv6_scan", ("rwkv6_scan_heads",)),
           ("opt_step", ("opt_step_cols",)),
           ("avg_disp", ("avg_disp_cols",)),
           ("mix_disp", ("mix_disp_cols",)),

@@ -1,19 +1,24 @@
 """Where a served batch's time goes, on the card.
 
 Takes the serving CLI's flags (``repro_torch.launch.serve``), runs one
-warm-up ``generate``, then times the prefill and the ``--gen`` decode
-steps without the profiler, then profiles each again under
-``torch.profiler``, and prints one JSON line with a ``prefill`` and a
-``decode`` (per token) entry. Each holds ``ms`` (host clock, ending in a
-synchronize) and the fields of ``repro_torch.launch.profile``'s
-breakdown: device busy time, idle share against ``ms``, kernel groups
-(flash_attention and rglru_scan among them), top kernels and CPU ops.
-The decode is profiled from a fresh prefill, since it consumes its
-cache.
+warm-up ``generate`` and one cacheless prefill step, then times the
+prefill, the ``--gen`` decode steps and the cacheless prefill step
+(``steps.make_prefill_step``) without the profiler, then profiles each
+again under ``torch.profiler``, and prints one JSON line with a
+``prefill``, a ``decode`` (per token) and a ``prefill_step`` entry. Each
+holds ``ms`` (host clock, ending in a synchronize) and the fields of
+``repro_torch.launch.profile``'s breakdown: device busy time, idle share
+against ``ms``, kernel groups (flash_attention, rglru_scan and
+rwkv6_scan among them), top kernels and CPU ops. The decode is profiled
+from a fresh prefill, since it consumes its cache. For rwkv6-7b the
+serve prefill takes the chunked WKV and the prefill step the
+``rwkv6_scan`` kernel.
 
 Example (one card):
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch recurrentgemma-2b --batch 4 --prompt-len 3072 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch rwkv6-7b --batch 4 --prompt-len 2048 --gen 8
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import time
 
 import torch
 
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps
 from repro_torch.launch.profile import _breakdown, _profiler
 
 
@@ -34,7 +39,9 @@ def main(argv=None):
     if prompt.device.type != "cuda":
         ap.error("the profile reads device time: run it on a CUDA device")
     gen = args.gen
+    prefill_step = steps.make_prefill_step(cfg)
     serve.generate(cfg, params, prompt, max_len=gen)  # warm-up
+    prefill_step(params, {"tokens": prompt})
 
     def prefill():
         return serve.prefill(cfg, params, prompt, max_len=gen)
@@ -42,16 +49,20 @@ def main(argv=None):
     def decode(logits, cache):
         return serve.decode(cfg, params, logits, cache, max_len=gen)
 
+    def step():
+        return prefill_step(params, {"tokens": prompt})
+
     out = {"arch": cfg.name, "batch": args.batch, "prompt": args.prompt_len,
            "gen": gen, "device": torch.cuda.get_device_name(0)}
-    for phase, n, fn in (("prefill", 1, prefill), ("decode", gen, decode)):
-        arg = () if phase == "prefill" else prefill()
+    for phase, n, fn in (("prefill", 1, prefill), ("decode", gen, decode),
+                         ("prefill_step", 1, step)):
+        arg = prefill() if phase == "decode" else ()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn(*arg)
         torch.cuda.synchronize()
         unit_us = (time.perf_counter() - t0) * 1e6 / n
-        arg = () if phase == "prefill" else prefill()
+        arg = prefill() if phase == "decode" else ()
         torch.cuda.synchronize()
         with _profiler() as prof:
             fn(*arg)

@@ -5,14 +5,20 @@ A true prefill (one full-sequence forward that captures the decode
 cache) gives the first token, then auto-regressive decode gives the
 rest: greedy, or with ``--sample`` drawn as ``jax.random.categorical``
 draws it (argmax of the logits plus Gumbel noise from threefry keys
-split once per step, ``repro_torch.rng``). The prefill runs the
-``flash_attention`` and ``rglru_scan`` kernels (``impl="kernel"``);
-decode is plain PyTorch, as the reference's decode is plain jnp. Runs on
-CUDA unless ``--device cpu``, where the kernels' plain versions run.
+split once per step, ``repro_torch.rng``). The prefill takes the
+reference's dispatch with ``impl="kernel"``: attention runs the
+``flash_attention`` kernel and RG-LRU the ``rglru_scan`` kernel, while
+RWKV6 captures its state through the chunked WKV and launches no kernel
+(``rwkv6_scan`` runs in the cacheless prefill step,
+``steps.make_prefill_step``); decode is plain PyTorch, as the reference's
+decode is plain jnp. Runs on CUDA unless ``--device cpu``, where the
+kernels' plain versions run.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
       --batch 4 --prompt-len 8 --gen 24
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --batch 4 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 
@@ -43,8 +49,8 @@ def categorical(key, logits):
 
 def prefill(cfg, params, prompt, *, max_len: int, impl: str = "kernel"):
     """prompt: (B, P) int. One full-sequence forward with cache capture
-    (the cache sized P + max_len). Returns (the last position's logits
-    (B, 1, V), cache)."""
+    (the cache sized P + max_len; ``impl`` as ``models.forward`` takes
+    it). Returns (the last position's logits (B, 1, V), cache)."""
     plen = prompt.shape[1]
     logits, cache = forward(cfg, params, {"tokens": prompt}, impl=impl,
                             return_cache=True, cache_len=plen + max_len)

@@ -36,18 +36,27 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
 # --------------------------------------------------------------------------
 
 def init_norm(cfg: ModelConfig, device="cpu", d: int | None = None):
+    """RMSNorm: a scale; layernorm: a scale and a bias (both zero)."""
     d = d or cfg.d_model
-    if cfg.norm != "rmsnorm":
+    if cfg.norm not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return {"scale": torch.zeros((d,), dtype=cdtype(cfg), device=device)}
+    p = {"scale": torch.zeros((d,), dtype=cdtype(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=cdtype(cfg), device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p, x):
-    """RMSNorm with fp32 statistics and a gemma-style (1 + scale)."""
+    """RMSNorm / LayerNorm with fp32 statistics and a gemma-style
+    (1 + scale); layernorm centres first and adds its bias last."""
     xf = x.float()
+    if cfg.norm == "layernorm":
+        xf = xf - torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + 1e-6)
     out = xf * (1.0 + p["scale"].float())
+    if cfg.norm == "layernorm":
+        out = out + p["bias"].float()
     return out.to(x.dtype)
 
 
@@ -90,11 +99,17 @@ def apply_mlp(cfg: ModelConfig, p, x):
 # --------------------------------------------------------------------------
 
 def init_embed(cfg: ModelConfig, gen, device="cpu"):
-    if not cfg.tie_embeddings or cfg.pos_emb == "learned":
+    """The token table (V, d), and an untied unembedding (d, V) where the
+    config unties them."""
+    if cfg.pos_emb == "learned":
         raise NotImplementedError(
-            "untied / learned-position embeddings are not ported yet")
-    return {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model), 1,
-                              cdtype(cfg), device)}
+            "learned-position embeddings are not ported yet")
+    p = {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model), 1,
+                           cdtype(cfg), device)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), 0,
+                                  cdtype(cfg), device)
+    return p
 
 
 def embed(cfg: ModelConfig, p, tokens):
@@ -108,7 +123,8 @@ def embed(cfg: ModelConfig, p, tokens):
 
 
 def unembed(cfg: ModelConfig, p, x):
-    logits = (x @ p["tok"].T).float()
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    logits = (x @ w).float()
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

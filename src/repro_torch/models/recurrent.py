@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import rglru_scan as rglru_kernel
 from repro_torch.models.layers import cdtype, dense_init
+from repro_torch.models.scan import associative_scan
 
 _C = 8.0
 
@@ -91,32 +92,9 @@ def rglru_scan(a, b):
     ``jax.lax.associative_scan`` (odd / even recursion, log depth) with
     the combine (a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)."""
     def combine(x, y):
-        return x[0] * y[0], y[0] * x[1] + y[1]
+        return [x[0] * y[0], y[0] * x[1] + y[1]]
 
-    def scan(elems):
-        n = elems[0].shape[1]
-        if n < 2:
-            return elems
-        reduced = combine([e[:, 0:-1:2] for e in elems],
-                          [e[:, 1::2] for e in elems])
-        odd = scan(reduced)
-        if n % 2 == 0:
-            even = combine([e[:, :-1] for e in odd],
-                           [e[:, 2::2] for e in elems])
-        else:
-            even = combine(odd, [e[:, 2::2] for e in elems])
-        even = [torch.cat([e[:, :1], r], dim=1)
-                for e, r in zip(elems, even)]
-        out = []
-        for ev, od in zip(even, odd):  # interleave even and odd positions
-            full = torch.empty((ev.shape[0], n) + ev.shape[2:],
-                               dtype=ev.dtype, device=ev.device)
-            full[:, 0::2] = ev
-            full[:, 1::2] = od
-            out.append(full)
-        return out
-
-    return scan([a, b])[1]
+    return associative_scan(combine, [a, b], axis=1)[1]
 
 
 def apply_rglru(cfg: ModelConfig, p, x, *, impl="plain",

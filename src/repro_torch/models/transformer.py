@@ -1,10 +1,10 @@
 """Model assembly: block stacks of dense attention, local (sliding-window)
-attention and RG-LRU recurrent mixers with dense FFNs; init, the
-full-sequence forward (training, and prefill with cache capture), the
-next-token loss and single-token decode with per-layer caches — the
-counterpart of ``repro.models.transformer``, over the same nested-dict
-params layout (so params convert 1:1, see ``repro_torch.convert``).
-Other mixers (rwkv), MoE FFNs, cross-attention and encoders are not
+attention, RG-LRU and RWKV6 time-mix mixers with dense or RWKV
+channel-mix FFNs; init, the full-sequence forward (training, and prefill
+with cache capture), the next-token loss and single-token decode with
+per-layer caches — the counterpart of ``repro.models.transformer``, over
+the same nested-dict params layout (so params convert 1:1, see
+``repro_torch.convert``). MoE FFNs, cross-attention and encoders are not
 ported yet and raise.
 """
 from __future__ import annotations
@@ -17,8 +17,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import rwkv as rwkv_mod
 
-_MIXERS = ("attn", "attn_local", "rglru")
+_MIXERS = ("attn", "attn_local", "rglru", "rwkv")
+_FFNS = ("dense", "rwkv_cmix")
 #: compute paths of the full-sequence forward: the reference's "xla" and
 #: "pallas"
 IMPLS = ("plain", "kernel")
@@ -26,11 +28,11 @@ IMPLS = ("plain", "kernel")
 
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.layers:
-        if spec.mixer not in _MIXERS or spec.ffn != "dense" \
+        if spec.mixer not in _MIXERS or spec.ffn not in _FFNS \
                 or spec.cross_attn:
             raise NotImplementedError(
                 f"layer {spec} is not ported yet: repro_torch runs "
-                f"{_MIXERS} mixers with dense FFNs (ROADMAP queue 1, "
+                f"{_MIXERS} mixers with {_FFNS} FFNs (ROADMAP queue 1, "
                 "item 18)")
     if cfg.encoder_layers or cfg.family in ("audio", "vlm"):
         raise NotImplementedError("encoder / media stacks are not ported")
@@ -40,15 +42,21 @@ def _init_block(cfg: ModelConfig, spec: LayerSpec, gen, device):
     p = {"norm1": L.init_norm(cfg, device)}
     if spec.mixer == "rglru":
         p["mixer"] = rec_mod.init_rglru(cfg, gen, device)
+    elif spec.mixer == "rwkv":
+        p["mixer"] = rwkv_mod.init_rwkv(cfg, gen, device)
     else:
         p["mixer"] = attn_mod.init_attn(cfg, gen, device)
     p["norm2"] = L.init_norm(cfg, device)
-    p["ffn"] = L.init_mlp(cfg, gen, device)
+    if spec.ffn == "rwkv_cmix":
+        p["ffn"] = rwkv_mod.init_rwkv_cmix(cfg, gen, device)
+    else:
+        p["ffn"] = L.init_mlp(cfg, gen, device)
     return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
-    """Random params in the config's dtype (RG-LRU ``lam`` in float32),
+    """Random params in the config's dtype (RG-LRU ``lam``, RWKV ``w0``,
+    ``u`` and ``ln_out`` in float32),
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
     _check_ported(cfg)
     dev = resolve_device(device)
@@ -67,7 +75,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
 def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
                  capture: int = 0):
     """capture > 0: also return the decode cache of this block, with the
-    attention K/V padded to ``capture`` positions (prefill)."""
+    attention K/V padded to ``capture`` positions (prefill). An RWKV
+    layer's mixer and channel mix share one cache dict."""
     cache = {}
     h = L.apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "rglru":
@@ -76,6 +85,12 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
                 cfg, p["mixer"], h, impl=impl, return_state=True)
         else:
             h = rec_mod.apply_rglru(cfg, p["mixer"], h, impl=impl)
+    elif spec.mixer == "rwkv":
+        if capture:
+            h, cache["rwkv"] = rwkv_mod.apply_rwkv(
+                cfg, p["mixer"], h, impl=impl, return_state=True)
+        else:
+            h = rwkv_mod.apply_rwkv(cfg, p["mixer"], h, impl=impl)
     elif capture:
         h, (k, v) = attn_mod.attention(cfg, p["mixer"], h, layer=spec,
                                        impl=impl, return_kv=True)
@@ -85,7 +100,13 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
         h = attn_mod.attention(cfg, p["mixer"], h, layer=spec, impl=impl)
     x = x + h
     h = L.apply_norm(cfg, p["norm2"], x)
-    x = x + L.apply_mlp(cfg, p["ffn"], h)
+    if spec.ffn == "rwkv_cmix":
+        if capture:  # the channel mix's token shift: its last normed input
+            cache.setdefault("rwkv", {})["shift_c"] = h[:, -1:]
+        h = rwkv_mod.apply_rwkv_cmix(cfg, p["ffn"], h)
+    else:
+        h = L.apply_mlp(cfg, p["ffn"], h)
+    x = x + h
     return (x, cache) if capture else x
 
 
@@ -94,8 +115,10 @@ def forward(cfg: ModelConfig, params, batch, *, impl="plain",
     """batch: {"tokens": (B, S) int}. Returns fp32 logits (B, S, V); with
     ``return_cache`` (prefill) also a decode cache sized ``cache_len``
     (>= S), ready for :func:`decode_step`. ``impl``: "plain" (einsum
-    attention, the associative scan) or "kernel" (the flash_attention and
-    rglru_scan kernels)."""
+    attention, the associative scan, the chunked WKV) or "kernel" (the
+    flash_attention and rglru_scan kernels, and rwkv6_scan where no cache
+    is captured: the cache-capturing prefill takes the chunked WKV, as the
+    reference's does)."""
     _check_ported(cfg)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
@@ -139,17 +162,25 @@ def lm_loss(cfg: ModelConfig, params, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cpu"):
     """The per-layer decode cache: {"pos": 0, "layers": [...]}, attention
-    K/V of ``seq_len`` positions, RG-LRU state and conv history."""
+    K/V of ``seq_len`` positions, RG-LRU state and conv history, RWKV wkv
+    state and token-shift inputs (one dict for a layer's mixer and
+    channel mix)."""
     _check_ported(cfg)
     dt = L.cdtype(cfg)
     layers = []
     for spec in cfg.layers:
+        c = {}
         if spec.mixer == "rglru":
-            layers.append({"rglru": rec_mod.init_rglru_cache(
-                cfg, batch, dt, device)})
+            c["rglru"] = rec_mod.init_rglru_cache(cfg, batch, dt, device)
+        elif spec.mixer == "rwkv":
+            c["rwkv"] = rwkv_mod.init_rwkv_cache(cfg, batch, dt, device)
         else:
-            layers.append({"attn": attn_mod.init_attn_cache(
-                cfg, batch, seq_len, dt, device)})
+            c["attn"] = attn_mod.init_attn_cache(cfg, batch, seq_len, dt,
+                                                 device)
+        if spec.ffn == "rwkv_cmix":
+            c.setdefault("rwkv", rwkv_mod.init_rwkv_cache(cfg, batch, dt,
+                                                          device))
+        layers.append(c)
     return {"pos": 0, "layers": layers}
 
 
@@ -158,12 +189,20 @@ def _decode_block(cfg: ModelConfig, spec: LayerSpec, p, x, cache, pos):
     if spec.mixer == "rglru":
         h, cache["rglru"] = rec_mod.decode_rglru(cfg, p["mixer"], h,
                                                  cache["rglru"])
+    elif spec.mixer == "rwkv":
+        h, cache["rwkv"] = rwkv_mod.decode_rwkv(cfg, p["mixer"], h,
+                                               cache["rwkv"])
     else:
         h, cache["attn"] = attn_mod.decode_attention(
             cfg, p["mixer"], h, cache["attn"], pos, layer=spec)
     x = x + h
     h = L.apply_norm(cfg, p["norm2"], x)
-    return x + L.apply_mlp(cfg, p["ffn"], h), cache
+    if spec.ffn == "rwkv_cmix":
+        h, cache["rwkv"] = rwkv_mod.decode_rwkv_cmix(cfg, p["ffn"], h,
+                                                    cache["rwkv"])
+    else:
+        h = L.apply_mlp(cfg, p["ffn"], h)
+    return x + h, cache
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache):

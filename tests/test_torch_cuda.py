@@ -25,6 +25,7 @@ from repro_torch.kernels.avg_disp import (avg_disp,  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.opt_step import opt_step  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -268,6 +269,37 @@ def test_rglru_scan_kernel_matches_plain(dev, shape):
     assert rglru_scan.launches == n0 + 2
 
 
+@pytest.mark.parametrize(
+    "shape,dtype,u_shape,decay", cc.RWKV6_CASES + [cc.RWKV6_SERVE],
+    ids=lambda v: ("B{}S{}H{}N{}".format(*v) if isinstance(v, tuple)
+                   else str(v).replace("torch.", "")))
+def test_rwkv6_scan_kernel_matches_plain(dev, shape, dtype, u_shape, decay):
+    n0 = rwkv6_scan.launches
+    cc.check_rwkv6("rwkv6", *cc.rwkv6_inputs(dev, shape, dtype, u_shape,
+                                             decay))
+    assert rwkv6_scan.launches == n0 + 2
+
+
+def test_rwkv6_scan_refuses_what_it_cannot_take(dev):
+    r, k, v, lw, u = cc.rwkv6_inputs(dev, (1, 8, 2, 32), torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan(r, k, v, lw.bfloat16(), u)
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan(r, k, v, lw, u.bfloat16())
+    with pytest.raises(ValueError, match="one type"):
+        rwkv6_scan(r.bfloat16(), k, v, lw, u)
+    with pytest.raises(ValueError, match="one type"):
+        rwkv6_scan(r.half(), k.half(), v.half(), lw, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, lw,
+                   u)
+    with pytest.raises(ValueError, match="on cuda"):
+        rwkv6_scan(r, k.cpu(), v, lw, u)
+    r, k, v, lw, u = cc.rwkv6_inputs(dev, (1, 8, 1, 128), torch.float32)
+    with pytest.raises(ValueError, match="n in"):
+        rwkv6_scan(r, k, v, lw, u)
+
+
 def test_serving_kernels_refuse_what_they_cannot_take(dev):
     q, k, v = cc.flash_inputs(dev, (1, 16, 4, 2, 32), torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
@@ -285,13 +317,16 @@ def test_serving_kernels_refuse_what_they_cannot_take(dev):
         rglru_scan(a.transpose(0, 1), b.transpose(0, 1))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m",
+                                  "rwkv6-7b"])
 def test_serve_on_card_matches_cpu(dev, arch):
     """Reduced float32 model, CPU-initialized params: the prefill's
     logits and cache and the decode logits on the card (the kernels)
     against the CPU (their plain versions) within rtol / atol 1e-4, the
-    launches one per attention / RG-LRU layer of the prefill and none in
-    decode, and the greedy tokens equal."""
+    launches one per attention / RG-LRU layer of the prefill (an RWKV
+    layer's capture takes the chunked path: none) and none in decode,
+    the greedy tokens equal; and the cacheless prefill step, one
+    ``rwkv6_scan`` per RWKV layer, against the CPU within 1e-4."""
     from repro_torch.configs import get_config
     from repro_torch.core.flat import tree_flatten
     from repro_torch.launch import serve
@@ -303,11 +338,15 @@ def test_serve_on_card_matches_cpu(dev, arch):
     gparams = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 80)))
-    n0 = (flash_attention.launches, rglru_scan.launches)
+    def counts():
+        return (flash_attention.launches, rglru_scan.launches,
+                rwkv6_scan.launches)
+
+    n0 = counts()
     gl, gc = serve.prefill(cfg, gparams, prompt.to(dev), max_len=6)
     n_rg = sum(s.mixer == "rglru" for s in cfg.layers)
-    assert (flash_attention.launches - n0[0], rglru_scan.launches - n0[1]) \
-        == (cfg.num_layers - n_rg, n_rg)
+    n_attn = sum(s.mixer in ("attn", "attn_local") for s in cfg.layers)
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (n_attn, n_rg, 0)
     cl, cc_ = serve.prefill(cfg, params, prompt, max_len=6)
     np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), rtol=1e-4,
                                atol=1e-4)
@@ -315,8 +354,17 @@ def test_serve_on_card_matches_cpu(dev, arch):
                     tree_flatten(cc_["layers"])[0]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-4)
-    n1 = (flash_attention.launches, rglru_scan.launches)
+    n1 = counts()
     gt = serve.decode(cfg, gparams, gl, gc, max_len=6)
-    assert (flash_attention.launches, rglru_scan.launches) == n1
+    assert counts() == n1
     ct = serve.decode(cfg, params, cl, cc_, max_len=6)
     np.testing.assert_array_equal(gt.cpu().numpy(), ct.numpy())
+    from repro_torch.launch import steps
+    step = steps.make_prefill_step(cfg)
+    gs = step(gparams, {"tokens": prompt.to(dev)})
+    n_rwkv = sum(s.mixer == "rwkv" for s in cfg.layers)
+    assert tuple(a - b for a, b in zip(counts(), n1)) \
+        == (n_attn, n_rg, n_rwkv)
+    np.testing.assert_allclose(gs.cpu().numpy(),
+                               step(params, {"tokens": prompt}).numpy(),
+                               rtol=1e-4, atol=1e-4)

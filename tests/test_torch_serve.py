@@ -1,7 +1,8 @@
 """The port's serving path against the JAX reference, on the CPU: reduced
 recurrentgemma-2b (an RG-LRU block and a local-attention block, window
-64, MQA) and reduced smollm-360m (GQA attention) in float32, with the
-reference's params carried over as numpy.
+64, MQA), reduced smollm-360m (GQA attention) and reduced rwkv6-7b (two
+RWKV6 time-mix + channel-mix blocks, layernorm, untied embeddings) in
+float32, with the reference's params carried over as numpy.
 
 - prefill: ``forward(impl="kernel", return_cache=True)`` (on the CPU the
   kernels' plain versions) against the reference's
@@ -39,6 +40,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.flat import tree_flatten  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 init_cache, init_params)
@@ -46,7 +48,9 @@ from repro_torch.models import (decode_step, forward,  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["recurrentgemma-2b", "smollm-360m"]
+ARCHS = ["recurrentgemma-2b", "smollm-360m", "rwkv6-7b"]
+# the archs with an attention block
+ATTN_ARCHS = ["recurrentgemma-2b", "smollm-360m"]
 # batch, prompt (longer than recurrentgemma's reduced window of 64),
 # tokens generated
 B, P, GEN = 2, 80, 8
@@ -92,12 +96,14 @@ def prefills(model):
     jl, _, jc = jax_forward(jcfg, params, {"tokens": jnp.asarray(toks[:, :P])},
                             impl="pallas", return_cache=True,
                             cache_len=P + GEN)
-    n0 = (flash_attention.launches, rglru_scan.launches)
+    n0 = (flash_attention.launches, rglru_scan.launches,
+          rwkv6_scan.launches)
     pl, pc = forward(pcfg, tparams, {"tokens": torch.from_numpy(
         toks[:, :P]).long()}, impl="kernel", return_cache=True,
         cache_len=P + GEN)
     # on the CPU the wrappers take their plain versions and count nothing
-    assert (flash_attention.launches, rglru_scan.launches) == n0
+    assert (flash_attention.launches, rglru_scan.launches,
+            rwkv6_scan.launches) == n0
     return (np.asarray(jl), jc), (pl, pc)
 
 
@@ -116,10 +122,12 @@ def test_configs_match_reference():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_num_params_counts_every_leaf(arch):
     cfg = port_configs.get_config(arch, reduced=True)
-    leaves = tree_flatten(init_params(cfg, 0, device="cpu"))[0]
-    # every leaf but the final norm, which the count leaves out as the
-    # reference's does
-    assert cfg.num_params() + cfg.d_model == sum(t.numel() for t in leaves)
+    params = init_params(cfg, 0, device="cpu")
+    leaves = tree_flatten(params)[0]
+    # every leaf but the final norm (a scale, and a bias for layernorm),
+    # which the count leaves out as the reference's does
+    norm = sum(t.numel() for t in params["final_norm"].values())
+    assert cfg.num_params() + norm == sum(t.numel() for t in leaves)
 
 
 def test_params_carry_over_with_their_dtypes():
@@ -207,11 +215,17 @@ def test_prefill_then_decode_equals_full_forward(model):
 
 
 def test_steps_match_forward_and_decode(model, prefills):
+    """The prefill step equals the cacheless ``forward(impl="kernel")``'s
+    last position (for rwkv6-7b the scan, where the cache-capturing
+    prefill takes the chunked path: tests/test_torch_rwkv.py holds the two
+    within 1e-4); the decode step equals ``decode_step``."""
     _, _, pcfg, _, tparams, toks = model
-    (_, _), (pl, pc) = prefills
+    (_, _), (_, pc) = prefills
     prefill = steps.make_prefill_step(pcfg)
-    last = prefill(tparams, {"tokens": torch.from_numpy(toks[:, :P]).long()})
-    np.testing.assert_array_equal(last.numpy(), pl[:, -1].numpy())
+    t = torch.from_numpy(toks[:, :P]).long()
+    last = prefill(tparams, {"tokens": t})
+    full = forward(pcfg, tparams, {"tokens": t}, impl="kernel")
+    np.testing.assert_array_equal(last.numpy(), full[:, -1].numpy())
     tok = torch.from_numpy(toks[:, P:P + 1]).long()
     a, _ = steps.make_decode_step(pcfg)(tparams, tok, _copy(pc))
     b, _ = decode_step(pcfg, tparams, tok, _copy(pc))
@@ -238,6 +252,7 @@ def test_decode_from_empty_cache_equals_forward(model):
                                          ("pallas", "kernel")],
                          ids=["plain", "kernel"])
 @pytest.mark.parametrize("pos_offset", [0, 5])
+@pytest.mark.parametrize("model", ATTN_ARCHS, indirect=True)
 def test_attention_matches_jax(model, jimpl, pimpl, pos_offset):
     """The attention block alone, with the captured k / v, at a query
     offset too (the reference's kernel branch ignores the offset in its
@@ -290,6 +305,7 @@ def test_serve_imports_no_jax():
     code = (
         "import sys\n"
         "from repro_torch.launch import serve\n"
+        "import repro_torch.models.rwkv, repro_torch.kernels.rwkv6_scan\n"
         "serve.main(['--arch', 'recurrentgemma-2b', '--device', 'cpu', "
         "'--reduced', '--batch', '1', '--prompt-len', '8', '--gen', '2', "
         "'--sample'])\n"
@@ -308,6 +324,8 @@ def test_serve_profile_needs_the_card():
     assert profile._group("void flash_fwd<__nv_bfloat16, 256>") \
         == "flash_attention"
     assert profile._group("rglru_scan_cols") == "rglru_scan"
+    assert profile._group("void (anonymous namespace)::rwkv6_scan_heads"
+                          "<64, __nv_bfloat16>") == "rwkv6_scan"
     with pytest.raises(SystemExit) as e:
         profile_serve.main(["--device", "cpu", "--reduced", "--gen", "1"])
     assert e.value.code == 2

@@ -41,7 +41,8 @@ Phases, each printing one JSON line:
      32 times, timed and held against the serve prefill's last logits
      (reported, not gated); prefill ms, decode ms per token, tokens/s and
      peak memory; the kernel path against ``impl="plain"`` on the card
-     (reported, not gated); and the serve CLI once;
+     where the serve prefill launches a kernel (reported, not gated);
+     and the serve CLI once;
   6. summary: a ``kernels`` line over all eight kernels, the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
@@ -190,10 +191,11 @@ def rglru_cost(b, s, w):
 def rwkv6_cost(b, s, h, n):
     """r, k and v read once in bf16, the log-decays (float32, as the
     model's ``_project`` gives them) and u once in f32, the output written
-    once in f32; per (token, head) the rank-1 k vᵀ (n²), u∘kv and S + u∘kv
-    (2n²), r·(...) (2n²) and the decayed state update (2n²): 7n² flops."""
+    once in f32. Per (token, head) the least work is 5n² + 5n flops: r·S
+    (2n²) and the state update w∘S + k vᵀ (3n²); the bonus factors out as
+    y_j += v_j (r·(u∘k)), 3n for the scalar and 2n to add it in."""
     e = b * s * h * n
-    return 3 * e * 2 + e * 4 + h * n * 4 + e * 4, 7 * e * n
+    return 3 * e * 2 + e * 4 + h * n * 4 + e * 4, 5 * e * n + 5 * e
 
 
 def sdpa_time(q, k, v, cuda_time, *, causal, window):
@@ -778,6 +780,14 @@ def main() -> None:
                     .float().mean()))
             del last
             free()
+        if run["launches"]:
+            # kernel against plain; where the serve prefill launches no
+            # kernel (rwkv6-7b) both runs take the same path: left out
+            step_run.update(
+                kernel_vs_plain_last_logits_max_abs_diff=float(
+                    (logits - plogits).abs().max()),
+                kernel_vs_plain_equal_tokens=float(
+                    (toks == ptoks).float().mean()))
         served[arch] = dict(
             batch=batch, prompt=plen, gen=gen, params=cfg.num_params(),
             prefill_ms=t_pre * 1e3, decode_ms_per_token=t_dec * 1e3 / gen,
@@ -785,12 +795,7 @@ def main() -> None:
             decode_tokens_per_s=batch * gen / t_dec,
             end_to_end_tokens_per_s=batch * gen / (t_pre + t_dec),
             launches_prefill=pre, launches_decode=dec,
-            peak_memory_gb=peak_gb,
-            kernel_vs_plain_last_logits_max_abs_diff=float(
-                (logits - plogits).abs().max()),
-            kernel_vs_plain_equal_tokens=float(
-                (toks == ptoks).float().mean()),
-            tokens_first_row=toks[0, :12].tolist(), **step_run)
+            peak_memory_gb=peak_gb, tokens_first_row=toks[0, :12].tolist(), **step_run)
         del params, prompt, logits, plogits, pcache, toks, ptoks
         free()
     # the CLI on the card, once

@@ -14,9 +14,9 @@
 // no transpose, no padding, no float32 copy.
 //
 // Bound on an H100 (67 TFLOP/s float32, 3.35 TB/s): operations. Per
-// (token, head) the state update and the output take 7 n² flops: at
-// rwkv6-7b's prefill (B 4, S 2048, 64 heads of 64) 1.50e10 flops, 0.224
-// ms, against 470 MB of inputs and output, 0.140 ms.
+// (token, head) r·S takes 2 n² flops, the state update 3 n², the bonus
+// (below) 5 n: at rwkv6-7b's prefill (B 4, S 2048, 64 heads of 64)
+// 1.09e10 flops, 0.163 ms, against 470 MB of inputs and output, 0.140 ms.
 //
 // Design, simple first. One block per (batch, head); the columns j of S
 // are independent, and each is owned by kParts = 4 adjacent threads of a

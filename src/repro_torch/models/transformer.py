@@ -177,9 +177,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cpu"):
         else:
             c["attn"] = attn_mod.init_attn_cache(cfg, batch, seq_len, dt,
                                                  device)
-        if spec.ffn == "rwkv_cmix":
-            c.setdefault("rwkv", rwkv_mod.init_rwkv_cache(cfg, batch, dt,
-                                                          device))
+        if spec.ffn == "rwkv_cmix" and "rwkv" not in c:
+            c["rwkv"] = rwkv_mod.init_rwkv_cache(cfg, batch, dt, device)
         layers.append(c)
     return {"pos": 0, "layers": layers}
 

@@ -6,6 +6,10 @@
 Phases, each printing one JSON line:
   1. card + build: the device, ``nvidia-smi`` name and power limit, and
      the build of every CUDA kernel under src/repro_torch/kernels/csrc/;
+     the bf16 flash kernel's (``flash_fwd_wgmma``) registers and spills
+     per head dim, none allowed at 64 and 256, and its ``HGMMA``
+     (tensor-core) instructions counted in the SASS by ``cuobjdump``
+     where the toolkit or Triton has one, each head dim needing some;
   2. kernels vs plain: ``opt_step`` (modes none / mean / group / mix and
      the wire path), ``avg_disp``, ``mix_disp``, ``avg_disp_outer`` and
      ``compressed_mix`` against their plain PyTorch versions over the
@@ -16,7 +20,8 @@ Phases, each printing one JSON line:
      card_check's serving sweep (the JAX suite's shapes in float32 and
      bfloat16, and the serving shapes) and timed at the serving shapes
      beside their bounds, their plain versions and, for flash attention,
-     ``scaled_dot_product_attention`` (the backend that ran is named);
+     ``scaled_dot_product_attention`` (the backend that ran is named),
+     with both achieved TFLOP/s and the kernel's share of its bound;
   3. the main path at full width: ``repro_torch.launch.train`` trains
      smollm-360m (bf16, 4 workers, Momentum) — periodic K=2, minibatch,
      minibatch over a ring (``opt_step`` mode mix), periodic K=2 over a
@@ -198,6 +203,47 @@ def rwkv6_cost(b, s, h, n):
     return 3 * e * 2 + e * 4 + h * n * 4 + e * 4, 5 * e * n + 5 * e
 
 
+def cuobjdump_path(nvcc: str):
+    """``cuobjdump`` from the CUDA toolkit beside ``nvcc``, on PATH, or in
+    Triton's package (``triton/backends/nvidia/bin``); None if none."""
+    import shutil
+    cands = [Path(nvcc).parent / "cuobjdump", shutil.which("cuobjdump")]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    return next((str(c) for c in cands if c and Path(c).exists()), None)
+
+
+def sass_counts(tool: str, lib: Path, opcode: str) -> dict:
+    """How many ``opcode`` instructions each kernel of ``lib`` has in its
+    SASS (``cuobjdump -sass``), by mangled kernel name."""
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :", 1)[1].strip()
+            counts[cur] = 0
+        elif cur is not None and opcode in ln:
+            counts[cur] += 1
+    return counts
+
+
+def flash_kernels(names) -> dict:
+    """{head dim: mangled name} of the bf16 tensor-core flash kernels
+    (``flash_fwd_wgmma<hd>``) among ``names``."""
+    import re
+    out = {}
+    for n in names:
+        m = re.search(r"flash_fwd_wgmmaILi(\d+)E", n)
+        if m:
+            out[int(m.group(1))] = n
+    return out
+
+
 def sdpa_time(q, k, v, cuda_time, *, causal, window):
     """The library's yardstick for flash attention, timed but never used
     by the port: ``scaled_dot_product_attention`` on the same inputs (the
@@ -289,10 +335,35 @@ def main() -> None:
     print(smi, flush=True)
     t0 = time.perf_counter()
     info = _build.build_all()
+    build_s = time.perf_counter() - t0
+    # the bf16 flash kernel's resources per head dim, and its tensor-core
+    # instructions in the SASS: wgmma compiles to HGMMA
+    ptx_flash = {r["kernel"]: r for r in info["ptxas"]["flash_attention"]}
+    flash_regs = {hd: {k: ptx_flash[n][k] for k in
+                       ("registers", "spill_stores", "spill_loads")}
+                  for hd, n in sorted(flash_kernels(ptx_flash).items())}
+    check(sorted(flash_regs) == [32, 64, 128, 256],
+          f"flash_fwd_wgmma head dims in ptxas: {sorted(flash_regs)}")
+    for hd in (64, 256):
+        check(flash_regs[hd]["spill_stores"] == 0
+              and flash_regs[hd]["spill_loads"] == 0,
+              f"flash_fwd_wgmma<{hd}> spills: {flash_regs[hd]}")
+    tool = cuobjdump_path(_build.nvcc_path())
+    hgmma = None
+    if tool:
+        counts = sass_counts(tool, _build._lib_path("flash_attention"),
+                             "HGMMA")
+        hgmma = {hd: counts.get(n, 0)
+                 for hd, n in sorted(flash_kernels(counts).items())}
+        check(sorted(hgmma) == [32, 64, 128, 256]
+              and all(c > 0 for c in hgmma.values()),
+              f"HGMMA in flash_fwd_wgmma's SASS: {hgmma}")
     emit({"phase": "build", "device": kind_name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": time.perf_counter() - t0, "built": info["built"],
+          "build_s": build_s, "built": info["built"],
+          "flash_fwd_wgmma_ptxas": flash_regs,
+          "flash_fwd_wgmma_hgmma": hgmma, "cuobjdump": tool,
           "ptxas": info.get("ptxas", {})})
 
     # ---- 2. kernels against their plain versions ---------------------------
@@ -459,12 +530,16 @@ def main() -> None:
         lib_ms, backend, lib_err = sdpa_time(q, k, v, cuda_time, **fkw)
         free()
         b_, s_, h_, hkv_, hd_ = shape
-        record(f"flash_attention/{arch}", k_ms, p_ms,
-               attention_cost(b_, s_, h_, hkv_, hd_, causal, window),
+        cost = attention_cost(b_, s_, h_, hkv_, hd_, causal, window)
+        record(f"flash_attention/{arch}", k_ms, p_ms, cost,
                peak=BF16_FLOPS_PER_S, library_ms=lib_ms,
                library=f"scaled_dot_product_attention ({backend})",
                library_max_abs_diff=lib_err,
-               pairs_per_head=band_pairs(s_, causal, window))
+               pairs_per_head=band_pairs(s_, causal, window),
+               tflops=cost[1] / k_ms / 1e9,
+               library_tflops=cost[1] / lib_ms / 1e9)
+        row = full[f"flash_attention/{arch}"]
+        row["bound_share"] = row["bound_ms"] / k_ms
         del q, k, v
         free()
     a, b = cc.rglru_inputs(dev, (RGLRU["b"], RGLRU["s"], RGLRU["w"]), seed=12)

@@ -12,13 +12,18 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` with no
 ``--use_fast_math``: every product and sum rounds on its own, exactly as
 PyTorch's separate eager ops round, so a kernel's float32 update matches
 its plain version bit for bit and cannot flip a bf16 rounding.
-``flash_attention.cu`` writes its dot products as explicit ``fmaf``
-(fused whatever the flag); it is held to a tolerance, not bitwise.
+``flash_attention.cu`` is held to a tolerance, not bitwise: its
+bfloat16 kernel takes its products on the tensor cores (``wgmma``, which
+the flag does not touch) and its float32 kernel writes them as explicit
+``fmaf`` (fused whatever the flag). ptxas's report of each kernel
+(registers, spills, shared memory) is kept beside its library, so that
+:data:`build_info` has it whether or not this process built it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -62,7 +67,8 @@ SIGNATURES = {
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: what the last build did: seconds, the sources built, and per source
-#: ptxas's resources of each kernel (:func:`ptxas_resources`)
+#: ptxas's resources of each kernel (:func:`ptxas_resources`), read back
+#: from beside the library where it was built before
 build_info: dict = {}
 
 
@@ -119,6 +125,10 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
+def _ptxas_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".ptxas.json")
+
+
 def build_all() -> dict:
     """Compile every source whose library is missing, one ``nvcc`` each,
     all started together. Returns ``build_info``."""
@@ -141,9 +151,15 @@ def build_all() -> dict:
             if proc.returncode != 0:
                 failed.append(f"--- {n}.cu (exit {proc.returncode}):\n{log}")
             else:
+                _ptxas_path(n).write_text(
+                    json.dumps(build_info["ptxas"][n]))
                 os.replace(tmp, _lib_path(n))
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for n in SOURCES:
+        if n not in todo and _ptxas_path(n).exists():
+            build_info.setdefault("ptxas", {})[n] = json.loads(
+                _ptxas_path(n).read_text())
     build_info["seconds"] = time.perf_counter() - t0
     build_info["built"] = todo
     return build_info

@@ -3,10 +3,12 @@ sliding-window mask and GQA / MQA, never materializing the (S, S) scores.
 
 The counterpart of the TPU kernel
 ``repro.kernels.flash_attention.flash_attention``. On CUDA tensors it
-launches the hand-written kernel ``csrc/flash_attention.cu``; on CPU
-tensors it runs the plain version
+launches a hand-written kernel of ``csrc/flash_attention.cu``: bfloat16
+inputs take ``flash_fwd_wgmma`` (Hopper's tensor cores, TMA staging),
+float32 inputs ``flash_fwd_f32`` (the CUDA cores, which the suite's
+float32 tolerance needs). On CPU tensors it runs the plain version
 ``repro_torch.kernels.ref.flash_attention_ref``. There is no other path:
-a CUDA tensor the kernel cannot take raises.
+a CUDA tensor the kernels cannot take raises.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-#: head dims the kernel is built for, and its input types (their codes)
+#: head dims the kernels are built for, and the input types (their codes:
+#: 0 flash_fwd_f32, 1 flash_fwd_wgmma)
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -260,6 +260,36 @@ def test_flash_attention_kernel_at_serving_shape(dev, arch):
     assert flash_attention.launches == n0 + 2
 
 
+@pytest.mark.parametrize("dtype,kernel,other", [
+    (torch.bfloat16, "flash_fwd_wgmma", "flash_fwd_f32"),
+    (torch.float32, "flash_fwd_f32", "flash_fwd_wgmma")],
+    ids=["bfloat16", "float32"])
+def test_flash_attention_takes_its_dtype_kernel(dev, dtype, kernel, other):
+    """bf16 inputs launch the tensor-core kernel, f32 the CUDA-core one:
+    one launch counted, that kernel and not the other in the profiler's
+    trace, and ptxas's report of the build holds it at every head dim."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    q, k, v = cc.flash_inputs(dev, (1, 256, 2, 1, 64), dtype)
+    flash_attention(q, k, v, causal=True)  # builds and warms up
+    torch.cuda.synchronize()
+    n0 = flash_attention.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    names = [e.key for e in prof.key_averages()]
+    assert any(kernel in n for n in names), names
+    assert not any(other in n for n in names), names
+    ptxas = [r["kernel"] for r in
+             _build.build_all()["ptxas"]["flash_attention"]]
+    for hd in HEAD_DIMS:
+        assert any(f"{kernel}ILi{hd}E" in n for n in ptxas), (hd, ptxas)
+
+
 @pytest.mark.parametrize("shape", cc.RGLRU_SHAPES,
                          ids=lambda s: "B{}S{}W{}".format(*s))
 def test_rglru_scan_kernel_matches_plain(dev, shape):

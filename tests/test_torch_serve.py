@@ -330,6 +330,13 @@ def test_serve_profile_needs_the_card():
     from repro_torch.launch import profile, profile_serve
     assert profile._group("void flash_fwd<__nv_bfloat16, 256>") \
         == "flash_attention"
+    for name in ("void (anonymous namespace)::flash_fwd_wgmma<256>("
+                 "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                 "__nv_bfloat16*, int, int, int, float, int, int)",
+                 "void (anonymous namespace)::flash_fwd_f32<64>("
+                 "float const*, float const*, float const*, float*, int, "
+                 "int, int, float, int, int)"):
+        assert profile._group(name) == "flash_attention"
     assert profile._group("rglru_scan_cols") == "rglru_scan"
     assert profile._group("void (anonymous namespace)::rwkv6_scan_heads"
                           "<64, __nv_bfloat16>") == "rwkv6_scan"

@@ -6,7 +6,8 @@ which take their plain versions for CPU tensors. The sweeps and
 tolerances are the JAX suite's (``tests/test_kernels.py``): flash
 attention over 4 shapes x {causal, causal + window 64, non-causal} at
 rtol / atol 2e-5 in float32, and in bfloat16 at 3e-2; the RG-LRU scan
-over 3 shapes at rtol / atol 1e-5.
+over 3 shapes at rtol / atol 1e-5. One more case emulates the card's
+bf16 flash kernel, P rounded to bf16, at the serving tolerance.
 """
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import \
     flash_attention as jax_flash  # noqa: E402
 from repro.kernels.rglru_scan import rglru_scan as jax_rglru  # noqa: E402
+from repro_torch.kernels import card_check as cc  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
@@ -102,6 +104,47 @@ def test_flash_attention_refuses_bad_shapes():
         flash_attention(q, k.double(), v)
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def _flash_p_in_bf16(q, k, v, *, causal, window):
+    """The bf16 tensor-core kernel's rounding, on the CPU: float32 scores
+    and softmax, P rounded to bf16 before the PV product, l summed from
+    the float32 P, the output rounded once to ``q``'s type."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    kr = torch.repeat_interleave(k.float(), g, dim=2)
+    vr = torch.repeat_interleave(v.float(), g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / np.sqrt(hd)
+    pos = torch.arange(s)
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    scores = scores.masked_fill(~mask, -np.inf)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)  # noqa: E741
+    out = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), vr) / l
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 1024, 2, 1, 256), True, 512), ((1, 1024, 3, 1, 64), True, 0)],
+    ids=["hd256-window512", "hd64-causal"])
+def test_flash_p_in_bf16_within_serving_tolerance(shape, causal, window):
+    """Rounding P to bf16 for the PV product, as the card's bf16 kernel
+    does, keeps bf16 attention within ``card_check.FLASH_SERVE_TOL`` of
+    the plain version (whose P stays float32)."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(*shape, seed=2))
+    got = _flash_p_in_bf16(q, k, v, causal=causal, window=window)
+    want = port_ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window).float()
+    atol, rtol = cc.FLASH_SERVE_TOL
+    d = (got.float() - want).abs()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool((d <= atol + rtol * want.abs()).all()), float(d.max())
+    # P's rounding shows: the emulation is not the plain version itself
+    assert not torch.equal(got.float(), want)
 
 
 def _ab(b, s, w, seed=0):

@@ -466,11 +466,13 @@ def sweep(dev) -> tuple[int, dict]:
 
 #: flash_attention's (batch, sequence, heads, kv heads, head_dim): the JAX
 #: suite's four shapes (tests/test_kernels.py: GQA, MHA, MQA, a sequence
-#: below one tile) and one of head_dim 256 at a small size
+#: below one tile), one of head_dim 256 at a small size, and a sequence
+#: shorter than one TMA box of the bf16 kernel (64 rows)
 FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 4, 4, 32), (1, 384, 8, 1, 128),
-                (2, 96, 6, 3, 64), (2, 160, 4, 1, 256)]
-#: (causal, window) of the suite's sweep
-FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
+                (2, 96, 6, 3, 64), (2, 160, 4, 1, 256), (2, 40, 4, 2, 128)]
+#: (causal, window): the suite's sweep, and a window without the causal
+#: mask
+FLASH_MASKS = [(True, 0), (True, 64), (False, 0), (False, 64)]
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 #: the serving path's shapes, bf16: recurrentgemma-2b's local attention
 #: (MQA, head_dim 256, window 2048, a prompt of 3072) and smollm-360m's

@@ -50,12 +50,12 @@
 //    reference does not make; the serving shapes stay within
 //    card_check.FLASH_SERVE_TOL with it, so P is not split into a bf16
 //    high and low part.
-//  - Registers (ptxas, sm_90a): 203 at hd 256, 205 at 128, 128 at 64 and
-//    32 (two blocks per SM there), no spills.
+//  - Registers (ptxas, CUDA 12.8, sm_90a): 208 at hd 256, 210 at 128, 128
+//    at 64 and 32 (two blocks per SM there); no spills.
 //  - out = O / l (l == 0 -> 1), rounded once to bf16, stored from the
 //    registers; no atomics, so two runs are bitwise equal.
 //  The tensor maps are encoded on the host with cuTensorMapEncodeTiled, a
-//  driver-API function looked up in the loaded libcuda.so.1 with dlsym (no
+//  libcuda function looked up in the loaded libcuda.so.1 with dlsym (no
 //  -lcuda at link time, no runtime entry-point API whose signature moves
 //  between toolkits), and passed as __grid_constant__ kernel parameters
 //  over a 3-D view (B, S, heads * hd) of each tensor, so that rows past S
@@ -725,7 +725,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver library the process has loaded.
+// cuTensorMapEncodeTiled from the libcuda.so.1 the process has loaded.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {

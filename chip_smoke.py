@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
      the bf16 flash kernel's (``flash_fwd_wgmma``) registers and spills
      per head dim, none allowed at 64 and 256, and its ``HGMMA``
      (tensor-core) instructions counted in the SASS by ``cuobjdump``
-     where the toolkit or Triton has one, each head dim needing some;
+     where the toolkit or Triton has one, each head dim needing some; the
+     same for ``rwkv6_scan``'s ``rwkv6_chunk_mma`` per head dim and input
+     type (no spills at 64, TF32 ``HMMA`` in each instantiation);
   2. kernels vs plain: ``opt_step`` (modes none / mean / group / mix and
      the wire path), ``avg_disp``, ``mix_disp``, ``avg_disp_outer`` and
      ``compressed_mix`` against their plain PyTorch versions over the
@@ -22,6 +24,8 @@ Phases, each printing one JSON line:
      beside their bounds, their plain versions and, for flash attention,
      ``scaled_dot_product_attention`` (the backend that ran is named),
      with both achieved TFLOP/s and the kernel's share of its bound;
+     ``rwkv6_scan`` is held to the recurrence evaluated in float64, its
+     error reported beside the float32 plain version's own;
   3. the main path at full width: ``repro_torch.launch.train`` trains
      smollm-360m (bf16, 4 workers, Momentum) — periodic K=2, minibatch,
      minibatch over a ring (``opt_step`` mode mix), periodic K=2 over a
@@ -217,9 +221,10 @@ def cuobjdump_path(nvcc: str):
     return next((str(c) for c in cands if c and Path(c).exists()), None)
 
 
-def sass_counts(tool: str, lib: Path, opcode: str) -> dict:
-    """How many ``opcode`` instructions each kernel of ``lib`` has in its
-    SASS (``cuobjdump -sass``), by mangled kernel name."""
+def sass_counts(tool: str, lib: Path, *needles: str) -> dict:
+    """How many instructions holding every one of ``needles`` (an opcode
+    and its modifiers) each kernel of ``lib`` has in its SASS
+    (``cuobjdump -sass``), by mangled kernel name."""
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     counts, cur = {}, None
@@ -227,9 +232,22 @@ def sass_counts(tool: str, lib: Path, opcode: str) -> dict:
         if "Function :" in ln:
             cur = ln.split("Function :", 1)[1].strip()
             counts[cur] = 0
-        elif cur is not None and opcode in ln:
+        elif cur is not None and all(x in ln for x in needles):
             counts[cur] += 1
     return counts
+
+
+def rwkv6_kernels(names) -> dict:
+    """{"<head dim>-<bf16|f32>": mangled name} of the WKV kernels
+    (``rwkv6_chunk_mma<n, In>``) among ``names``."""
+    import re
+    out = {}
+    for n in names:
+        m = re.search(r"rwkv6_chunk_mmaILi(\d+)E(13__nv_bfloat16|f)E", n)
+        if m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            out[f"{m.group(1)}-{dt}"] = n
+    return out
 
 
 def flash_kernels(names) -> dict:
@@ -358,12 +376,38 @@ def main() -> None:
         check(sorted(hgmma) == [32, 64, 128, 256]
               and all(c > 0 for c in hgmma.values()),
               f"HGMMA in flash_fwd_wgmma's SASS: {hgmma}")
+    # the same for the WKV kernel, per head dim and input type: its
+    # products run as TF32 mma.sync, HMMA.1688.F32.TF32 in the SASS
+    ptx_wkv = {r["kernel"]: r for r in info["ptxas"]["rwkv6_scan"]}
+    wkv_names = rwkv6_kernels(ptx_wkv)
+    wkv_regs = {key: {k: ptx_wkv[n][k] for k in
+                      ("registers", "spill_stores", "spill_loads")}
+                for key, n in sorted(wkv_names.items())}
+    wkv_keys = sorted(f"{n}-{dt}" for n in (16, 32, 64)
+                      for dt in ("bf16", "f32"))
+    check(sorted(wkv_regs) == wkv_keys,
+          f"rwkv6_chunk_mma instantiations in ptxas: {sorted(wkv_regs)}")
+    for key in ("64-bf16", "64-f32"):
+        check(wkv_regs[key]["spill_stores"] == 0
+              and wkv_regs[key]["spill_loads"] == 0,
+              f"rwkv6_chunk_mma<{key}> spills: {wkv_regs[key]}")
+    wkv_hmma = None
+    if tool:
+        counts = sass_counts(tool, _build._lib_path("rwkv6_scan"), "HMMA",
+                             "TF32")
+        wkv_hmma = {key: counts.get(n, 0)
+                    for key, n in sorted(rwkv6_kernels(counts).items())}
+        check(sorted(wkv_hmma) == wkv_keys
+              and all(c > 0 for c in wkv_hmma.values()),
+              f"TF32 HMMA in rwkv6_chunk_mma's SASS: {wkv_hmma}")
     emit({"phase": "build", "device": kind_name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "built": info["built"],
           "flash_fwd_wgmma_ptxas": flash_regs,
-          "flash_fwd_wgmma_hgmma": hgmma, "cuobjdump": tool,
+          "flash_fwd_wgmma_hgmma": hgmma,
+          "rwkv6_chunk_mma_ptxas": wkv_regs,
+          "rwkv6_chunk_mma_tf32_hmma": wkv_hmma, "cuobjdump": tool,
           "ptxas": info.get("ptxas", {})})
 
     # ---- 2. kernels against their plain versions ---------------------------
@@ -553,7 +597,14 @@ def main() -> None:
     wkv_in = cc.rwkv6_inputs(dev, shape, dt, u_shape, decay, seed=13)
     k_ms = cuda_time(lambda: rwkv6_scan(*wkv_in), 10)
     p_ms = cuda_time(lambda: ref.rwkv6_scan_ref(*wkv_in), 2)
-    record("rwkv6_scan/rwkv6-7b", k_ms, p_ms, rwkv6_cost(**RWKV6))
+    # the sweep's serving case against the float64 recurrence: the
+    # kernel's error beside the float32 plain version's own
+    vs64 = serve_err["rwkv6_scan/B{}S{}H{}N{}".format(*shape)
+                     + f"-{str(dt).split('.')[1]}-u{u_shape}-{decay}"]
+    record("rwkv6_scan/rwkv6-7b", k_ms, p_ms, rwkv6_cost(**RWKV6),
+           vs_float64=vs64)
+    full["rwkv6_scan/rwkv6-7b"]["bound_share"] = \
+        full["rwkv6_scan/rwkv6-7b"]["bound_ms"] / k_ms
     del wkv_in
     free()
     emit({"phase": "kernels_vs_plain", "sweep_cases": n_cases,

@@ -295,18 +295,20 @@ def rglru_scan_ref(a, b):
     return out
 
 
-def rwkv6_scan_ref(r, k, v, log_w, u):
-    """Exact sequential WKV6, float32. r, k, v, log_w: (B,S,H,n) (r, k, v
-    in any float type); u: (H*n,) or (H,n). Returns (B,S,H,n) float32:
+def rwkv6_scan_ref(r, k, v, log_w, u, dtype=torch.float32):
+    """Exact sequential WKV6 in ``dtype`` (float32 by default; float64
+    gives the yardstick a reassociated kernel is held to). r, k, v, log_w:
+    (B,S,H,n) (r, k, v in any float type); u: (H*n,) or (H,n). Returns
+    (B,S,H,n) in ``dtype``:
       y_t = r_t · (S_{t-1} + (u∘k_t) v_tᵀ);  S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
     with w = exp(log_w) and S_0 = 0; each product and sum of the state
     update rounded on its own."""
     bsz, s, h, n = r.shape
-    u = u.float().reshape(h, n)
-    rf, kf, vf = (t.float() for t in (r, k, v))
-    w = torch.exp(log_w.float())
-    S = torch.zeros((bsz, h, n, n), dtype=torch.float32, device=r.device)
-    out = torch.empty((bsz, s, h, n), dtype=torch.float32, device=r.device)
+    u = u.to(dtype).reshape(h, n)
+    rf, kf, vf = (t.to(dtype) for t in (r, k, v))
+    w = torch.exp(log_w.to(dtype))
+    S = torch.zeros((bsz, h, n, n), dtype=dtype, device=r.device)
+    out = torch.empty((bsz, s, h, n), dtype=dtype, device=r.device)
     for t in range(s):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B,H,n,n)
         out[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t],

@@ -5,10 +5,11 @@ head):
 
 The counterpart of the TPU kernel ``repro.kernels.rwkv6_scan.rwkv6_scan``.
 On CUDA tensors it launches the hand-written kernel ``csrc/rwkv6_scan.cu``
-(its state bitwise the sequential plain version's, the output's dot
-products summed in another order); on CPU tensors it runs the plain
-version ``repro_torch.kernels.ref.rwkv6_scan_ref``. There is no other
-path: a CUDA tensor the kernel cannot take raises.
+(the chunked form, 16 steps a chunk, its products on the tensor cores in
+3xTF32; held within rtol / atol 2e-5 of the recurrence evaluated in
+float64, as the sequential plain version is); on CPU tensors it runs the
+plain version ``repro_torch.kernels.ref.rwkv6_scan_ref``. There is no
+other path: a CUDA tensor the kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def rwkv6_scan(r, k, v, log_w, u):
     """r, k, v, log_w: (B, S, H, n); u: (H*n,) or (H, n). Returns
     (B, S, H, n) float32. On the card: r, k, v float32 or bfloat16 (one
-    type), log_w and u float32, all contiguous, n in ``HEAD_DIMS``."""
+    type), log_w and u float32, all contiguous, r, k, v and log_w 16-byte
+    aligned (the kernel stages them with 16-byte copies), n in
+    ``HEAD_DIMS``."""
     if r.dim() != 4 or not r.shape == k.shape == v.shape == log_w.shape:
         raise ValueError(f"rwkv6_scan: r, k, v, log_w of one (B, S, H, n) "
                          f"shape expected, got {tuple(r.shape)}, "
@@ -50,6 +53,8 @@ def rwkv6_scan(r, k, v, log_w, u):
         if t.device != r.device or not t.is_contiguous():
             raise ValueError(f"rwkv6_scan: {name} must be contiguous and on "
                              f"{r.device}")
+        if name != "u" and t.data_ptr() % 16:
+            raise ValueError(f"rwkv6_scan: {name} must be 16-byte aligned")
     for name, t in (("log_w", log_w), ("u", u)):
         if t.dtype != torch.float32:
             raise ValueError(f"rwkv6_scan: {name} must be float32, got "

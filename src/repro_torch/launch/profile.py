@@ -34,7 +34,7 @@ from repro_torch.launch import train
 
 GROUPS = (("flash_attention", ("flash_fwd",)),
           ("rglru_scan", ("rglru_scan_cols",)),
-          ("rwkv6_scan", ("rwkv6_scan_heads",)),
+          ("rwkv6_scan", ("rwkv6_chunk_mma",)),
           ("opt_step", ("opt_step_cols",)),
           ("avg_disp", ("avg_disp_cols",)),
           ("mix_disp", ("mix_disp_cols",)),

@@ -310,6 +310,34 @@ def test_rwkv6_scan_kernel_matches_plain(dev, shape, dtype, u_shape, decay):
     assert rwkv6_scan.launches == n0 + 2
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+def test_rwkv6_scan_runs_the_tensor_core_kernel(dev, dtype):
+    """One launch of ``rwkv6_chunk_mma`` per call, in the profiler's trace,
+    and ptxas's report of the build holds it at every head dim and input
+    type."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan import HEAD_DIMS
+    wkv = cc.rwkv6_inputs(dev, (1, 64, 2, 64), dtype)
+    rwkv6_scan(*wkv)  # builds and warms up
+    torch.cuda.synchronize()
+    n0 = rwkv6_scan.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rwkv6_scan(*wkv)
+        torch.cuda.synchronize()
+    assert rwkv6_scan.launches == n0 + 1
+    names = [e.key for e in prof.key_averages()]
+    assert any("rwkv6_chunk_mma" in n for n in names), names
+    ptxas = [r["kernel"] for r in _build.build_all()["ptxas"]["rwkv6_scan"]]
+    mangled = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    for n in HEAD_DIMS:
+        assert any(f"rwkv6_chunk_mmaILi{n}E{mangled}E" in x for x in ptxas), \
+            (n, ptxas)
+
+
 def test_rwkv6_scan_refuses_what_it_cannot_take(dev):
     r, k, v, lw, u = cc.rwkv6_inputs(dev, (1, 8, 2, 32), torch.float32)
     with pytest.raises(ValueError, match="float32"):
@@ -325,6 +353,9 @@ def test_rwkv6_scan_refuses_what_it_cannot_take(dev):
                    u)
     with pytest.raises(ValueError, match="on cuda"):
         rwkv6_scan(r, k.cpu(), v, lw, u)
+    off = torch.empty(r.numel() + 1, device=dev)[1:].view(r.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rwkv6_scan(r, k, off.copy_(v), lw, u)
     r, k, v, lw, u = cc.rwkv6_inputs(dev, (1, 8, 1, 128), torch.float32)
     with pytest.raises(ValueError, match="n in"):
         rwkv6_scan(r, k, v, lw, u)

@@ -338,8 +338,11 @@ def test_serve_profile_needs_the_card():
                  "int, int, float, int, int)"):
         assert profile._group(name) == "flash_attention"
     assert profile._group("rglru_scan_cols") == "rglru_scan"
-    assert profile._group("void (anonymous namespace)::rwkv6_scan_heads"
-                          "<64, __nv_bfloat16>") == "rwkv6_scan"
+    assert profile._group("void (anonymous namespace)::rwkv6_chunk_mma"
+                          "<64, __nv_bfloat16>(__nv_bfloat16 const*, "
+                          "__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                          "float const*, float const*, float*, int, int)") \
+        == "rwkv6_scan"
     with pytest.raises(SystemExit) as e:
         profile_serve.main(["--device", "cpu", "--reduced", "--gen", "1"])
     assert e.value.code == 2

@@ -32,13 +32,26 @@ Phases, each printing one JSON line:
      ring with the one_bit wire (``compressed_mix``), and minibatch with
      the bf16 wire (the ``opt_step`` wire path);
   4. the f32 path: the paper's least-squares ``synth-ls-sparse-highrho``
-     (4096 x 1024, 24 workers, SGD on lr0 / (t - 1 + d)) under periodic,
-     hierarchical, ring and gossip-pairs (``mix_disp``), stochastic,
-     int8 (``compressed_mix``), minibatch over a torus with int8
-     (``opt_step`` mix + wire) and the outer optimizer
-     (``avg_disp_outer``); then small runs on the card and on the CPU
-     (the kernels' plain versions), which must agree;
-  5. serving at full width (``repro_torch.launch.serve``, bf16, random
+     (4096 x 1024, 24 workers, SGD on lr0 / (t - 1 + d)), its batches
+     gathered on the card from a ``DeviceDataset`` index list, its loss
+     and objective ``models.convex``'s, under periodic, hierarchical,
+     ring and gossip-pairs (``mix_disp``), stochastic, int8
+     (``compressed_mix``), minibatch over a torus with int8 (``opt_step``
+     mix + wire) and the outer optimizer (``avg_disp_outer``); the
+     hierarchical run again from a generator of the same batches, bitwise
+     its indexed twin; then small runs on the card and on the CPU (the
+     kernels' plain versions), which must agree;
+  5. the paper's §3.1 convex suite at the ``CONVEX_SUITE`` sizes (two
+     least squares, two logistic regressions, 24 workers): w* from
+     ``solve_optimum``, σ², β² and ρ from ``core.variance_model``, then
+     paired-draw curves from one ``DeviceDataset`` index list — oneshot,
+     minibatch, periodic 128, periodic 1024 and one worker, 1024 steps
+     each, the objective every 64 steps — with their events, launches
+     (``opt_step`` 1024; ``avg_disp`` 8 / 1 / 0 / 0), steady ms per step
+     and normalized suboptimality; and one config run three ways over 256
+     steps (indexed, staged from host batches, ``run_host``), bitwise
+     equal, with their ms per step;
+  6. serving at full width (``repro_torch.launch.serve``, bf16, random
      weights): recurrentgemma-2b, batch 4, a prompt of 3072 (beyond its
      2048 window), 32 tokens generated — the prefill launches
      ``flash_attention`` 8 times and ``rglru_scan`` 18 times, decode
@@ -52,10 +65,10 @@ Phases, each printing one JSON line:
      peak memory; the kernel path against ``impl="plain"`` on the card
      where the serve prefill launches a kernel (reported, not gated);
      and the serve CLI once;
-  6. summary: a ``kernels`` line over all eight kernels, the card, then
+  7. summary: a ``kernels`` line over all eight kernels, the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-5)
+Every launch count is set to 0 just before a main-path run (phases 3-6)
 and read just after; the ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
 also refuses to run without a CUDA device. All of its work happens under
@@ -78,7 +91,7 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 tensor cores, dense
 FULL_M, FULL_P = 4, 361_821_120
 NSTATE = {"sgd": 0, "momentum": 1, "adamw": 2}
-# the serving runs of phase 5: batch, prompt length, tokens generated,
+# the serving runs of phase 6: batch, prompt length, tokens generated,
 # each serve prefill's kernel launches and, where given, those of the
 # cacheless prefill step
 SERVE = {"recurrentgemma-2b": dict(batch=4, prompt=3072, gen=32,
@@ -92,6 +105,13 @@ SERVE = {"recurrentgemma-2b": dict(batch=4, prompt=3072, gen=32,
 RGLRU = dict(b=4, s=3072, w=2560)
 # rwkv6_scan at rwkv6-7b's prefill: batch, sequence, heads, head dim
 RWKV6 = dict(b=4, s=2048, h=64, n=64)
+# the convex suite of phase 5 (the paper's §3.1 protocol): steps per curve,
+# eval every SUITE_EVERY steps, SGD at lr0 / (t - 1 + d) with lr0 =
+# mult * d / mean ||x_j||², and the steps of the indexed / staged /
+# run_host comparison
+SUITE_STEPS, SUITE_EVERY = 1024, 64
+SUITE_LR_MULT, SUITE_LR_D = 0.8, 200.0
+HOST_STEPS = 256
 
 
 def emit(obj) -> None:
@@ -690,8 +710,9 @@ def main() -> None:
     from repro_torch.core import AveragingSchedule, PhaseEngine
     from repro_torch.core.averaging import OuterOptimizer
     from repro_torch.core.compress import Compression
-    from repro_torch.data import convex_dataset, token_stream
+    from repro_torch.data import DeviceDataset, convex_dataset, token_stream
     from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.convex import make_problem
     from repro_torch.optim import SGD, Momentum
     from repro_torch.topology import Topology
 
@@ -705,19 +726,36 @@ def main() -> None:
     opt = SGD(lr=lambda t: lr0 / (t - 1.0 + lr_d))
     Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
 
-    def ls_loss(p, b, r):
-        return 0.5 * torch.square(b["x"] @ p["w"] - b["y"]), {}
+    def convex_loss(kind):
+        """A worker's loss on its batch (one sample or several): the §3.1
+        objective of ``models.convex`` over those samples."""
+        obj = make_problem(kind)[0]
+
+        def loss(p, b, r):
+            w = p["w"]
+            return obj(w, b["x"].reshape(-1, w.shape[0]),
+                       b["y"].reshape(-1)), {}
+        return loss
+
+    ls_objective = make_problem("ls")[0]
 
     def objective(w):
-        res = Xd @ w.to(dev) - yd
-        return float(0.5 * torch.mean(res * res))
+        return float(ls_objective(w.to(dev), Xd, yd))
 
-    def convex_run(sched, steps, device, **comm):
+    def convex_run(sched, steps, device, staged=False, **comm):
+        """A run over a DeviceDataset of the (steps, M) draws, batches
+        gathered on ``device``; ``staged``: over a generator of the same
+        batches, gathered ahead and staged by the engine instead."""
         idx = np.random.default_rng(1).integers(0, c.num_samples,
                                                 (steps, mw))
         Xs, ys = Xd.to(device), yd.to(device)
-        data = ({"x": Xs[idx[t]], "y": ys[idx[t]]} for t in range(steps))
-        eng = PhaseEngine(ls_loss, opt, sched, device=device, **comm)
+        if staged:
+            data = ({"x": Xs[idx[t]], "y": ys[idx[t]]} for t in range(steps))
+        else:
+            data = DeviceDataset({"x": Xs, "y": ys}, mw, indices=idx,
+                                 device=device)
+        eng = PhaseEngine(convex_loss("ls"), opt, sched, device=device,
+                          **comm)
         w0 = {"w": torch.zeros(c.num_dims, device=device)}
         # several phases where the schedule has no period, so that the
         # step time leaves out only the first
@@ -729,7 +767,7 @@ def main() -> None:
     hier = AveragingSchedule("hierarchical", inner_groups=4,
                              inner_phase_len=8, outer_phase_len=32)
     int8 = Compression("int8")
-    f32 = {}
+    f32, kept = {}, {}
     for name, sched, steps, comm, expect in (
             ("periodic", AveragingSchedule("periodic", phase_len=128), 256,
              {}, {"avg_disp": 2}),
@@ -767,11 +805,28 @@ def main() -> None:
         f32[name] = dict(steps=steps, events=events, launches=got,
                          objective_start=f0, objective_end=f1,
                          step_ms=steady_step_ms(hist["phase_wall"]))
+        if name == "hierarchical":
+            kept[name] = (final, hist, state)
         del final, hist, state
 
-    # the same runs on the CPU (the kernels' plain versions) as reference
+    # the hierarchical run once more, fed by a generator of the same
+    # batches (staged): bitwise its indexed twin
+    final_g, hist_g, state_g = kept.pop("hierarchical")
+    zero_counts()
+    final_s, hist_s, state_s = convex_run(hier, 64, "cuda", staged=True)
+    read_counts({"opt_step": 64, "avg_disp": 8}, "hierarchical staged")
+    check(torch.equal(state_s.plane, state_g.plane)
+          and torch.equal(final_s["w"], final_g["w"])
+          and hist_s["loss"] == hist_g["loss"]
+          and hist_s["dispersion"] == hist_g["dispersion"],
+          "hierarchical: staged and indexed runs differ on the card")
+    f32["hierarchical_staged"] = dict(
+        steps=64, events=hist_s["averages"], bitwise_indexed=True,
+        step_ms=steady_step_ms(hist_s["phase_wall"]))
+    del final_s, hist_s, state_s, state_g
+
+    # the same run on the CPU (the kernels' plain versions) as reference
     final_c, hist_c, _ = convex_run(hier, 64, "cpu")
-    final_g, hist_g, _ = convex_run(hier, 64, "cuda")
     check([t for t, _ in hist_c["dispersion"]]
           == [t for t, _ in hist_g["dispersion"]], "event steps cuda vs cpu")
     np.testing.assert_allclose(final_g["w"].cpu().numpy(),
@@ -835,7 +890,171 @@ def main() -> None:
                           "reduced_lm_periodic_4": "rtol 1e-4 / atol 1e-4"},
           "card": smi})
 
-    # ---- 5. serving at full width (bf16, random weights) ------------------
+    # ---- 5. the paper's §3.1 convex suite at full size ---------------------
+    from repro_torch import rng
+    from repro_torch.core.variance_model import (empirical_variance_fn,
+                                                 measure_beta2, rho)
+    from repro_torch.models.convex import full_gradient, solve_optimum
+
+    t_suite = time.perf_counter()
+    # name: (schedule, avg_disp launches, events); the minibatch schedule
+    # fuses its event into opt_step
+    curves = {"oneshot": (AveragingSchedule("oneshot"), 0, 0),
+              "minibatch": (AveragingSchedule("minibatch"), 0, SUITE_STEPS),
+              "periodic_128": (AveragingSchedule("periodic", phase_len=128),
+                               8, 8),
+              "periodic_1024": (AveragingSchedule("periodic",
+                                                  phase_len=1024), 1, 1)}
+    suite = {}
+    for c in CONVEX_SUITE:
+        X, y, _ = convex_dataset(c.model, c.num_samples, c.num_dims,
+                                 sparsity=c.sparsity, noise=c.noise, seed=0)
+        Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+        obj = make_problem(c.model)[0]
+        w0 = torch.zeros(c.num_dims, device=dev)
+        t0 = time.perf_counter()
+        w_star = solve_optimum(c.model, Xd, yd)
+        torch.cuda.synchronize(dev)
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        g_ratio = float(torch.linalg.norm(full_gradient(c.model, w_star, Xd,
+                                                        yd))
+                        / torch.linalg.norm(full_gradient(c.model, w0, Xd,
+                                                          yd)))
+        check(g_ratio < 0.05, f"{c.name}: w* gradient ratio {g_ratio}")
+        f0, fstar = float(obj(w0, Xd, yd)), float(obj(w_star, Xd, yd))
+        check(fstar < f0, f"{c.name}: f* {fstar} not below f(0) {f0}")
+        var_fn = empirical_variance_fn(c.model, Xd, yd)
+        beta2, sigma2 = measure_beta2(var_fn, w_star, key=rng.PRNGKey(0))
+        rho_ = rho(beta2, sigma2, w0, w_star)
+        check(all(map(math.isfinite, (beta2, sigma2, rho_))) and beta2 > 0,
+              f"{c.name}: beta2 {beta2}, sigma2 {sigma2}, rho {rho_}")
+        # paired draws: worker w of every curve takes idx[:, w]
+        idx = np.random.default_rng(0).integers(
+            0, c.num_samples, (SUITE_STEPS, c.num_workers))
+        lr0 = SUITE_LR_MULT * SUITE_LR_D / float(np.mean(np.sum(X * X,
+                                                               axis=1)))
+        sgd = SGD(lr=lambda t: lr0 / (t - 1.0 + SUITE_LR_D))
+        span = max(f0 - fstar, 1e-12)
+
+        def evaluate(p):
+            return float(obj(p["w"], Xd, yd))
+
+        def curve(name, sched, m, launches, events, idx_m):
+            steps = SUITE_STEPS
+            eng = PhaseEngine(convex_loss(c.model), sgd, sched, device="cuda")
+            ds = DeviceDataset({"x": Xd, "y": yd}, m, indices=idx_m,
+                               device="cuda")
+            zero_counts()
+            final, hist = eng.run({"w": w0}, ds, num_workers=m, seed=0,
+                                  record_every=SUITE_EVERY, eval_fn=evaluate)
+            got = read_counts({"opt_step": steps, "avg_disp": launches},
+                              f"{c.name} {name}")
+            check(hist["averages"] == events,
+                  f"{c.name} {name}: {hist['averages']} events")
+            evals = [v for _, v in hist["eval"]]
+            check([t for t, _ in hist["eval"]]
+                  == list(range(SUITE_EVERY, steps + 1, SUITE_EVERY))
+                  and all(map(math.isfinite, evals)),
+                  f"{c.name} {name}: evals {hist['eval']}")
+            return final, hist, dict(
+                workers=m, events=hist["averages"],
+                event_steps=[t for t, _ in hist["dispersion"]][:8],
+                launches={k: got[k] for k in ("opt_step", "avg_disp")},
+                steady_step_ms=steady_step_ms(hist["phase_wall"]),
+                subopt=[(t, (v - fstar) / span) for t, v in hist["eval"]],
+                subopt_end=(evals[-1] - fstar) / span)
+
+        out = {}
+        for name, (sched, launches, events) in curves.items():
+            out[name] = curve(name, sched, c.num_workers, launches, events,
+                              idx)[2]
+            check(out[name]["subopt_end"] < 1.0,
+                  f"{c.name} {name}: no progress, {out[name]['subopt_end']}")
+        # the single worker: worker 0's draws, no averaging
+        out["single"] = curve("single", AveragingSchedule("oneshot"), 1, 0,
+                              0, idx[:, :1])[2]
+        suite[c.name] = dict(samples=c.num_samples, dims=c.num_dims,
+                             workers=c.num_workers, f0=f0, f_star=fstar,
+                             w_star_grad_ratio=g_ratio,
+                             solve_optimum_ms=solve_ms, sigma2=sigma2,
+                             beta2=beta2, rho=rho_, curves=out)
+        del Xd, yd, w_star
+        free()
+
+    # one config three ways over the same 256 steps: run over the
+    # DeviceDataset (indexed), run over host numpy batches (staged by the
+    # Prefetcher) and run_host; all three bitwise equal
+    c = CONVEX_SUITE[1]
+    X, y, _ = convex_dataset(c.model, c.num_samples, c.num_dims,
+                             sparsity=c.sparsity, noise=c.noise, seed=0)
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    idx = np.random.default_rng(0).integers(0, c.num_samples,
+                                            (HOST_STEPS, c.num_workers))
+    lr0 = SUITE_LR_MULT * SUITE_LR_D / float(np.mean(np.sum(X * X, axis=1)))
+    eng = PhaseEngine(convex_loss(c.model),
+                      SGD(lr=lambda t: lr0 / (t - 1.0 + SUITE_LR_D)),
+                      AveragingSchedule("periodic", phase_len=128),
+                      device="cuda")
+    w0 = {"w": torch.zeros(c.num_dims, device=dev)}
+    kw = dict(num_workers=c.num_workers, seed=0, record_every=SUITE_EVERY)
+    three = {}
+    expect = {"opt_step": HOST_STEPS, "avg_disp": HOST_STEPS // 128}
+    for name in ("indexed", "staged", "run_host"):
+        zero_counts()
+        if name == "indexed":
+            f, h = eng.run(w0, DeviceDataset({"x": Xd, "y": yd},
+                                             c.num_workers, indices=idx,
+                                             device="cuda"), **kw)
+        elif name == "staged":
+            f, h = eng.run(w0, ({"x": X[i], "y": y[i]} for i in idx), **kw)
+        else:
+            f, h = eng.run_host(w0, ({"x": X[i], "y": y[i]} for i in idx),
+                                **kw)
+        read_counts(expect, f"{c.name} {name}")
+        # the steps after the first period (run's first phase, which
+        # warms up); run_host's phase_wall holds one entry per step
+        steady = [(t1_ - t0_ + 1, w) for t0_, t1_, w in h["phase_wall"]
+                  if t0_ > 128]
+        three[name] = dict(params=f["w"], hist=h, ms_per_step=1e3 * sum(
+            w for _, w in steady) / sum(n for n, _ in steady))
+    for name in ("staged", "run_host"):
+        check(torch.equal(three[name]["params"], three["indexed"]["params"])
+              and three[name]["hist"]["loss"] == three["indexed"]["hist"][
+                  "loss"]
+              and three[name]["hist"]["dispersion"] == three["indexed"][
+                  "hist"]["dispersion"],
+              f"{c.name}: {name} differs from the indexed run")
+    host_vs_run = dict(config=c.name, schedule="periodic_128",
+                       steps=HOST_STEPS, bitwise=True,
+                       **{f"{k}_ms_per_step": v["ms_per_step"]
+                          for k, v in three.items()})
+    # where an indexed step's time goes: 32 warm steps, then 32 under
+    # torch.profiler; idle share against the unprofiled indexed step
+    from repro_torch.launch.profile import _breakdown, _profiler
+    ds = DeviceDataset({"x": Xd, "y": yd}, c.num_workers, indices=idx[:64],
+                       device="cuda")
+    _, _, st = eng.run(w0, ds, num_workers=c.num_workers, steps=32,
+                       return_state=True)
+    torch.cuda.synchronize(dev)
+    with _profiler() as prof:
+        eng.run(None, ds, num_workers=c.num_workers, steps=32, state=st)
+        torch.cuda.synchronize(dev)
+    bd = _breakdown(prof, 32, three["indexed"]["ms_per_step"] * 1e3)
+    host_vs_run["indexed_profile"] = {
+        k: bd[k] for k in ("device_busy_ms", "idle_share",
+                           "kernels_per_step", "by_group_ms")}
+    del Xd, yd, three, st, ds
+    free()
+    emit({"phase": "convex_suite", "steps": SUITE_STEPS,
+          "record_every": SUITE_EVERY, "lr_mult": SUITE_LR_MULT,
+          "lr_d": SUITE_LR_D, "configs": suite,
+          "indexed_staged_run_host": host_vs_run,
+          "reduced": ["1024 steps, not the paper's 3000",
+                      "one point (0.8) of the reference's learning-rate "
+                      "grid (0.4, 0.8, 1.6, 3.0, 6.0)"],
+          "wall_s": time.perf_counter() - t_suite, "card": smi})
+
+    # ---- 6. serving at full width (bf16, random weights) ------------------
     from repro_torch.launch import serve, steps
     served = {}
     for arch, run in SERVE.items():
@@ -932,7 +1151,7 @@ def main() -> None:
     check(tuple(cli_toks.shape) == (2, 4), "serve CLI tokens")
     emit({"phase": "serve", **served, "card": smi})
 
-    # ---- 6. summary --------------------------------------------------------
+    # ---- 7. summary --------------------------------------------------------
     def line(name, src, replaces, row):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -32,12 +32,22 @@ gossip matchings, int8 stochastic rounding) folds ``dec_key`` with the
 1-indexed step, so decisions, matchings and quantizations equal the
 reference's bit for bit.
 
-PyTorch runs eagerly, so a "phase" here is a Python loop over a staged
-block of steps: the engine decides on the host each step (one device
-read of the dispersion per step) and fetches the loss trace once per
-phase. On the card ``opt_step`` and ``compressed_mix`` update the plane,
-the state planes and the residual in place, so a state handed to
-``run_phase`` is consumed, as the reference's donated state is.
+PyTorch runs eagerly, so a "phase" here is a Python loop over a block
+of steps: the engine decides on the host each step (one device read of
+the dispersion per step) and fetches the loss trace once per phase. A
+block is either staged batches (``run_phase``) or, from a
+:class:`~repro_torch.data.DeviceDataset`, one int index block copied to
+the device once, each step's batches gathered there with
+``index_select`` (``run_phase_indexed``, the reference's ``jnp.take``
+inside its scan). On the card ``opt_step`` and ``compressed_mix`` update
+the plane, the state planes and the residual in place, so a state
+handed to a phase is consumed, as the reference's donated state is.
+
+``kernel_impl`` picks the plane passes as the reference's does
+(``auto | ref | pallas``): ``"auto"`` launches the CUDA kernels on a
+CUDA device and runs their plain versions on the CPU, ``"ref"`` runs the
+plain versions on either, and ``"cuda"`` launches the kernels and
+refuses a CPU engine.
 """
 from __future__ import annotations
 
@@ -46,30 +56,43 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import rng
 from repro_torch.core.averaging import (AveragingSchedule, OuterOptimizer,
                                         SchedState)
 from repro_torch.core.compress import Compression, row_uniforms
-from repro_torch.core.flat import FlatSpec, tree_map, tree_unflatten
+from repro_torch.core.flat import (FlatSpec, tree_flatten, tree_map,
+                                   tree_unflatten)
 from repro_torch.device import resolve_device
 from repro_torch.kernels._build import MAX_WORKERS
 from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
-                                          compressed_mix, mix_disp)
+                                          compressed_mix,
+                                          compressed_mix_plain, mix_disp)
 from repro_torch.kernels.opt_step import opt_step
 from repro_torch.kernels.ref import (_div, _row_sum, avg_disp_outer_ref,
-                                     mix_disp_ref, plane_average_ref,
+                                     avg_disp_ref, mix_disp_ref,
+                                     opt_step_ref, plane_average_ref,
                                      round_to_codes)
 from repro_torch.topology import MIX_KINDS, Topology, comm_bytes
+
+KERNEL_IMPLS = ("auto", "ref", "cuda")
+#: the plane passes: the wrappers (kernel on CUDA tensors, plain version
+#: on CPU tensors) and the plain versions on any device
+_KERNEL_OPS = {"opt_step": opt_step, "avg_disp": avg_disp,
+               "mix_disp": mix_disp, "avg_disp_outer": avg_disp_outer,
+               "compressed_mix": compressed_mix}
+_PLAIN_OPS = {"opt_step": opt_step_ref, "avg_disp": avg_disp_ref,
+              "mix_disp": mix_disp_ref, "avg_disp_outer": avg_disp_outer_ref,
+              "compressed_mix": compressed_mix_plain}
 
 
 def init_history() -> dict:
     """The run history dict, keyed as the reference's
-    ``repro.telemetry.events.init_history`` (``eval`` / ``worker_eval``
-    stay empty: the eval hooks are not ported yet), plus ``phase_wall``:
-    (first step, last step, host seconds) per phase, each ending in a
-    device synchronize."""
+    ``repro.telemetry.events.init_history``, plus ``phase_wall``: (first
+    step, last step, host seconds) per phase (per step in ``run_host``),
+    each ending in a device synchronize."""
     return {"loss": [], "dispersion": [], "disp_trace": [],
             "averages": 0, "eval": [], "worker_eval": [], "phase_wall": []}
 
@@ -138,7 +161,10 @@ class PhaseEngine:
     optimizer at all-worker events; ``topology``: the mixing graph of
     every all-worker event (:mod:`repro_torch.topology`);
     ``compression``: the wire format of every event
-    (:mod:`repro_torch.core.compress`)."""
+    (:mod:`repro_torch.core.compress`); ``kernel_impl``: ``"auto"`` (the
+    CUDA kernels on a CUDA device, their plain versions on the CPU),
+    ``"ref"`` (the plain versions) or ``"cuda"`` (the kernels; a CPU
+    engine is refused)."""
     loss_fn: Callable
     optimizer: Any
     schedule: AveragingSchedule
@@ -146,9 +172,17 @@ class PhaseEngine:
     outer: OuterOptimizer | None = None
     topology: Topology | None = None
     compression: Compression | None = None
+    kernel_impl: str = "auto"
 
     def __post_init__(self):
-        resolve_device(self.device)
+        dev = resolve_device(self.device)
+        if self.kernel_impl not in KERNEL_IMPLS:
+            raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}, "
+                             f"got {self.kernel_impl!r}")
+        if self.kernel_impl == "cuda" and dev.type != "cuda":
+            raise ValueError(
+                f"kernel_impl='cuda' launches the CUDA kernels, which a "
+                f"{dev.type} engine cannot — use 'auto' or 'ref' there")
         if getattr(self.optimizer, "plane_kind", None) is None:
             raise TypeError(
                 f"{type(self.optimizer).__name__} does not speak the plane "
@@ -166,6 +200,11 @@ class PhaseEngine:
     @property
     def _dev(self) -> torch.device:
         return resolve_device(self.device)
+
+    def _op(self, name: str) -> Callable:
+        """The plane pass ``name`` under ``kernel_impl``."""
+        return (_PLAIN_OPS if self.kernel_impl == "ref"
+                else _KERNEL_OPS)[name]
 
     # ---- state -----------------------------------------------------------
     def _check_workers(self, num_workers: int):
@@ -280,17 +319,17 @@ class PhaseEngine:
         group mean), ``mix_disp`` with a mixing topology, or
         ``avg_disp_outer`` for the all-scope with an outer optimizer.
         Returns (plane, outer state)."""
+        avg = self._op("avg_disp")
         if scope == "inner":
-            return avg_disp(plane,
-                            groups=max(self.schedule.inner_groups, 1))[0], \
+            return avg(plane, groups=max(self.schedule.inner_groups, 1))[0], \
                 outer_c
         if W is not None:
-            return mix_disp(plane, W)[0], outer_c
+            return self._op("mix_disp")(plane, W)[0], outer_c
         if self.outer is not None and outer_c != ():
-            plane, prev, vel, _ = avg_disp_outer(plane, *outer_c,
-                                                 **self._outer_kw())
+            plane, prev, vel, _ = self._op("avg_disp_outer")(
+                plane, *outer_c, **self._outer_kw())
             return plane, (prev, vel)
-        return avg_disp(plane, groups=self._all_groups())[0], outer_c
+        return avg(plane, groups=self._all_groups())[0], outer_c
 
     def _plane_avg_event(self, state: EngineState, plane, outer_c,
                          scope: str, W=None):
@@ -330,7 +369,7 @@ class PhaseEngine:
         m, p = plane.shape
         groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
                   else self._all_groups())
-        plane, resid, _ = compressed_mix(
+        plane, resid, _ = self._op("compressed_mix")(
             plane, resid, wire=comp.wire,
             mode="mix" if W is not None else
             "group" if groups > 1 else "mean",
@@ -356,7 +395,7 @@ class PhaseEngine:
         if comp is not None and scope != "none":
             m, p = plane.shape
             groups = self._all_groups()
-            plane, planes, resid, disp = opt_step(
+            plane, planes, resid, disp = self._op("opt_step")(
                 plane, gplane, planes, scalars,
                 mode=("mix" if W is not None
                       else "group" if groups > 1 else "mean"),
@@ -365,25 +404,25 @@ class PhaseEngine:
                 error_feedback=comp.error_feedback, **kw)
             return plane, planes, outer_c, resid, disp
         if scope == "none":
-            plane, planes, disp = opt_step(plane, gplane, planes, scalars,
-                                           mode="none", **kw)
+            plane, planes, disp = self._op("opt_step")(
+                plane, gplane, planes, scalars, mode="none", **kw)
             return plane, planes, outer_c, resid, disp
         if W is not None:
-            plane, planes, disp = opt_step(plane, gplane, planes, scalars,
-                                           mode="mix", W=W, **kw)
+            plane, planes, disp = self._op("opt_step")(
+                plane, gplane, planes, scalars, mode="mix", W=W, **kw)
             return plane, planes, outer_c, resid, disp
         if self.outer is not None and outer_c != ():
-            plane, planes, _ = opt_step(plane, gplane, planes, scalars,
-                                        mode="none", **kw)
+            plane, planes, _ = self._op("opt_step")(
+                plane, gplane, planes, scalars, mode="none", **kw)
             if codes is None:
-                plane, prev, vel, disp = avg_disp_outer(
+                plane, prev, vel, disp = self._op("avg_disp_outer")(
                     plane, *outer_c, **self._outer_kw())
             else:
                 plane, prev, vel, disp = avg_disp_outer_ref(
                     plane, *outer_c, codes=codes, **self._outer_kw())
             return plane, planes, (prev, vel), resid, disp
         groups = self._all_groups()
-        plane, planes, disp = opt_step(
+        plane, planes, disp = self._op("opt_step")(
             plane, gplane, planes, scalars,
             mode="group" if groups > 1 else "mean", groups=groups, **kw)
         return plane, planes, outer_c, resid, disp
@@ -432,23 +471,47 @@ class PhaseEngine:
         return tree_map(lambda x: torch.as_tensor(x, device=self._dev),
                         batch)
 
-    def run_phase(self, state: EngineState, batches):
-        """Run the staged per-step batches of one phase. Returns the new
-        state and the per-step traces {loss, dispersion, avg_code} as
-        host lists (one device fetch for the losses)."""
-        spec = state.spec
-        grads_fn = make_plane_step(self.loss_fn, spec)
+    def _phase(self, state: EngineState, batches):
+        """Run the device-resident per-step batches of one phase. Returns
+        the new state and the per-step traces {loss, dispersion,
+        avg_code} as host lists (one device fetch for the losses)."""
+        grads_fn = make_plane_step(self.loss_fn, state.spec)
         gbuf = torch.empty_like(state.plane)
         losses, disps, codes = [], [], []
         for batch in batches:
-            state, loss, disp, code = self._step(state, self._stage(batch),
-                                                 grads_fn, gbuf)
+            state, loss, disp, code = self._step(state, batch, grads_fn,
+                                                 gbuf)
             losses.append(loss)
             disps.append(disp)
             codes.append(code)
         loss_h = torch.stack(losses).tolist() if losses else []
         return state, {"loss": loss_h, "dispersion": disps,
                        "avg_code": codes}
+
+    def run_phase(self, state: EngineState, batches):
+        """One phase over per-step batches (numpy arrays or tensors),
+        each staged to the engine's device before its step."""
+        return self._phase(state, (self._stage(b) for b in batches))
+
+    def run_phase_indexed(self, state: EngineState, arrays, idx_block):
+        """One phase over a (K, M, B) or (K, M) int index block into the
+        device-resident ``arrays`` (a tree of (N, ...) tensors on the
+        plane's device): the block is copied to the device once, and
+        each step's (M, B, ...) or (M, ...) batch is gathered there
+        (``index_select``); then the same step as :meth:`run_phase`."""
+        dev = state.plane.device
+        for a in tree_flatten(arrays)[0]:
+            if a.device != dev:
+                raise ValueError(f"the dataset lives on {a.device}, the "
+                                 f"planes on {dev}: gather where they are")
+        idx = torch.as_tensor(np.asarray(idx_block, np.int32)).to(dev)
+
+        def gather(i):
+            flat = i.reshape(-1)
+            return tree_map(lambda a: a.index_select(0, flat).reshape(
+                tuple(i.shape) + tuple(a.shape[1:])), arrays)
+
+        return self._phase(state, (gather(idx[k]) for k in range(len(idx))))
 
     def default_phase_len(self) -> int:
         """Block size aligned with the schedule's natural period
@@ -458,6 +521,8 @@ class PhaseEngine:
             return max(1, min(s.phase_len, 512))
         if s.kind == "hierarchical":
             return max(1, min(s.inner_phase_len, 512))
+        if s.kind == "stochastic":
+            return int(min(max(1.0 / max(s.zeta, 1e-12), 8), 128))
         if s.kind == "adaptive_budget":
             return int(min(max(s.budget_horizon / max(s.comm_budget, 1), 8),
                            128))
@@ -469,58 +534,77 @@ class PhaseEngine:
         plane = state.plane
         return state.spec.unpack1(_div(_row_sum(plane), plane.shape[0]))
 
+    def worker_params(self, state: EngineState):
+        """Every worker's params, leaves (M, *shape) in the leaf dtypes
+        (copies: the plane is updated in place)."""
+        return tree_map(lambda x: x.clone(), state.spec.unpack(state.plane))
+
     def _sync(self):
         if self._dev.type == "cuda":
             torch.cuda.synchronize(self._dev)
 
+    def _record_evals(self, hist, t, state, eval_fn, worker_eval_fn):
+        if eval_fn is not None:
+            hist["eval"].append((t, eval_fn(self.consensus(state))))
+        if worker_eval_fn is not None:
+            hist["worker_eval"].append(
+                (t, worker_eval_fn(self.worker_params(state))))
+
     # ---- run loop ----------------------------------------------------------
     def run(self, params, data, *, num_workers: int, seed: int = 0,
-            record_every: int = 0, phase_len: int | None = None, steps: int | None = None,
-            state: EngineState | None = None, return_state: bool = False):
+            record_every: int = 0, eval_fn=None, worker_eval_fn=None,
+            phase_len: int | None = None, steps: int | None = None,
+            prefetch: bool = True, state: EngineState | None = None,
+            return_state: bool = False):
         """Training loop: one phase per block of steps.
 
         data: an iterable of per-step worker batches (leaves with the
         worker axis first, numpy arrays or tensors), staged to the
-        device block by block. Returns (final averaged params, history
-        dict).
+        device block by block — by a background :class:`Prefetcher`
+        thread for a true stream (``prefetch=False`` stages in line;
+        lists and tuples always stage in line) — or a
+        :class:`~repro_torch.data.DeviceDataset`, whose index blocks the
+        engine gathers on the device. With a dataset, ``steps`` bounds
+        the run (a precomputed index list ends it too, and its cursor
+        advances across calls); a sampler without ``steps`` is refused.
 
-        The history records ``loss`` and ``disp_trace`` (the per-step
-        Eq. 4 dispersion, after the local update and before any
-        averaging) every ``record_every`` steps, ``dispersion`` at every
-        averaging event, the event count ``averages``, and
-        ``phase_wall``. ``state`` resumes an :class:`EngineState`;
-        ``steps`` bounds the steps run in this call."""
+        ``eval_fn(consensus params)`` and ``worker_eval_fn(worker params,
+        leaves (M, ...))`` run every ``record_every`` steps into
+        ``eval`` / ``worker_eval``; phase blocks are cut so that record
+        boundaries end a phase.
+
+        Returns (final averaged params, history dict). The history
+        records ``loss`` and ``disp_trace`` (the per-step Eq. 4
+        dispersion, after the local update and before any averaging)
+        every ``record_every`` steps, ``dispersion`` at every averaging
+        event, the event count ``averages``, and ``phase_wall``.
+        ``state`` resumes an :class:`EngineState`; ``steps`` bounds the
+        steps run in this call."""
+        # imported here: the data plane's module imports core.flat, which
+        # loads this package
+        from repro_torch.data.pipeline import DeviceDataset, Prefetcher
         self._check_workers(num_workers)
         if state is None:
             state = self.init(params, num_workers, seed)
         t0 = state.step
         block = phase_len or self.default_phase_len()
+        needs_eval = bool(record_every and (eval_fn or worker_eval_fn))
         hist = init_history()
         total = None if steps is None else t0 + steps
 
         def take_at(t):
-            return block if total is None else min(block, total - t)
+            take = block
+            if needs_eval:
+                take = min(take, record_every - t % record_every)
+            if total is not None:
+                take = min(take, total - t)
+            return take
 
-        it = iter(data)
-        t = t0
-        while True:
-            take = take_at(t)
-            if take <= 0:
-                break
-            chunk = []
-            for _ in range(take):
-                nxt = next(it, None)
-                if nxt is None:
-                    break
-                chunk.append(nxt)
-            if not chunk:
-                break
-            tw0 = time.perf_counter()
-            state, trace = self.run_phase(state, chunk)
+        def consume(t, k, trace, tw0):
             self._sync()
-            hist["phase_wall"].append((t + 1, t + len(chunk),
+            hist["phase_wall"].append((t + 1, t + k,
                                        time.perf_counter() - tw0))
-            for i in range(len(chunk)):
+            for i in range(k):
                 t += 1
                 code = trace["avg_code"][i]
                 if code:
@@ -529,7 +613,91 @@ class PhaseEngine:
                 if record_every and t % record_every == 0:
                     hist["loss"].append((t, trace["loss"][i]))
                     hist["disp_trace"].append((t, trace["dispersion"][i]))
-            if len(chunk) < take:
-                break
+            if needs_eval and t % record_every == 0:
+                self._record_evals(hist, t, state, eval_fn, worker_eval_fn)
+            return t
+
+        if isinstance(data, DeviceDataset):
+            if data.num_workers != num_workers:
+                raise ValueError(f"the dataset draws for {data.num_workers} "
+                                 f"workers, the run has {num_workers}")
+            remaining = steps if steps is not None else data.num_steps
+            if remaining is None:
+                raise ValueError("a DeviceDataset with a sampler needs "
+                                 "steps=")
+            if data.num_steps is not None:
+                # a precomputed index list ends the run when exhausted
+                remaining = min(remaining, data.num_steps)
+            total = t0 + remaining
+            t = t0
+            while t < total:
+                take = take_at(t)
+                tw0 = time.perf_counter()
+                state, trace = self.run_phase_indexed(
+                    state, data.arrays, data.index_block(take))
+                t = consume(t, take, trace, tw0)
+            final = self.consensus(state)
+            return (final, hist, state) if return_state else (final, hist)
+
+        def staged_blocks():
+            it = iter(data)
+            t, done = t0, False
+            while not done:
+                take = take_at(t)
+                if take <= 0:
+                    return
+                chunk = []
+                while len(chunk) < take:
+                    nxt = next(it, None)
+                    if nxt is None:
+                        done = True
+                        break
+                    chunk.append(self._stage(nxt))
+                if not chunk:
+                    return
+                t += len(chunk)
+                yield chunk
+
+        # an in-memory source gains nothing from background staging
+        prefetch = prefetch and not isinstance(data, (list, tuple))
+        pf = Prefetcher(staged_blocks()) if prefetch else None
+        t = t0
+        try:
+            for chunk in (pf if pf is not None else staged_blocks()):
+                tw0 = time.perf_counter()
+                state, trace = self._phase(state, chunk)
+                t = consume(t, len(chunk), trace, tw0)
+        finally:
+            if pf is not None:
+                pf.close()
         final = self.consensus(state)
         return (final, hist, state) if return_state else (final, hist)
+
+    def run_host(self, params, batches, *, num_workers: int, seed: int = 0,
+                 record_every: int = 0, eval_fn=None, worker_eval_fn=None):
+        """Per-step host-driven loop: one step per dispatch, the
+        averaging decision read on the host, the loss and the evals read
+        at every record step. The step is :meth:`run`'s, so the result
+        is bitwise :meth:`run`'s; the history has :meth:`run`'s keys and
+        semantics, with one ``phase_wall`` entry per step. Returns (final
+        averaged params, history dict)."""
+        self._check_workers(num_workers)
+        state = self.init(params, num_workers, seed)
+        grads_fn = make_plane_step(self.loss_fn, state.spec)
+        gbuf = torch.empty_like(state.plane)
+        hist = init_history()
+        for batch in batches:
+            tw0 = time.perf_counter()
+            state, loss, disp, code = self._step(state, self._stage(batch),
+                                                 grads_fn, gbuf)
+            t = state.step
+            if code:
+                hist["dispersion"].append((t, disp))
+                hist["averages"] += 1
+            if record_every and t % record_every == 0:
+                hist["loss"].append((t, float(loss)))
+                hist["disp_trace"].append((t, disp))
+                self._record_evals(hist, t, state, eval_fn, worker_eval_fn)
+            self._sync()
+            hist["phase_wall"].append((t, t, time.perf_counter() - tw0))
+        return self.consensus(state), hist

@@ -1,3 +1,6 @@
+from repro_torch.data.pipeline import (DeviceDataset, Prefetcher,
+                                       WorkerSharder, worker_batches)
 from repro_torch.data.synthetic import convex_dataset, token_stream
 
-__all__ = ["convex_dataset", "token_stream"]
+__all__ = ["DeviceDataset", "Prefetcher", "WorkerSharder", "convex_dataset",
+           "token_stream", "worker_batches"]

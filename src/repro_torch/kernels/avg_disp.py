@@ -212,14 +212,24 @@ def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
     _check_event("compressed_mix", plane, resid, wire, u)
     kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
     if plane.device.type == "cpu":
-        if mode == "mix":
-            return compressed_mix_ref(plane, resid, W, **kw)
-        return compressed_avg_ref(plane, resid,
-                                  groups=groups if mode == "group" else 1,
-                                  **kw)
+        return compressed_mix_plain(plane, resid, mode=mode, groups=groups,
+                                    W=W, **kw)
     disp = _compressed_event(plane, resid, mode=mode, groups=groups, W=W,
                              **kw)
     return plane, resid, disp
+
+
+def compressed_mix_plain(plane, resid, *, wire, mode="mean", groups: int = 1,
+                         W=None, u=None, codes=None,
+                         error_feedback: bool = True):
+    """:func:`compressed_mix`'s plain version, on any device: the event
+    of ``mode`` through ``compressed_mix_ref`` / ``compressed_avg_ref``.
+    Returns new (plane, residual, dispersion)."""
+    kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
+    if mode == "mix":
+        return compressed_mix_ref(plane, resid, W, **kw)
+    return compressed_avg_ref(plane, resid,
+                              groups=groups if mode == "group" else 1, **kw)
 
 
 #: kernel launches so far (the CPU plain path does not count)

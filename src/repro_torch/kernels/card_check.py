@@ -65,7 +65,12 @@ from repro_torch.topology import Topology, gossip_matrix
 # block, every register-array size M rounds up to (4, 8, 32, 64), and
 # (24, 1024) is the paper's least-squares plane on the f32 main path.
 SHAPES = [(4, 1000, 2), (8, 2500, 4), (24, 1024, 4), (64, 333, 8)]
-# avg_disp group counts, each dividing every M above; 4 is the
+# (M, P) planes the paper's §3.1 convex suite gives opt_step and avg_disp
+# that SHAPES lacks, held bitwise: one worker (the single-worker curve,
+# 1 x 1024; modes none and mean only, since a group count must divide M)
+# and a plane narrower than one column block (synth-lr-dense, 24 x 32).
+NARROW_SHAPES = [(1, 1024), (24, 32)]
+# avg_disp group counts, each dividing every M of SHAPES; 4 is the
 # hierarchical inner event of the f32 main path.
 AVG_GROUPS = (1, 2, 4)
 OPTS = {"sgd": ("sgd", {}), "momentum": ("momentum", {"mu": 0.9}),
@@ -438,9 +443,23 @@ def comm_sweep(dev) -> tuple[int, dict]:
     return n, err
 
 
+def check_narrow_opt_step(dev, m, p, opt, mode, codes_kind, seed=0) -> float:
+    """``opt_step`` on one of ``NARROW_SHAPES``, held bitwise to its plain
+    version (mode mean included). Returns the max abs error, 0."""
+    kind, hyp = OPTS[opt]
+    x, g, st, scal, codes = make_inputs(dev, m, p, kind, codes_kind,
+                                        seed=seed)
+    name = f"opt_step/{opt}-{mode}-{codes_kind}-M{m}P{p}"
+    e, _ = check_opt_step(name, x, g, st, scal, codes, kind=kind, mode=mode,
+                          **hyp)
+    _require(e == 0.0, f"{name}: not bitwise ({e})")
+    return e
+
+
 def sweep(dev) -> tuple[int, dict]:
     """Every (shape, optimizer, mode, codes) case of ``opt_step`` and
-    every (shape, groups) case of ``avg_disp``, then :func:`comm_sweep`.
+    every (shape, groups) case of ``avg_disp`` over ``SHAPES`` and
+    ``NARROW_SHAPES``, then :func:`comm_sweep`.
     Returns (number of cases, max abs error per kernel)."""
     err = {"opt_step": 0.0, "avg_disp": 0.0}
     n = 0
@@ -462,6 +481,21 @@ def sweep(dev) -> tuple[int, dict]:
             e = check_avg_disp(f"avg_disp/g{grp}-M{m}P{p}", x, grp)
             err["avg_disp"] = max(err["avg_disp"], e)
             n += 1
+    for m, p in NARROW_SHAPES:
+        for opt in OPTS:
+            for mode in ("none", "mean"):
+                for codes_kind in (None, "mixed"):
+                    e = check_narrow_opt_step(dev, m, p, opt, mode,
+                                              codes_kind, seed=n)
+                    err["opt_step"] = max(err["opt_step"], e)
+                    n += 1
+        for grp in AVG_GROUPS:
+            if m % grp == 0:
+                x = make_inputs(dev, m, p, "sgd", seed=1000 + grp)[0]
+                name = f"avg_disp/g{grp}-M{m}P{p}"
+                _require(check_avg_disp(name, x, grp) == 0.0,
+                         f"{name}: not bitwise")
+                n += 1
     n2, err2 = comm_sweep(dev)
     for k, v in err2.items():
         err[k] = max(err.get(k, 0.0), v)

@@ -63,6 +63,28 @@ def test_avg_disp_kernel_matches_plain(dev, groups, shape):
     assert avg_disp.launches == n0 + 2
 
 
+@pytest.mark.parametrize("shape", cc.NARROW_SHAPES,
+                         ids=lambda s: f"M{s[0]}P{s[1]}")
+@pytest.mark.parametrize("codes", [None, "mixed"], ids=["f32", "codes"])
+@pytest.mark.parametrize("mode", ["none", "mean"])
+@pytest.mark.parametrize("opt", list(cc.OPTS))
+def test_opt_step_kernel_on_narrow_planes(dev, opt, mode, codes, shape):
+    """One worker, and a plane narrower than one column block: bitwise."""
+    n0 = opt_step.launches
+    assert cc.check_narrow_opt_step(dev, *shape, opt, mode, codes) == 0.0
+    assert opt_step.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", cc.NARROW_SHAPES,
+                         ids=lambda s: f"M{s[0]}P{s[1]}")
+def test_avg_disp_kernel_on_narrow_planes(dev, shape):
+    m, p = shape
+    for groups in cc.AVG_GROUPS:
+        if m % groups == 0:
+            x = cc.make_inputs(dev, m, p, "sgd", seed=groups)[0]
+            assert cc.check_avg_disp(f"g{groups}", x, groups) == 0.0
+
+
 def test_kernels_refuse_what_they_cannot_take(dev):
     x, g, st, scal, _ = cc.make_inputs(dev, 4, 64, "momentum")
     with pytest.raises(ValueError, match="contiguous"):
@@ -230,6 +252,64 @@ def test_engine_on_card_matches_cpu(dev):
     for a, b in zip(torch.utils._pytree.tree_leaves(fg),
                     torch.utils._pytree.tree_leaves(fc)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+def test_engine_indexed_on_card_matches_cpu(dev):
+    """The indexed path (a DeviceDataset's (K, M) index list, batches
+    gathered on the device) on the card and on the CPU: the same event
+    steps, params and losses within rtol 1e-4; on the card the indexed
+    run is bitwise the staged one, ``kernel_impl="cuda"`` launches the
+    kernels and ``"ref"`` launches none."""
+    from repro_torch.core import AveragingSchedule, PhaseEngine
+    from repro_torch.data import DeviceDataset
+    from repro_torch.models.convex import ls_objective
+    from repro_torch.optim import SGD
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((512, 64)).astype(np.float32)
+    y = (X @ rng.standard_normal(64)).astype(np.float32)
+    idx = rng.integers(0, 512, (32, 24))
+
+    def loss(p, b, r):
+        return 0.5 * torch.square(b["x"] @ p["w"] - b["y"]), {}
+
+    def run(device, data=None, **kw):
+        eng = PhaseEngine(loss, SGD(lr=lambda t: 0.3 / (t + 20.0)),
+                          AveragingSchedule("hierarchical", inner_groups=4,
+                                            inner_phase_len=4,
+                                            outer_phase_len=16),
+                          device=device, **kw)
+        if data is None:
+            data = DeviceDataset({"x": X, "y": y}, 24, indices=idx,
+                                 device=device)
+        Xd, yd = torch.from_numpy(X).to(device), torch.from_numpy(y).to(
+            device)
+        return eng.run({"w": torch.zeros(64)}, data, num_workers=24,
+                       seed=0, record_every=4,
+                       eval_fn=lambda p: float(ls_objective(p["w"], Xd, yd)))
+
+    n0, a0 = opt_step.launches, avg_disp.launches
+    fg, hg = run("cuda", kernel_impl="cuda")
+    assert (opt_step.launches - n0, avg_disp.launches - a0) == (32, 8)
+    fc, hc = run("cpu")
+    assert [t for t, _ in hg["dispersion"]] == [t for t, _ in
+                                                hc["dispersion"]]
+    assert hg["averages"] == 8
+    np.testing.assert_allclose(fg["w"].cpu().numpy(), fc["w"].numpy(),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose([v for _, v in hg["loss"]],
+                               [v for _, v in hc["loss"]], rtol=1e-4,
+                               atol=1e-7)
+    np.testing.assert_allclose([v for _, v in hg["eval"]],
+                               [v for _, v in hc["eval"]], rtol=1e-4)
+    staged = [{"x": X[idx[t]], "y": y[idx[t]]} for t in range(len(idx))]
+    fs, hs = run("cuda", data=staged)
+    assert torch.equal(fs["w"], fg["w"]) and hs["loss"] == hg["loss"]
+    n0, a0 = opt_step.launches, avg_disp.launches
+    fr, _ = run("cuda", kernel_impl="ref")
+    assert (opt_step.launches, avg_disp.launches) == (n0, a0)
+    np.testing.assert_allclose(fr["w"].cpu().numpy(), fg["w"].cpu().numpy(),
+                               rtol=1e-4, atol=1e-6)
 
 
 # ---- the serving kernels -----------------------------------------------------

@@ -92,7 +92,7 @@ def init_history() -> dict:
     """The run history dict, keyed as the reference's
     ``repro.telemetry.events.init_history``, plus ``phase_wall``: (first
     step, last step, host seconds) per phase (per step in ``run_host``),
-    each ending in a device synchronize."""
+    from the request for the phase's batches to a device synchronize."""
     return {"loss": [], "dispersion": [], "disp_trace": [],
             "averages": 0, "eval": [], "worker_eval": [], "phase_wall": []}
 
@@ -661,10 +661,16 @@ class PhaseEngine:
         # an in-memory source gains nothing from background staging
         prefetch = prefetch and not isinstance(data, (list, tuple))
         pf = Prefetcher(staged_blocks()) if prefetch else None
+        blocks = pf if pf is not None else staged_blocks()
         t = t0
         try:
-            for chunk in (pf if pf is not None else staged_blocks()):
+            while True:
+                # the phase's wall includes the wait for its block: the
+                # staging in line, or what the prefetch thread left
                 tw0 = time.perf_counter()
+                chunk = next(blocks, None)
+                if chunk is None:
+                    break
                 state, trace = self._phase(state, chunk)
                 t = consume(t, len(chunk), trace, tw0)
         finally:
@@ -675,29 +681,12 @@ class PhaseEngine:
 
     def run_host(self, params, batches, *, num_workers: int, seed: int = 0,
                  record_every: int = 0, eval_fn=None, worker_eval_fn=None):
-        """Per-step host-driven loop: one step per dispatch, the
-        averaging decision read on the host, the loss and the evals read
-        at every record step. The step is :meth:`run`'s, so the result
-        is bitwise :meth:`run`'s; the history has :meth:`run`'s keys and
-        semantics, with one ``phase_wall`` entry per step. Returns (final
-        averaged params, history dict)."""
-        self._check_workers(num_workers)
-        state = self.init(params, num_workers, seed)
-        grads_fn = make_plane_step(self.loss_fn, state.spec)
-        gbuf = torch.empty_like(state.plane)
-        hist = init_history()
-        for batch in batches:
-            tw0 = time.perf_counter()
-            state, loss, disp, code = self._step(state, self._stage(batch),
-                                                 grads_fn, gbuf)
-            t = state.step
-            if code:
-                hist["dispersion"].append((t, disp))
-                hist["averages"] += 1
-            if record_every and t % record_every == 0:
-                hist["loss"].append((t, float(loss)))
-                hist["disp_trace"].append((t, disp))
-                self._record_evals(hist, t, state, eval_fn, worker_eval_fn)
-            self._sync()
-            hist["phase_wall"].append((t, t, time.perf_counter() - tw0))
-        return self.consensus(state), hist
+        """Per-step host-driven loop: :meth:`run` with one step per
+        phase, each batch staged in line, so the averaging decision is
+        read on the host after every dispatch and ``phase_wall`` holds
+        one entry per step. The result is bitwise :meth:`run`'s. Returns
+        (final averaged params, history dict)."""
+        return self.run(params, batches, num_workers=num_workers, seed=seed,
+                        record_every=record_every, eval_fn=eval_fn,
+                        worker_eval_fn=worker_eval_fn, phase_len=1,
+                        prefetch=False)

@@ -73,26 +73,30 @@ def main(argv=None):
     if engine._dev.type != "cuda":
         ap.error("the profile reads device time: run it on a CUDA device")
     data = batches()
+    prefetch = not args.no_prefetch
     _, _, state = engine.run(params, data, num_workers=args.workers,
                              seed=args.seed, steps=args.warmup,
-                             record_every=1, return_state=True)
+                             record_every=1, prefetch=prefetch,
+                             return_state=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, _, state = engine.run(None, data, num_workers=args.workers, steps=n,
-                             state=state, record_every=1, return_state=True)
+                             state=state, record_every=1, prefetch=prefetch,
+                             return_state=True)
     torch.cuda.synchronize()
     step_us = (time.perf_counter() - t0) * 1e6 / n
     with _profiler() as prof:
         t0 = time.perf_counter()
         _, hist, state = engine.run(None, data, num_workers=args.workers,
-                                    steps=n, state=state,
-                                    record_every=1, return_state=True)
+                                    steps=n, state=state, record_every=1,
+                                    prefetch=prefetch, return_state=True)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = {
         "arch": args.arch, "workers": args.workers, "batch": args.batch,
         "seq": args.seq, "avg": args.avg, "topology": args.topology,
-        "comm_dtype": args.comm_dtype, "profiled_steps": n,
+        "comm_dtype": args.comm_dtype, "kernel_impl": args.kernel_impl,
+        "prefetch": prefetch, "profiled_steps": n,
         "averages": hist["averages"],
         "device": torch.cuda.get_device_name(0),
         "step_ms": step_us / 1e3,

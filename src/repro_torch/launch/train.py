@@ -6,7 +6,9 @@ supports. M workers each read their own synthetic token stream
 steps through :class:`repro_torch.core.PhaseEngine`, and average on the
 chosen schedule, over the chosen topology (``--topology``) and wire
 format (``--comm-dtype``), optionally with the outer optimizer
-(``--outer-momentum``). Runs on CUDA unless ``--device cpu``.
+(``--outer-momentum``). Runs on CUDA unless ``--device cpu``;
+``--kernel-impl ref`` takes the kernels' plain versions on the card and
+``--no-prefetch`` stages the batches in line, for comparison.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
@@ -104,6 +106,14 @@ def make_parser() -> argparse.ArgumentParser:
                     help="torch device for the planes and the model "
                          "(cuda by default; cpu runs the kernels' plain "
                          "versions)")
+    ap.add_argument("--kernel-impl", default="auto",
+                    choices=["auto", "ref", "cuda"],
+                    help="the plane passes: auto (the CUDA kernels on the "
+                         "card, their plain versions on the CPU), ref (the "
+                         "plain versions) or cuda (the kernels only)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="stage phase blocks in line instead of via the "
+                         "double-buffered prefetch thread")
     return ap
 
 
@@ -161,6 +171,9 @@ def setup(args, ap):
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(f"--device {args.device}: {e}")
+    if args.kernel_impl == "cuda" and device.type != "cuda":
+        ap.error(f"--kernel-impl cuda launches the CUDA kernels, which "
+                 f"--device {args.device} cannot")
 
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.reduced:
@@ -202,7 +215,8 @@ def setup(args, ap):
     outer = (OuterOptimizer(lr=1.0, momentum=args.outer_momentum)
              if args.outer_momentum > 0 else None)
     engine = PhaseEngine(loss_fn, opt, sch, device=str(device), outer=outer,
-                         topology=topology, compression=compression)
+                         topology=topology, compression=compression,
+                         kernel_impl=args.kernel_impl)
     if topology is not None:
         print(f"[train] topology={topology.kind} "
               f"(spectral gap {topology.spectral_gap:.3f}, "
@@ -232,7 +246,7 @@ def main(argv=None):
     t0 = time.time()
     final, hist, state = engine.run(
         params, batches(), num_workers=args.workers, seed=args.seed,
-        record_every=10, return_state=True)
+        record_every=10, prefetch=not args.no_prefetch, return_state=True)
     dt = time.time() - t0
     losses = hist["loss"]
     print(f"[train] {args.steps} steps in {dt:.1f}s "

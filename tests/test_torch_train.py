@@ -76,6 +76,7 @@ def test_cli_refuses_bad_flags(argv):
     (["--topology", "gossip_pairs", "--workers", "3"], "even count"),
     (["--topology", "groups", "--topology-groups", "3"], "dividing"),
     (["--avg", "adaptive_bytes", "--byte-budget", "100"], "below the cost"),
+    (["--kernel-impl", "cuda"], "--kernel-impl cuda"),
 ], ids=lambda v: "-".join(v) if isinstance(v, list) else None)
 def test_cli_refuses_bad_communication_flags(argv, why, capsys):
     """The reference's parse-time refusals of the topology, wire and
@@ -110,6 +111,24 @@ def test_cli_communication_flags_train_on_cpu(argv, events, line, capsys):
                torch.utils._pytree.tree_leaves(final))
     assert (state.resid is not None) == ("--comm-dtype" in argv)
     assert (state.outer_state != ()) == ("--outer-momentum" in argv)
+
+
+def test_cli_kernel_impl_and_prefetch_leave_the_run_unchanged():
+    """``--kernel-impl ref`` (the plain versions, which the CPU takes
+    anyway) and ``--no-prefetch`` (in-line staging) train bitwise as the
+    defaults do."""
+    argv = ["--device", "cpu", "--reduced", "--steps", "4", "--workers",
+            "2", "--avg", "periodic", "--phase-len", "2", "--batch", "1",
+            "--seq", "8"]
+    runs = [train.main(argv + extra) for extra in
+            ([], ["--no-prefetch"], ["--kernel-impl", "ref"])]
+    base_final, base_hist, _ = runs[0]
+    for final, hist, _ in runs[1:]:
+        for a, b in zip(torch.utils._pytree.tree_leaves(final),
+                        torch.utils._pytree.tree_leaves(base_final)):
+            assert torch.equal(a, b)
+        assert hist["loss"] == base_hist["loss"]
+        assert hist["dispersion"] == base_hist["dispersion"]
 
 
 def test_cli_refuses_missing_cuda():

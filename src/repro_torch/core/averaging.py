@@ -16,10 +16,11 @@ The counterpart of ``repro.core.averaging``'s schedules:
                   worker, each event priced by the engine
                   (``topology.comm_bytes`` at the wire format)
 
-``straggle_aware`` waits for the faults port and raises
-``NotImplementedError`` after the same eager validation the reference
-runs. :class:`OuterOptimizer` is the reference's DiLoCo-style outer
-Nesterov momentum at averaging events.
+``straggle_aware`` (adaptive kinds, under a fault plan with stragglers)
+multiplies the dispersion that feeds the EMA and the budget by the
+engine's ``FaultPlan.disp_scale``, the fraction of the mixing cohort
+that applied its update. :class:`OuterOptimizer` is the reference's
+DiLoCo-style outer Nesterov momentum at averaging events.
 
 The PyTorch engine decides on the host, once per step, so the
 transition below runs on numpy float32 / int32 scalars with the same
@@ -117,10 +118,6 @@ class AveragingSchedule:
                 f"adaptive schedules; {self.kind!r} never consumes "
                 "dispersion — drop straggle_aware or use one of "
                 f"{self._ADAPTIVE}")
-        if self.straggle_aware:
-            raise NotImplementedError(
-                "straggle_aware needs the faults port (ROADMAP queue 1, "
-                "item 12)")
 
     @property
     def is_adaptive(self) -> bool:
@@ -178,7 +175,7 @@ class AveragingSchedule:
         return 1 if step % self.inner_phase_len == 0 else 0
 
     def decision_state(self, step: int, sched_state: SchedState, disp,
-                       key=None, event_cost=None):
+                       key=None, event_cost=None, disp_scale=None):
         """One transition ``(step, state, dispersion) -> (code, new
         state)``: ``disp`` is the Eq. 4 dispersion measured at THIS step,
         after the local update and before any averaging. The EMA advances
@@ -192,9 +189,15 @@ class AveragingSchedule:
         fires when the credit covers ``event_cost`` (one event's bytes
         per worker) and never lets ``(events + 1) * event_cost`` exceed
         ``byte_budget``. Static kinds defer to :meth:`decision_code`
-        (``key``: the decision key) and only update the bookkeeping."""
+        (``key``: the decision key) and only update the bookkeeping.
+        With ``straggle_aware`` the engine passes ``disp_scale``
+        (``FaultPlan.disp_scale``), multiplied into ``disp`` in float32
+        before the EMA and the budget see it; the recorded trace stays
+        unscaled."""
         s = sched_state
         disp = _F32(disp)
+        if self.straggle_aware and disp_scale is not None:
+            disp = disp * _F32(disp_scale)
         beta = _F32(self.disp_ema_beta)
         ema = beta * s.disp_ema + (_F32(1.0) - beta) * disp
         cum = s.cum_disp + disp

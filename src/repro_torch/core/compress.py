@@ -49,8 +49,8 @@ _ENC_SALT = 0x656E63  # "enc": decorrelates the stochastic-rounding
 #                     # the gossip matchings, which fold the same
 #                     # (dec_key, step)
 
-#: columns per chunk of :func:`row_uniforms`: its int64 temporaries
-#: stay near 1 GB at any P
+#: entries per chunk of :func:`row_uniforms`: its int64 temporaries
+#: stay near 1 GB at any (M, P)
 _UNIFORM_CHUNK = 1 << 24
 
 
@@ -102,16 +102,19 @@ def row_uniforms(dec_key, step: int, row_ids, p: int, *,
     """The int8 stochastic-rounding uniforms of the given global worker
     rows at this step, an (len(row_ids), p) f32 tensor on ``device``:
     ``u[i] = uniform(fold_in(fold_in(fold_in(dec_key, salt), step),
-    row_ids[i]), (p,))`` — the reference's draws, bit for bit. Each row
-    is drawn in column chunks of ``_UNIFORM_CHUNK``."""
+    row_ids[i]), (p,))`` — the reference's draws, bit for bit. All rows
+    are hashed together (a column of row keys against a row of
+    counters), ``_UNIFORM_CHUNK`` entries at a time."""
     base = rng.fold_in(rng.fold_in(dec_key, _ENC_SALT), step)
+    keys = torch.stack([rng.fold_in(base, int(r)) for r in row_ids])
+    k1, k2 = keys.to(device)[:, :1], keys.to(device)[:, 1:]
     out = torch.empty(len(row_ids), p, dtype=torch.float32, device=device)
-    for i, rid in enumerate(row_ids):
-        k = rng.fold_in(base, int(rid))
-        for c0 in range(0, p, _UNIFORM_CHUNK):
-            c1 = min(p, c0 + _UNIFORM_CHUNK)
-            out[i, c0:c1] = rng.bits_to_uniform(
-                rng.random_bits(k, (c1 - c0,), device=device, start=c0))
+    cols = max(1, _UNIFORM_CHUNK // max(len(row_ids), 1))
+    for c0 in range(0, p, cols):
+        lo = torch.arange(c0, min(p, c0 + cols), dtype=torch.int64,
+                          device=device)[None]
+        b1, b2 = rng.threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+        out[:, c0:c0 + cols] = rng.bits_to_uniform(b1 ^ b2)
     return out
 
 

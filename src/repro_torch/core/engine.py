@@ -48,6 +48,17 @@ handed to a phase is consumed, as the reference's donated state is.
 CUDA device and runs their plain versions on the CPU, ``"ref"`` runs the
 plain versions on either, and ``"cuda"`` launches the kernels and
 refuses a CPU engine.
+
+``faults`` (a :class:`~repro_torch.faults.FaultPlan`) carries the
+reference's fault state ``(alive, staleness)`` in ``EngineState.fault``
+and advances it on the host each step (``FaultPlan.transition``): rows
+outside the step's update mask keep their params and state planes,
+events and the dispersion are masked over the mixing cohort (the plane
+passes' ``alive`` paths), a rejoining row is warm-started — in place —
+from the previous step's cohort mean with its state planes and residual
+zeroed, ``straggle_aware`` schedules decide on the discounted
+dispersion, and the loss and the consensus are the cohort's. A trivial
+plan is lowered away: the no-fault engine, bit for bit.
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import faults as faults_mod
 from repro_torch import rng
 from repro_torch.core.averaging import (AveragingSchedule, OuterOptimizer,
                                         SchedState)
@@ -66,6 +78,7 @@ from repro_torch.core.compress import Compression, row_uniforms
 from repro_torch.core.flat import (FlatSpec, tree_flatten, tree_map,
                                    tree_unflatten)
 from repro_torch.device import resolve_device
+from repro_torch.faults import FaultPlan, FaultState
 from repro_torch.kernels._build import MAX_WORKERS
 from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
                                           compressed_mix,
@@ -150,6 +163,7 @@ class EngineState(NamedTuple):
     sched: SchedState    # adaptive-schedule carry
     outer_state: tuple = ()  # (prev_avg, vel) (P,) f32, or ()
     resid: Any = None    # (M, P) f32 error-feedback residual, or None
+    fault: Any = ()      # FaultState (host numpy rows) under a fault plan
 
 
 @dataclass(frozen=True, eq=False)
@@ -164,7 +178,8 @@ class PhaseEngine:
     (:mod:`repro_torch.core.compress`); ``kernel_impl``: ``"auto"`` (the
     CUDA kernels on a CUDA device, their plain versions on the CPU),
     ``"ref"`` (the plain versions) or ``"cuda"`` (the kernels; a CPU
-    engine is refused)."""
+    engine is refused); ``faults``: worker crashes, rejoins and
+    stragglers (:mod:`repro_torch.faults`, module note)."""
     loss_fn: Callable
     optimizer: Any
     schedule: AveragingSchedule
@@ -173,6 +188,7 @@ class PhaseEngine:
     topology: Topology | None = None
     compression: Compression | None = None
     kernel_impl: str = "auto"
+    faults: FaultPlan | None = None
 
     def __post_init__(self):
         dev = resolve_device(self.device)
@@ -192,7 +208,8 @@ class PhaseEngine:
                             "AveragingSchedule")
         for name, t, cls in (("outer", self.outer, OuterOptimizer),
                              ("topology", self.topology, Topology),
-                             ("compression", self.compression, Compression)):
+                             ("compression", self.compression, Compression),
+                             ("faults", self.faults, FaultPlan)):
             if t is not None and not isinstance(t, cls):
                 raise TypeError(f"{name} must be a repro_torch "
                                 f"{cls.__name__}")
@@ -239,6 +256,27 @@ class PhaseEngine:
                 "the outer optimizer steps on the exact consensus mean, "
                 f"which the '{self.compression.wire}' wire format never "
                 "ships — use the f32 wire, or drop the outer optimizer")
+        fp = self.faults
+        if fp is not None:
+            if fp.num_workers != num_workers:
+                raise ValueError(
+                    f"FaultPlan was built for {fp.num_workers} workers "
+                    f"but the engine runs {num_workers} — build the plan "
+                    "with the run's worker count")
+            if self._faults() is not None and self.outer is not None:
+                raise ValueError(
+                    "the outer optimizer steps on the full-membership "
+                    "consensus mean, which a fault plan (crashes / "
+                    "stragglers changing the alive set) never preserves "
+                    "— drop the outer optimizer, or run without faults")
+
+    def _faults(self) -> FaultPlan | None:
+        """The active (non-trivial) fault plan, or None: a plan with no
+        events, straggles or solo windows IS the no-fault engine."""
+        fp = self.faults
+        if fp is None or fp.is_trivial:
+            return None
+        return fp
 
     def _comp(self) -> Compression | None:
         """The active (non-identity) compression, or None: the ``f32``
@@ -305,52 +343,57 @@ class PhaseEngine:
             outer_state = (avg, torch.zeros_like(avg))
         resid = torch.zeros_like(plane) if self._comp() else None
         key, dec_key = rng.split(rng.PRNGKey(seed))
+        fault = (faults_mod.init_fault_state(num_workers)
+                 if self._faults() is not None else ())
         return EngineState(spec, plane, opt_planes, codes, key, dec_key, 0,
                            self.schedule.init_sched_state(), outer_state,
-                           resid)
+                           resid, fault)
 
     # ---- the averaging events ----------------------------------------------
     def _outer_kw(self) -> dict:
         o = self.outer
         return dict(lr=o.lr, momentum=o.momentum, nesterov=o.nesterov)
 
-    def _flat_average(self, plane, outer_c, scope: str, W=None):
+    def _flat_average(self, plane, outer_c, scope: str, W=None,
+                      alive=None):
         """ONE fused event pass on an f32 plane: ``avg_disp`` (mean or
         group mean), ``mix_disp`` with a mixing topology, or
-        ``avg_disp_outer`` for the all-scope with an outer optimizer.
-        Returns (plane, outer state)."""
+        ``avg_disp_outer`` for the all-scope with an outer optimizer
+        (never under faults); ``alive`` masks the event. Returns (plane,
+        outer state)."""
         avg = self._op("avg_disp")
         if scope == "inner":
-            return avg(plane, groups=max(self.schedule.inner_groups, 1))[0], \
-                outer_c
+            return avg(plane, groups=max(self.schedule.inner_groups, 1),
+                       alive=alive)[0], outer_c
         if W is not None:
-            return self._op("mix_disp")(plane, W)[0], outer_c
+            return self._op("mix_disp")(plane, W, alive=alive)[0], outer_c
         if self.outer is not None and outer_c != ():
             plane, prev, vel, _ = self._op("avg_disp_outer")(
                 plane, *outer_c, **self._outer_kw())
             return plane, (prev, vel)
-        return avg(plane, groups=self._all_groups())[0], outer_c
+        return avg(plane, groups=self._all_groups(), alive=alive)[0], outer_c
 
     def _plane_avg_event(self, state: EngineState, plane, outer_c,
-                         scope: str, W=None):
-        """The averaging event alone on the plane (rare schedules). On
-        planes with rounding codes the mix and the outer step take their
-        plain versions, which round through the leaf dtypes, and the mean
-        takes ``plane_average_ref``, as in the reference. Returns (plane,
-        outer state)."""
+                         scope: str, W=None, alive=None):
+        """The averaging event alone on the plane (rare schedules),
+        masked over ``alive`` under faults. On planes with rounding codes
+        the mix and the outer step take their plain versions, which round
+        through the leaf dtypes, and the mean takes ``plane_average_ref``,
+        as in the reference. Returns (plane, outer state)."""
         codes = state.codes
         if codes is None:
-            return self._flat_average(plane, outer_c, scope, W)
+            return self._flat_average(plane, outer_c, scope, W, alive)
         if scope == "all" and W is not None:
-            return mix_disp_ref(plane, W, codes=codes)[0], outer_c
+            return mix_disp_ref(plane, W, codes=codes, alive=alive)[0], \
+                outer_c
         if scope == "all" and self.outer is not None and outer_c != ():
             plane, prev, vel, _ = avg_disp_outer_ref(
                 plane, *outer_c, codes=codes, **self._outer_kw())
             return plane, (prev, vel)
         groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
                   else self._all_groups())
-        return plane_average_ref(plane, groups=groups, codes=codes)[0], \
-            outer_c
+        return plane_average_ref(plane, groups=groups, codes=codes,
+                                 alive=alive)[0], outer_c
 
     def _event_uniforms(self, m: int, p: int, step: int, dec_key):
         """The int8 stochastic-rounding uniforms of this event's rows, or
@@ -361,10 +404,11 @@ class PhaseEngine:
         return row_uniforms(dec_key, step, range(m), p, device=self._dev)
 
     def _compressed_plane_event(self, state: EngineState, plane, resid,
-                                scope: str, step: int, W=None):
+                                scope: str, step: int, W=None, alive=None):
         """One compressed averaging / mixing event: the error-feedback
         encode of the plane, the mean / group mean / ``W @`` of the
-        decoded plane, the residual. Returns (plane, residual)."""
+        decoded plane, the residual; masked over ``alive`` under faults.
+        Returns (plane, residual)."""
         comp = self._comp()
         m, p = plane.shape
         groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
@@ -375,20 +419,24 @@ class PhaseEngine:
             "group" if groups > 1 else "mean",
             groups=groups, W=W,
             u=self._event_uniforms(m, p, step, state.dec_key),
-            codes=state.codes, error_feedback=comp.error_feedback)
+            codes=state.codes, error_feedback=comp.error_feedback,
+            alive=alive)
         return plane, resid
 
     def _fused_step_average(self, state: EngineState, gplane, scalars,
-                            scope: str, step: int, W=None):
+                            scope: str, step: int, W=None, fmask=None):
         """The local update and, per ``scope``, the averaging event in
         one ``opt_step`` pass: mode none / mean / group / mix, or the
         compressed event with a wire format. The all-scope with an outer
         optimizer runs the update alone and then ``avg_disp_outer`` (its
-        plain version on planes with codes). Returns (plane, state
-        planes, outer state, residual, dispersion)."""
+        plain version on planes with codes). ``fmask``: the step's
+        ``(mix, umask)`` under faults. Returns (plane, state planes,
+        outer state, residual, dispersion)."""
         codes = state.codes
         kw = dict(kind=self.optimizer.plane_kind, codes=codes,
                   **self.optimizer.plane_hypers())
+        if fmask is not None:
+            kw.update(alive=fmask[0], umask=fmask[1])
         plane, planes = state.plane, state.opt_planes
         outer_c, resid = state.outer_state, state.resid
         comp = self._comp()
@@ -428,6 +476,34 @@ class PhaseEngine:
         return plane, planes, outer_c, resid, disp
 
     # ---- one step ----------------------------------------------------------
+    def _fault_transition(self, state: EngineState, step: int):
+        """The fault plan's step: the new fault state, ``(mix, umask)``
+        and the straggle-aware discount (or None); a rejoining row is
+        warm-started in place, before the step's gradient, from the
+        previous step's mixing cohort (rounded to the codes), its state
+        planes and residual zeroed."""
+        fp = self._faults()
+        fst = (state.fault if isinstance(state.fault, FaultState)
+               else faults_mod.init_fault_state(fp.num_workers))
+        alive_prev = fst.alive
+        fst, _, mix, umask, rejoined = fp.transition(fst, step,
+                                                     state.dec_key)
+        rows = faults_mod.rows_where(rejoined)
+        if rows:
+            glob = faults_mod.masked_mean(state.plane,
+                                          fp.mix_at(alive_prev, step - 1))
+            if state.codes is not None:
+                glob = round_to_codes(glob, state.codes)
+            for i in rows:
+                state.plane[i] = glob
+                for t in state.opt_planes:
+                    t[i].zero_()
+                if state.resid is not None:
+                    state.resid[i].zero_()
+        dscale = (fp.disp_scale(mix, state.dec_key, step)
+                  if self.schedule.straggle_aware else None)
+        return fst, (mix, umask), dscale
+
     def _step(self, state: EngineState, batch, grads_fn, gbuf):
         """One step, dispatched as the reference's flat-native step;
         returns (state, mean loss tensor, dispersion, decision code)."""
@@ -436,6 +512,10 @@ class PhaseEngine:
         # the reference splits the data key every step; the losses here
         # take no randomness, but the key advances the same way
         key = rng.split(state.key)[0]
+        fst, fmask, dscale = state.fault, None, None
+        if self._faults() is not None:
+            fst, fmask, dscale = self._fault_transition(state, step)
+        alive = None if fmask is None else fmask[0]
         losses, _, gplane = grads_fn(state.plane, batch, out=gbuf)
         scal = self.optimizer.plane_scalars(step)
         m, p = state.plane.shape
@@ -443,29 +523,36 @@ class PhaseEngine:
         ec = self._sched_event_cost(p, m)
         if sched.kind == "minibatch":
             plane, planes, outer_c, resid, disp = self._fused_step_average(
-                state, gplane, scal, "all", step, W=self._event_W(step, dec))
+                state, gplane, scal, "all", step, W=self._event_W(step, dec),
+                fmask=fmask)
             disp = float(disp)
             code, sst = sched.decision_state(step, state.sched, disp, dec,
-                                             event_cost=ec)
+                                             event_cost=ec,
+                                             disp_scale=dscale)
         else:
             plane, planes, outer_c, resid, disp = self._fused_step_average(
-                state, gplane, scal, "none", step)
+                state, gplane, scal, "none", step, fmask=fmask)
             disp = float(disp)
             code, sst = sched.decision_state(step, state.sched, disp, dec,
-                                             event_cost=ec)
+                                             event_cost=ec,
+                                             disp_scale=dscale)
             if code:
                 scope = "inner" if code == 1 else "all"
                 W = self._event_W(step, dec) if code == 2 else None
                 if self._comp() is not None:
                     plane, resid = self._compressed_plane_event(
-                        state, plane, resid, scope, step, W)
+                        state, plane, resid, scope, step, W, alive)
                 else:
                     plane, outer_c = self._plane_avg_event(
-                        state, plane, outer_c, scope, W)
+                        state, plane, outer_c, scope, W, alive)
         state = state._replace(plane=plane, opt_planes=planes, key=key,
                                step=step, sched=sst, outer_state=outer_c,
-                               resid=resid)
-        return state, torch.mean(losses), disp, code
+                               resid=resid, fault=fst)
+        if alive is None:
+            return state, torch.mean(losses), disp, code
+        # the loss over the mixing cohort
+        a = torch.from_numpy(alive).to(losses.device)
+        return state, torch.sum(losses * a) / torch.sum(a), disp, code
 
     def _stage(self, batch):
         return tree_map(lambda x: torch.as_tensor(x, device=self._dev),
@@ -530,8 +617,13 @@ class PhaseEngine:
 
     def consensus(self, state: EngineState):
         """The paper's final estimate: the worker average, in the leaf
-        dtypes."""
+        dtypes; under a fault plan the mean over the mixing cohort of the
+        state's step."""
         plane = state.plane
+        fp = self._faults()
+        if fp is not None and isinstance(state.fault, FaultState):
+            mix = fp.mix_at(state.fault.alive, state.step)
+            return state.spec.unpack1(faults_mod.masked_mean(plane, mix))
         return state.spec.unpack1(_div(_row_sum(plane), plane.shape[0]))
 
     def worker_params(self, state: EngineState):

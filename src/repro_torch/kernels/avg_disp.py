@@ -20,11 +20,24 @@ plain version in ``repro_torch.kernels.ref``. A CUDA tensor a kernel
 cannot take raises. ``avg_disp``, ``mix_disp`` and ``avg_disp_outer``
 return new tensors; ``compressed_mix`` updates the plane and the
 residual in place on the card (a full-width plane is 5.8 GB).
+
+``alive`` ((M,) 0/1, :mod:`repro_torch.faults`) degrades ``avg_disp``,
+``mix_disp`` and ``compressed_mix`` over the alive rows, as the
+reference's wrappers do, through the same kernels: a masked (group)
+mean is the mix kernel's ``A @ plane`` with ``A =
+faults.masked_event_matrix`` (identity rows for dead workers), a gossip
+``W`` becomes ``faults.degraded_matrix(W, alive)``, and the compressed
+event runs in mode "mix" on either matrix. Dead rows keep their values
+(``compressed_mix``: their residual too, saved before the in-place
+launch and written back after), and the dispersion is
+``faults.masked_dispersion`` of the input plane. The matrix's mean
+agrees with the plain versions' exact masked sums to rounding.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import faults
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (_WIRES, avg_disp_outer_ref,
                                      avg_disp_ref, compressed_avg_ref,
@@ -54,16 +67,20 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def avg_disp(plane, *, groups: int = 1):
+def avg_disp(plane, *, groups: int = 1, alive=None):
     """plane: (M, P) float32 -> (averaged plane, Eq. 4 dispersion as a
     0-dim tensor). ``groups`` > 1 broadcasts per-group means; the
     dispersion is always against the global mean. The output is a new
-    tensor; the input is not modified."""
+    tensor; the input is not modified. With ``alive`` the masked event
+    runs through ``mix_disp`` (module note) and counts there."""
     m, p = plane.shape
     if groups < 1 or m % groups:
         raise ValueError(f"groups={groups} must divide the {m} worker rows")
     if plane.device.type == "cpu":
-        return avg_disp_ref(plane, groups=groups)
+        return avg_disp_ref(plane, groups=groups, alive=alive)
+    if alive is not None:
+        A = faults.masked_event_matrix(alive, groups, device=plane.device)
+        return _masked_mix(plane, A, alive)
     _cuda_plane("avg_disp", plane)
     out = torch.empty_like(plane)
     dpart, disp = _scratch(plane)
@@ -77,15 +94,26 @@ def avg_disp(plane, *, groups: int = 1):
     return out, disp
 
 
-def mix_disp(plane, W):
+def _masked_mix(plane, W, alive):
+    """The masked event of matrix ``W`` on the card: one ``mix_disp``
+    launch, the dead rows kept, the alive set's dispersion."""
+    disp = faults.masked_dispersion(plane, alive)
+    out = mix_disp(plane, W)[0]
+    return faults.keep_rows_(out, plane, alive), disp
+
+
+def mix_disp(plane, W, *, alive=None):
     """plane: (M, P) float32, W: (M, M) float32 doubly stochastic ->
     (W @ plane, Eq. 4 dispersion of the input plane). Each worker keeps
-    its own mixed row. The output is a new tensor."""
+    its own mixed row. The output is a new tensor. ``alive`` mixes with
+    ``faults.degraded_matrix(W, alive)`` (module note)."""
     m, p = plane.shape
     if tuple(W.shape) != (m, m):
         raise ValueError(f"W must be ({m}, {m}), got {tuple(W.shape)}")
     if plane.device.type == "cpu":
-        return mix_disp_ref(plane, W)
+        return mix_disp_ref(plane, W, alive=alive)
+    if alive is not None:
+        return _masked_mix(plane, faults.degraded_matrix(W, alive), alive)
     _cuda_plane("mix_disp", plane)
     _build.check_matrix("mix_disp", W, plane)
     out = torch.empty_like(plane)
@@ -194,14 +222,15 @@ def _compressed_event(plane, resid, *, wire, mode, groups, W, u, codes,
 
 
 def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
-                   W=None, u=None, codes=None, error_feedback: bool = True):
+                   W=None, u=None, codes=None, error_feedback: bool = True,
+                   alive=None):
     """Compressed averaging / mixing event on the (M, P) plane: the
     error-feedback encode through ``wire`` (``bf16`` / ``int8`` with the
     uniforms ``u`` / ``one_bit``), the event on the decoded plane (mode
     "mean" | "group" | "mix" with ``W``), the ``codes`` rounding, and
     the Eq. 4 dispersion of the input plane. Returns (plane, residual,
     dispersion); on CUDA the plane and the residual are the inputs,
-    updated in place."""
+    updated in place. ``alive`` masks the event (module note)."""
     if mode not in _EVENT_MODES:
         raise ValueError(f"unknown event mode {mode!r}; pick one of "
                          f"{_EVENT_MODES}")
@@ -213,19 +242,43 @@ def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
     kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
     if plane.device.type == "cpu":
         return compressed_mix_plain(plane, resid, mode=mode, groups=groups,
-                                    W=W, **kw)
+                                    W=W, alive=alive, **kw)
+    if alive is not None:
+        return _masked_compressed(plane, resid, alive, mode=mode,
+                                  groups=groups, W=W, **kw)
     disp = _compressed_event(plane, resid, mode=mode, groups=groups, W=W,
                              **kw)
     return plane, resid, disp
 
 
+def _masked_compressed(plane, resid, alive, *, mode, groups, W, **kw):
+    """The masked compressed event on the card: one launch in mode "mix"
+    on the masked event matrix or the degraded ``W``, in place, the dead
+    rows' params and residual written back (module note)."""
+    A = (faults.degraded_matrix(W, alive) if mode == "mix" else
+         faults.masked_event_matrix(alive, groups if mode == "group" else 1,
+                                    device=plane.device))
+    # the dispersion of the plane before the in-place encode; the dead
+    # rows' params and residual before it, k rows and not a plane
+    disp = faults.masked_dispersion(plane, alive)
+    dead = faults.rows_where(alive, on=False)
+    saved = [(plane[i].clone(), resid[i].clone()) for i in dead]
+    _compressed_event(plane, resid, mode="mix", groups=1, W=A, **kw)
+    for i, (x, r) in zip(dead, saved):
+        plane[i] = x
+        resid[i] = r
+    return plane, resid, disp
+
+
 def compressed_mix_plain(plane, resid, *, wire, mode="mean", groups: int = 1,
                          W=None, u=None, codes=None,
-                         error_feedback: bool = True):
+                         error_feedback: bool = True, alive=None):
     """:func:`compressed_mix`'s plain version, on any device: the event
-    of ``mode`` through ``compressed_mix_ref`` / ``compressed_avg_ref``.
-    Returns new (plane, residual, dispersion)."""
-    kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
+    of ``mode`` through ``compressed_mix_ref`` / ``compressed_avg_ref``,
+    masked over ``alive`` when given. Returns new (plane, residual,
+    dispersion)."""
+    kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback,
+              alive=alive)
     if mode == "mix":
         return compressed_mix_ref(plane, resid, W, **kw)
     return compressed_avg_ref(plane, resid,

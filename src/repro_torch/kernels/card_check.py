@@ -43,18 +43,34 @@ a bound instead — at most one float32 ulp of the row's scale on every
 f32 column and on the residual (a scale one ulp apart moves each
 decoded value by that ulp, and their mean or mix by no more), one dtype
 ulp on top of it on coded columns.
+
+The fault paths (``alive`` / ``umask``, :func:`fault_sweep`) run over
+``COMM_SHAPES`` with dead, straggling and all-alive masks
+(:func:`fault_masks`), each against its masked plain version. Dead rows
+(and, for ``opt_step``, every row outside the update mask in mode
+"none", and the state planes' frozen rows) must equal their inputs bit
+for bit. A degraded-``W`` mix and the update are bitwise the plain
+versions (the same j-ordered sums). A masked (group) mean runs on the
+card as the mix ``A @ x`` with ``A = 1/n`` on the cohort's columns,
+while the plain version sums the n rows and divides once: each side is
+within (n + 1) float32 units of rounding of sum_j |x_j| / n of the
+exact mean, so alive rows are held within (2n + 2) * 2**-24 *
+sum_j |x_j| / n (``MEAN_ULPS``), plus one dtype ulp on coded columns
+and the one_bit bound above. Dispersions rtol 1e-5; two runs bitwise.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from repro_torch import rng
-from repro_torch.core.compress import row_scales
+from repro_torch import faults, rng
+from repro_torch.core.compress import encode_decode, row_scales
 from repro_torch.kernels import ref
 from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
-                                          compressed_mix, mix_disp)
+                                          compressed_mix,
+                                          compressed_mix_plain, mix_disp)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.opt_step import opt_step
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -500,6 +516,278 @@ def sweep(dev) -> tuple[int, dict]:
     for k, v in err2.items():
         err[k] = max(err.get(k, 0.0), v)
     return n + n2, err
+
+
+# ---- the fault paths --------------------------------------------------------
+
+#: float32 units of rounding per cohort row allowed between a masked mean
+#: run as the mix ``A @ x`` and the exact sum over n rows divided once:
+#: (MEAN_ULPS * n + MEAN_ULPS) * 2**-24 * sum_j |x_j| / n (module note)
+MEAN_ULPS = 2
+
+
+def fault_masks(m) -> dict:
+    """The sweep's ``(alive, umask)`` pairs over M rows: "dead" (row 1,
+    and row M-2 from M=8, crashed), "straggle" (the same, and row 0
+    alive but skipping its update) and "all-alive"."""
+    alive = np.ones(m, np.float32)
+    alive[1] = 0.0
+    if m >= 8:
+        alive[m - 2] = 0.0
+    strag = alive.copy()
+    strag[0] = 0.0
+    ones = np.ones(m, np.float32)
+    return {"dead": (alive, alive), "straggle": (alive, strag),
+            "all-alive": (ones, ones)}
+
+
+def mean_bounds(q, alive, groups: int) -> list:
+    """Per group, the (P,) bound on |A @ q - exact masked mean| of the
+    module note."""
+    m = q.shape[0]
+    mg = m // groups
+    a = faults.host_mask(alive)
+    out = []
+    for g in range(groups):
+        rows = [i for i in range(g * mg, (g + 1) * mg) if a[i] > 0]
+        s = torch.zeros_like(q[0])
+        for j in rows:
+            s += q[j].abs()
+        n = max(len(rows), 1)
+        out.append(s * (MEAN_ULPS * (n + 1) * 2.0 ** -24 / n))
+    return out
+
+
+def hold_rows(name, got, want, kept, keep_mask, *, bounds=None, extra=0.0,
+              codes=None) -> float:
+    """Rows with ``keep_mask <= 0`` bitwise ``kept``'s; the others
+    bitwise ``want``'s, or within ``bounds[group]`` (+ ``extra``, + one
+    dtype ulp on coded columns). Row by row. Returns max |got - want|."""
+    m = got.shape[0]
+    km = faults.host_mask(keep_mask)
+    mg = m // len(bounds) if bounds else m
+    worst = 0.0
+    for i in range(m):
+        if km[i] <= 0:
+            _require(torch.equal(got[i], kept[i]),
+                     f"{name}: kept row {i} changed")
+            continue
+        if torch.equal(got[i], want[i]):
+            continue
+        _require(bounds is not None or extra > 0.0,
+                 f"{name}: row {i} not bitwise equal")
+        d = (got[i] - want[i]).abs()
+        worst = max(worst, float(d.max()))
+        lim = (bounds[i // mg] if bounds else torch.zeros_like(d)) + extra
+        if codes is not None:
+            lim = torch.where(codes == 0.0, lim, lim + dtype_ulp(
+                torch.maximum(got[i].abs(), want[i].abs()), codes))
+        _require(bool((d <= lim).all()), f"{name}: row {i} out of its "
+                 f"bound (max abs err {float(d.max())})")
+    return worst
+
+
+def _same_disp(name, got_d, want_d) -> float:
+    d_k, d_p = float(got_d), float(want_d)
+    _require(math.isclose(d_k, d_p, rel_tol=1e-5),
+             f"{name}: dispersion {d_k} vs plain {d_p}")
+    return d_k
+
+
+def check_avg_disp_fault(name, x, alive, groups) -> float:
+    """``avg_disp(alive=)`` (the mix kernel on the masked event matrix)
+    twice, against ``avg_disp_ref(alive=)``. Returns the max abs error."""
+    want, want_d = ref.avg_disp_ref(x, groups=groups, alive=alive)
+    got, got_d = avg_disp(x, groups=groups, alive=alive)
+    err = hold_rows(name, got, want, x, alive,
+                    bounds=mean_bounds(x, alive, groups))
+    del want
+    d = _same_disp(name, got_d, want_d)
+    got2, d2 = avg_disp(x, groups=groups, alive=alive)
+    _require(torch.equal(got2, got) and float(d2) == d,
+             f"{name}: two runs differ")
+    return err
+
+
+def check_mix_disp_fault(name, x, W, alive) -> float:
+    """``mix_disp(alive=)`` (the degraded W) twice, bitwise
+    ``mix_disp_ref(alive=)``. Returns the max abs error, 0."""
+    want, want_d = ref.mix_disp_ref(x, W, alive=alive)
+    got, got_d = mix_disp(x, W, alive=alive)
+    err = hold_rows(name, got, want, x, alive)
+    del want
+    d = _same_disp(name, got_d, want_d)
+    got2, d2 = mix_disp(x, W, alive=alive)
+    _require(torch.equal(got2, got) and float(d2) == d,
+             f"{name}: two runs differ")
+    return err
+
+
+def _event_bounds(q, alive, mode, groups):
+    """The masked-mean bounds of a mean / group event on ``q``; None for
+    a mix (bitwise)."""
+    if mode == "mix":
+        return None
+    return mean_bounds(q, alive, groups if mode == "group" else 1)
+
+
+def check_compressed_fault(name, x, r, alive, *, wire, mode, groups=1,
+                           W=None, u=None, codes=None,
+                           error_feedback=True) -> float:
+    """``compressed_mix(alive=)`` twice on fresh copies (in place on the
+    card), plane and residual against ``compressed_mix_plain(alive=)``;
+    dead rows keep both. Returns the max abs error."""
+    kw = dict(wire=wire, mode=mode, groups=groups, W=W, u=u, codes=codes,
+              error_feedback=error_feedback, alive=alive)
+    want_x, want_r, want_d = compressed_mix_plain(x, r, **kw)
+    extra = _wire_bound(x + r if error_feedback else x, wire)
+    q = encode_decode(x, r, wire=wire, u=u,
+                      error_feedback=error_feedback)[0]
+    bounds = _event_bounds(q, alive, mode, groups)
+    del q
+
+    def run():
+        xk, rk = x.clone(), r.clone()
+        out = compressed_mix(xk, rk, **kw)
+        _require((out[0] is xk and out[1] is rk) or not xk.is_cuda,
+                 f"{name}: plane / residual not updated in place")
+        return out
+
+    got_x, got_r, got_d = run()
+    err = max(hold_rows(name, got_x, want_x, x, alive, bounds=bounds,
+                        extra=extra, codes=codes),
+              hold_rows(f"{name}/resid", got_r, want_r, r, alive,
+                        extra=extra))
+    del want_x, want_r
+    d = _same_disp(name, got_d, want_d)
+    x2, r2, d2 = run()
+    _require(torch.equal(x2, got_x) and torch.equal(r2, got_r)
+             and float(d2) == d, f"{name}: two runs differ")
+    return err
+
+
+def check_opt_step_fault(name, x, g, st, scal, codes, alive, umask, *,
+                         resid=None, u=None, **kw) -> float:
+    """``opt_step(alive=, umask=)`` twice on fresh copies, against
+    ``opt_step_ref(alive=, umask=)``: the state planes bitwise (their
+    rows outside ``umask`` the inputs'), the plane's dead rows (every
+    row outside ``umask`` in mode "none") the inputs', its alive rows
+    bitwise or within the masked-mean bound of the event; with a
+    ``wire`` the residual too. Returns the max abs error."""
+    wire, mode = kw.get("wire"), kw["mode"]
+    fkw = dict(codes=codes, alive=alive, umask=umask, resid=resid, u=u,
+               **kw)
+    want = ref.opt_step_ref(x, g, st, scal, **fkw)
+    hyp = {k: v for k, v in kw.items()
+           if k in ("kind", "mu", "nesterov", "b1", "b2", "eps",
+                    "weight_decay")}
+    extra, bounds = 0.0, None
+    if mode != "none":
+        upd = ref.opt_step_ref(x, g, st, scal, codes=codes, alive=alive,
+                               umask=umask, **hyp)[0]
+        ef = kw.get("error_feedback", True)
+        q = upd
+        if wire is not None:
+            extra = _wire_bound(upd + resid if ef else upd, wire)
+            q = encode_decode(upd, resid, wire=wire, u=u,
+                              error_feedback=ef)[0]
+        bounds = _event_bounds(q, alive, mode, kw.get("groups", 1))
+        del upd, q
+
+    def run():
+        xk, sk = x.clone(), tuple(s.clone() for s in st)
+        rk = None if resid is None else resid.clone()
+        out = opt_step(xk, g, sk, scal, codes=codes, alive=alive,
+                       umask=umask, resid=rk, u=u, **kw)
+        _require((out[0] is xk and all(a is b for a, b in zip(out[1], sk)))
+                 or not xk.is_cuda,
+                 f"{name}: plane / state planes not updated in place")
+        return out
+
+    got = run()
+    err = hold_rows(name, got[0], want[0], x,
+                    umask if mode == "none" else alive, bounds=bounds,
+                    extra=extra, codes=codes)
+    for a, b, s0 in zip(got[1], want[1], st):
+        hold_rows(f"{name}/state", a, b, s0, umask)
+    if wire is not None:
+        err = max(err, hold_rows(f"{name}/resid", got[2], want[2], resid,
+                                 alive, extra=extra))
+    d = _same_disp(name, got[-1], want[-1])
+    del want
+    again = run()
+    _require(all(torch.equal(a, b) for a, b in zip(again[0::2], got[0::2]))
+             and all(torch.equal(a, b) for a, b in zip(again[1], got[1]))
+             and float(again[-1]) == d, f"{name}: two runs differ")
+    return err
+
+
+def fault_sweep(dev) -> tuple[int, dict]:
+    """The four fault paths over ``COMM_SHAPES`` x ``fault_masks``:
+    ``avg_disp`` (groups 1 and the shape's), ``mix_disp`` (ring),
+    ``compressed_mix`` (every wire x mean / group / mix, codes on the
+    bf16 wire) and ``opt_step`` (Momentum and AdamW, modes none / mean /
+    group / mix, f32 and coded columns; the wire path's three wires).
+    Returns (number of cases, max abs error per kernel)."""
+    err = dict.fromkeys(("opt_step", "avg_disp", "mix_disp",
+                         "compressed_mix"), 0.0)
+    n = 0
+    for m, p, groups in COMM_SHAPES:
+        W = mixing_matrix("ring", m, dev)
+        for mname, (alive, umask) in fault_masks(m).items():
+            tag = f"{mname}-M{m}P{p}"
+            x = make_inputs(dev, m, p, "sgd", seed=4000 + n)[0]
+            for grp in (1, groups):
+                e = check_avg_disp_fault(f"avg_disp/fault-g{grp}-{tag}", x,
+                                         alive, grp)
+                err["avg_disp"] = max(err["avg_disp"], e)
+                n += 1
+            e = check_mix_disp_fault(f"mix_disp/fault-ring-{tag}", x, W,
+                                     alive)
+            err["mix_disp"] = max(err["mix_disp"], e)
+            n += 1
+            for wire in WIRES:
+                for mode in ("mean", "group", "mix"):
+                    x, _, _, _, codes = make_inputs(
+                        dev, m, p, "sgd", "mixed" if wire == "bf16" else
+                        None, seed=n)
+                    r, u = wire_inputs(dev, m, p, seed=n)
+                    e = check_compressed_fault(
+                        f"compressed_mix/fault-{wire}-{mode}-{tag}", x, r,
+                        alive, wire=wire, mode=mode,
+                        groups=groups if mode == "group" else 1,
+                        W=W if mode == "mix" else None,
+                        u=u if wire == "int8" else None, codes=codes)
+                    err["compressed_mix"] = max(err["compressed_mix"], e)
+                    n += 1
+            for opt in ("momentum", "adamw"):
+                kind, hyp = OPTS[opt]
+                for mode in ("none", "mean", "group", "mix"):
+                    for codes_kind in (None, "mixed"):
+                        x, g, st, scal, codes = make_inputs(
+                            dev, m, p, kind, codes_kind, seed=n)
+                        e = check_opt_step_fault(
+                            f"opt_step/fault-{opt}-{mode}-{codes_kind}-{tag}",
+                            x, g, st, scal, codes, alive, umask, kind=kind,
+                            mode=mode,
+                            groups=groups if mode == "group" else 1,
+                            W=W if mode == "mix" else None, **hyp)
+                        err["opt_step"] = max(err["opt_step"], e)
+                        n += 1
+            for wire in WIRES:
+                mode = "mix" if wire == "one_bit" else "mean"
+                x, g, st, scal, codes = make_inputs(dev, m, p, "momentum",
+                                                    seed=n)
+                r, u = wire_inputs(dev, m, p, seed=n)
+                e = check_opt_step_fault(
+                    f"opt_step/fault-wire-{wire}-{mode}-{tag}", x, g, st,
+                    scal, codes, alive, umask, resid=r,
+                    u=u if wire == "int8" else None, kind="momentum",
+                    mu=0.9, mode=mode, wire=wire,
+                    W=W if mode == "mix" else None)
+                err["opt_step"] = max(err["opt_step"], e)
+                n += 1
+    return n, err
 
 
 # ---- the serving kernels ---------------------------------------------------

@@ -16,15 +16,31 @@ With a ``wire`` the averaging event is the compressed one: on the card
 of ``csrc/compressed_mix.cu`` then encodes, averages or mixes the
 updated plane and its residual in place — the update is written once
 and read by the event, never applied twice.
+
+``alive`` / ``umask`` ((M,) 0/1, :mod:`repro_torch.faults`) run the
+fault-degraded pass as the reference's wrapper does: ``opt_step.cu`` in
+mode "none", the rows outside ``umask`` (dead and straggling workers)
+written back from copies saved before the in-place launch — params and
+state planes, k rows and not a plane — then the masked event of
+``repro_torch.kernels.avg_disp`` (``avg_disp`` / ``mix_disp`` /
+``compressed_mix`` with ``alive``, each one kernel launch), on a coded
+plane the alive rows rounded to their codes after the event, and the
+event's output copied back into the plane.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import faults
 from repro_torch.kernels import _build
 from repro_torch.kernels.avg_disp import (_check_event, _check_mix,
-                                          _compressed_event)
-from repro_torch.kernels.ref import _KINDS, _MODES, opt_step_ref
+                                          _compressed_event, avg_disp,
+                                          compressed_mix, mix_disp)
+from repro_torch.kernels.ref import (_KINDS, _MODES, opt_step_ref,
+                                     round_to_codes)
+
+#: columns per chunk of the in-place rounding after a masked event
+_ROUND_COLS = 1 << 24
 
 _STATE_PLANES = {"sgd": 0, "momentum": 1, "adamw": 2}
 
@@ -32,7 +48,8 @@ _STATE_PLANES = {"sgd": 0, "momentum": 1, "adamw": 2}
 def opt_step(plane, grads, planes, scalars, *, kind, mode="none",
              groups: int = 1, W=None, mu=0.9, nesterov=False, b1=0.9,
              b2=0.95, eps=1e-8, weight_decay=0.0, codes=None, wire=None,
-             resid=None, u=None, error_feedback: bool = True):
+             resid=None, u=None, error_feedback: bool = True, alive=None,
+             umask=None):
     """Fused optimizer step + optional averaging on the (M, P) plane.
 
     plane/grads: (M, P) f32; planes: tuple of S f32 state planes (S = 0
@@ -47,7 +64,10 @@ def opt_step(plane, grads, planes, scalars, *, kind, mode="none",
     makes the event the compressed one, with ``resid`` the (M, P)
     error-feedback residual and ``u`` the int8 uniforms; it returns
     (plane, state planes, residual, dispersion), on CUDA the residual
-    updated in place too."""
+    updated in place too.
+
+    ``alive`` / ``umask`` make it the fault-degraded pass (module note),
+    on CUDA in place as well."""
     if kind not in _KINDS:
         raise ValueError(f"unknown plane optimizer kind {kind!r}")
     if mode not in _MODES:
@@ -71,7 +91,11 @@ def opt_step(plane, grads, planes, scalars, *, kind, mode="none",
               weight_decay=weight_decay, codes=codes, wire=wire,
               resid=resid, u=u, error_feedback=error_feedback)
     if plane.device.type == "cpu":
-        return opt_step_ref(plane, grads, planes, scalars, **kw)
+        return opt_step_ref(plane, grads, planes, scalars, alive=alive,
+                            umask=umask, **kw)
+    if alive is not None:
+        return _fault_step(plane, grads, planes, scalars, alive,
+                           alive if umask is None else umask, **kw)
     if plane.device.type != "cuda":
         raise ValueError(f"opt_step runs on cpu or cuda, not {plane.device}")
     _build.check_workers("opt_step", m)
@@ -111,6 +135,41 @@ def opt_step(plane, grads, planes, scalars, *, kind, mode="none",
     _compressed_event(plane, resid, wire=wire, mode=mode, groups=groups,
                       W=W, u=u, codes=codes, error_feedback=error_feedback)
     return plane, tuple(planes), resid, disp
+
+
+def _fault_step(plane, grads, planes, scalars, alive, umask, *, kind, mode,
+                groups, W, codes, wire, resid, u, error_feedback, **hyp):
+    """The fault-degraded pass on the card (module note)."""
+    frozen = faults.rows_where(umask, on=False)
+    saved = [[t[i].clone() for t in (plane, *planes)] for i in frozen]
+    plane, planes, _ = opt_step(plane, grads, planes, scalars, kind=kind,
+                                codes=codes, **hyp)
+    for i, rows in zip(frozen, saved):
+        for t, row in zip((plane, *planes), rows):
+            t[i] = row
+    del saved  # not held through the event's new plane
+    if wire is not None:
+        plane, resid, disp = compressed_mix(
+            plane, resid, wire=wire, mode=mode, groups=groups, W=W, u=u,
+            codes=codes, error_feedback=error_feedback, alive=alive)
+        return plane, planes, resid, disp
+    if mode == "none":
+        return plane, planes, faults.masked_dispersion(plane, alive)
+    if mode == "mix":
+        out, disp = mix_disp(plane, W, alive=alive)
+    else:
+        out, disp = avg_disp(plane, groups=groups if mode == "group" else 1,
+                             alive=alive)
+    if codes is not None:
+        # the dead rows are the update's, already on their codes
+        for i in faults.rows_where(alive):
+            for c0 in range(0, out.shape[1], _ROUND_COLS):
+                seg = out[i, c0:c0 + _ROUND_COLS]
+                seg.copy_(round_to_codes(seg, codes[c0:c0 + _ROUND_COLS]))
+    # back into the plane, which stays the caller's one tensor: a new one
+    # each step would coexist with the plane its phase started from
+    plane.copy_(out)
+    return plane, planes, disp
 
 
 #: opt_step.cu launches so far (the CPU plain path does not count; the

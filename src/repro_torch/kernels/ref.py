@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from repro_torch import faults as _faults
+
 _KINDS = ("sgd", "momentum", "adamw")
 _MODES = ("none", "mean", "group", "mix")
 #: wire formats of the compressed event (``f32`` lowers to no wire)
@@ -84,6 +86,20 @@ def _mean_event(q: torch.Tensor, groups: int, codes=None) -> torch.Tensor:
     return out.expand(groups, m // groups, p).reshape(m, p).contiguous()
 
 
+def _masked_event(q: torch.Tensor, alive, groups: int,
+                  codes=None) -> torch.Tensor:
+    """The exact (group) mean of ``q`` over the alive rows, rounded
+    through ``codes``, on a new (M, P) plane (dead rows not yet kept)."""
+    m, p = q.shape
+    if groups > 1:
+        out = _faults.masked_group_mean(q, alive, groups)
+        return out if codes is None else round_to_codes(out, codes[None])
+    glob = _faults.masked_mean(q, alive)
+    if codes is not None:
+        glob = round_to_codes(glob, codes)
+    return glob[None].expand(m, p).contiguous()
+
+
 def round_to_codes(x: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Round each column of ``x`` through its original dtype (codes from
     ``FlatSpec.rounding_codes``: 0 f32, 1 bf16, 2 f16) and back to f32,
@@ -127,14 +143,22 @@ def plane_update_ref(plane, grads, planes, scalars, *, kind, mu=0.9,
     return upd, planes
 
 
-def plane_average_ref(plane, *, groups: int = 1, codes=None):
+def plane_average_ref(plane, *, groups: int = 1, codes=None, alive=None):
     """Worker mean (global, or per contiguous group) + Eq. 4 dispersion
     + broadcast on the (M, P) plane, with the per-column dtype rounding
     of the broadcast mean. The dispersion is always against the global
-    mean. Returns (averaged plane, dispersion)."""
+    mean. ``alive`` ((M,) 0/1, :mod:`repro_torch.faults`) makes the
+    event a masked one: the exact mean over the alive rows (of their
+    group) to the alive rows, dead rows keeping their values, the
+    dispersion over the alive set. Returns (averaged plane,
+    dispersion)."""
     m, p = plane.shape
     if groups < 1 or m % groups:
         raise ValueError(f"groups={groups} must divide the {m} rows")
+    if alive is not None:
+        disp = _faults.masked_dispersion(plane, alive)
+        out = _masked_event(plane, alive, groups, codes)
+        return _faults.keep_rows_(out, plane, alive), disp
     glob = _div(_row_sum(plane), m)
     disp = _dispersion(plane, glob)
     out = _group_means(plane, groups) if groups > 1 else glob[None, None]
@@ -144,16 +168,25 @@ def plane_average_ref(plane, *, groups: int = 1, codes=None):
     return out.contiguous(), disp  # reshape of a broadcast may be a view
 
 
-def mix_disp_ref(plane, W, *, codes=None):
+def mix_disp_ref(plane, W, *, codes=None, alive=None):
     """Gossip mixing event on the (M, P) plane: ``W @ plane`` for a
     doubly-stochastic (M, M) ``W`` (each worker keeps its own mixed row,
     no broadcast), the mixed rows rounded through ``codes``, plus the
-    Eq. 4 dispersion of the INPUT plane. Returns (mixed plane,
-    dispersion)."""
-    disp = _plane_dispersion(plane)
-    out = _mix(W.to(plane.device, torch.float32), plane)
+    Eq. 4 dispersion of the INPUT plane. ``alive`` renormalizes ``W``
+    over the alive rows (``faults.degraded_matrix``): dead rows keep
+    their values and the dispersion is over the alive set. Returns
+    (mixed plane, dispersion)."""
+    W = W.to(plane.device, torch.float32)
+    if alive is not None:
+        disp = _faults.masked_dispersion(plane, alive)
+        W = _faults.degraded_matrix(W, alive)
+    else:
+        disp = _plane_dispersion(plane)
+    out = _mix(W, plane)
     if codes is not None:
         out = round_to_codes(out, codes[None])
+    if alive is not None:
+        _faults.keep_rows_(out, plane, alive)
     return out, disp
 
 
@@ -180,13 +213,22 @@ def avg_disp_outer_ref(plane, prev_avg, vel, *, lr: float, momentum: float,
 
 
 def compressed_avg_ref(plane, resid, *, wire, groups: int = 1, u=None,
-                       codes=None, error_feedback: bool = True):
+                       codes=None, error_feedback: bool = True, alive=None):
     """Compressed averaging event: error-feedback encode of the plane
     (``repro_torch.core.compress.encode_decode``), the (group) mean of
     the decoded ``q`` broadcast back and rounded through ``codes``; the
-    Eq. 4 dispersion of the input plane. Returns (plane, new residual,
-    dispersion)."""
+    Eq. 4 dispersion of the input plane. ``alive`` masks the event: the
+    mean is over the alive rows' ``q``, and dead rows ship nothing —
+    they keep their params and their residual. Returns (plane, new
+    residual, dispersion)."""
     from repro_torch.core.compress import encode_decode
+    if alive is not None:
+        disp = _faults.masked_dispersion(plane, alive)
+        q, r_new = encode_decode(plane, resid, wire=wire, u=u,
+                                 error_feedback=error_feedback)
+        out = _masked_event(q, alive, groups, codes)
+        return (_faults.keep_rows_(out, plane, alive),
+                _faults.keep_rows_(r_new, resid, alive), disp)
     disp = _plane_dispersion(plane)
     q, resid = encode_decode(plane, resid, wire=wire, u=u,
                              error_feedback=error_feedback)
@@ -194,32 +236,42 @@ def compressed_avg_ref(plane, resid, *, wire, groups: int = 1, u=None,
 
 
 def compressed_mix_ref(plane, resid, W, *, wire, u=None, codes=None,
-                       error_feedback: bool = True):
+                       error_feedback: bool = True, alive=None):
     """Compressed gossip mixing event: error-feedback encode, then
     ``W @ q`` on the decoded plane, rounded through ``codes``; the Eq. 4
-    dispersion of the input plane. Returns (mixed plane, new residual,
-    dispersion)."""
+    dispersion of the input plane. ``alive`` degrades ``W`` over the
+    alive rows; dead rows keep their params and their residual. Returns
+    (mixed plane, new residual, dispersion)."""
     from repro_torch.core.compress import encode_decode
-    disp = _plane_dispersion(plane)
-    q, resid = encode_decode(plane, resid, wire=wire, u=u,
+    W = W.to(plane.device, torch.float32)
+    if alive is not None:
+        disp = _faults.masked_dispersion(plane, alive)
+        W = _faults.degraded_matrix(W, alive)
+    else:
+        disp = _plane_dispersion(plane)
+    q, r_new = encode_decode(plane, resid, wire=wire, u=u,
                              error_feedback=error_feedback)
-    out = _mix(W.to(plane.device, torch.float32), q)
+    out = _mix(W, q)
     if codes is not None:
         out = round_to_codes(out, codes[None])
-    return out, resid, disp
+    if alive is not None:
+        return (_faults.keep_rows_(out, plane, alive),
+                _faults.keep_rows_(r_new, resid, alive), disp)
+    return out, r_new, disp
 
 
-def avg_disp_ref(plane, *, groups: int = 1):
+def avg_disp_ref(plane, *, groups: int = 1, alive=None):
     """Fused worker-average + dispersion on the flat (M, P) float32 plane
-    (no rounding codes). Returns (averaged plane, dispersion)."""
-    return plane_average_ref(plane, groups=groups)
+    (no rounding codes); ``alive`` masks it as in
+    :func:`plane_average_ref`. Returns (averaged plane, dispersion)."""
+    return plane_average_ref(plane, groups=groups, alive=alive)
 
 
 def opt_step_ref(plane, grads, planes, scalars, *, kind, mode="none",
                  groups: int = 1, W=None, mu=0.9, nesterov=False, b1=0.9,
                  b2=0.95, eps=1e-8, weight_decay=0.0, codes=None,
                  wire=None, resid=None, u=None,
-                 error_feedback: bool = True):
+                 error_feedback: bool = True, alive=None, umask=None):
     """Fused local optimizer step + optional averaging event on the flat
     (M, P) plane. mode: "none" (local step), "mean" (step + worker mean
     + broadcast), "group" (per-group means) or "mix" (step + ``W @``
@@ -231,14 +283,27 @@ def opt_step_ref(plane, grads, planes, scalars, *, kind, mode="none",
     compressed one: the error-feedback encode of the post-update plane
     (``resid`` the residual, ``u`` the int8 uniforms), the event on the
     decoded ``q``; the return gains the residual: (plane, new state
-    planes, new residual, dispersion)."""
+    planes, new residual, dispersion).
+
+    ``alive`` / ``umask`` ((M,) 0/1, :mod:`repro_torch.faults`) make the
+    pass a fault-degraded one: only rows with ``umask > 0`` (``alive``
+    when not given) apply the update — the others keep their params and
+    their state planes — and the event and the dispersion are masked
+    over ``alive``."""
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    upd, planes = plane_update_ref(
+    upd, new_planes = plane_update_ref(
         plane, grads, planes, scalars, kind=kind, mu=mu, nesterov=nesterov,
         b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, codes=codes)
+    if alive is not None:
+        umask = alive if umask is None else umask
+        _faults.keep_rows_(upd, plane, umask)
+        for n, o in zip(new_planes, planes):
+            _faults.keep_rows_(n, o, umask)
+    planes = new_planes
     if wire is not None and mode != "none":
-        kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback)
+        kw = dict(wire=wire, u=u, codes=codes, error_feedback=error_feedback,
+                  alive=alive)
         if mode == "mix":
             out, resid, disp = compressed_mix_ref(upd, resid, W, **kw)
         else:
@@ -246,12 +311,14 @@ def opt_step_ref(plane, grads, planes, scalars, *, kind, mode="none",
                 upd, resid, groups=groups if mode == "group" else 1, **kw)
         return out, planes, resid, disp
     if mode == "mix":
-        out, disp = mix_disp_ref(upd, W, codes=codes)
+        out, disp = mix_disp_ref(upd, W, codes=codes, alive=alive)
         return out, planes, disp
     if mode == "none":
-        return upd, planes, _plane_dispersion(upd)
+        return upd, planes, (_plane_dispersion(upd) if alive is None else
+                             _faults.masked_dispersion(upd, alive))
     out, disp = plane_average_ref(
-        upd, groups=groups if mode == "group" else 1, codes=codes)
+        upd, groups=groups if mode == "group" else 1, codes=codes,
+        alive=alive)
     return out, planes, disp
 
 

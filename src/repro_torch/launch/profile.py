@@ -1,6 +1,7 @@
 """Where a training step's time goes, on the card.
 
-Takes the training CLI's flags (``repro_torch.launch.train``), runs
+Takes the training CLI's flags (``repro_torch.launch.train``; the fault
+flags too, so a step under ``--faults`` is profiled the same way), runs
 ``--warmup`` steps, times ``--profile-steps`` more without the profiler,
 then profiles as many again under ``torch.profiler`` (CPU + CUDA
 activities) and prints one JSON line. Give ``--profile-steps`` a

@@ -6,7 +6,9 @@ supports. M workers each read their own synthetic token stream
 steps through :class:`repro_torch.core.PhaseEngine`, and average on the
 chosen schedule, over the chosen topology (``--topology``) and wire
 format (``--comm-dtype``), optionally with the outer optimizer
-(``--outer-momentum``). Runs on CUDA unless ``--device cpu``;
+(``--outer-momentum``), and under scripted worker faults (``--faults``,
+``--straggle-prob``, ``--rejoin``, ``--rejoin-curriculum``,
+``--straggle-aware``). Runs on CUDA unless ``--device cpu``;
 ``--kernel-impl ref`` takes the kernels' plain versions on the card and
 ``--no-prefetch`` stages the batches in line, for comparison.
 
@@ -28,6 +30,7 @@ from repro_torch.core.averaging import OuterOptimizer
 from repro_torch.core.compress import WIRE_FORMATS, Compression
 from repro_torch.data import token_stream
 from repro_torch.device import resolve_device
+from repro_torch.faults import FaultPlan
 from repro_torch.models import init_params, lm_loss
 from repro_torch.optim import AdamW, Momentum
 from repro_torch.topology import KINDS as TOPOLOGY_KINDS
@@ -98,6 +101,33 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--outer-momentum", type=float, default=0.0,
                     help=">0 enables the DiLoCo-style outer optimizer "
                          "at averaging steps")
+    ap.add_argument("--faults", default=None,
+                    help="deterministic fault script: comma-separated "
+                         "kind:m=<row>@t=<step> events, e.g. "
+                         "'crash:m=3@t=100,rejoin:m=3@t=200' — crashed "
+                         "rows drop out of every update and averaging "
+                         "event, rejoining rows warm-start from the "
+                         "alive consensus")
+    ap.add_argument("--straggle-prob", type=float, default=0.0,
+                    help="per-worker per-step probability of skipping "
+                         "the local update (the row still receives the "
+                         "event), drawn from the decision key's stream")
+    ap.add_argument("--rejoin", type=int, default=0,
+                    help="auto-rejoin every scripted crash N steps later "
+                         "(crashes with a later scripted event for the "
+                         "same worker are left alone)")
+    ap.add_argument("--rejoin-curriculum", type=int, default=0,
+                    help="solo steps a rejoined worker trains before its "
+                         "iterate re-enters averaging (masked out of "
+                         "every event, the loss and the dispersion)")
+    ap.add_argument("--straggle-aware", action="store_true",
+                    help="adaptive schedules only: discount the measured "
+                         "dispersion by the fraction of the mixing cohort "
+                         "that updated")
+    ap.add_argument("--non-iid-alpha", type=float, default=0.0,
+                    help="> 0 names Dirichlet(alpha) label-skewed worker "
+                         "shards; the synthetic token stream has no "
+                         "labels, so this CLI only validates it")
     ap.add_argument("--optimizer", default="momentum",
                     choices=["momentum", "adamw"])
     ap.add_argument("--lr", type=float, default=0.01)
@@ -156,6 +186,48 @@ def setup(args, ap):
         ap.error(f"--outer-momentum steps on the exact consensus mean, "
                  f"which a {args.comm_dtype} wire never forms — use "
                  "--comm-dtype f32 or drop the outer optimizer")
+    faults = None
+    if args.faults or args.straggle_prob > 0:
+        if not 0.0 <= args.straggle_prob <= 1.0:
+            ap.error(f"--straggle-prob must be in [0, 1], got "
+                     f"{args.straggle_prob}")
+        if args.rejoin < 0:
+            ap.error(f"--rejoin must be >= 0, got {args.rejoin}")
+        try:
+            faults = FaultPlan.parse(
+                args.faults or "", args.workers,
+                straggle_prob=args.straggle_prob,
+                rejoin_after=args.rejoin,
+                rejoin_curriculum=max(args.rejoin_curriculum, 0))
+        except ValueError as e:
+            ap.error(f"--faults: {e}")
+        if args.outer_momentum > 0:
+            ap.error("--outer-momentum steps on the full-membership "
+                     "consensus mean, which a faulty run never forms — "
+                     "drop --faults/--straggle-prob or the outer "
+                     "optimizer")
+    elif args.rejoin:
+        ap.error("--rejoin without --faults has no crash to rejoin "
+                 "from")
+    if args.rejoin_curriculum < 0:
+        ap.error(f"--rejoin-curriculum must be >= 0, got "
+                 f"{args.rejoin_curriculum}")
+    if args.straggle_aware:
+        if args.avg not in ("adaptive_threshold", "adaptive_budget",
+                            "adaptive_bytes"):
+            ap.error(f"--straggle-aware discounts the dispersion fed to "
+                     f"the adaptive schedules; --avg {args.avg} never "
+                     "consumes dispersion — use an adaptive_* schedule "
+                     "or drop the flag")
+        if args.straggle_prob <= 0.0:
+            ap.error("--straggle-aware needs --straggle-prob > 0 — "
+                     "with no stragglers there is nothing to discount")
+    if args.rejoin_curriculum and not (faults and faults.has_rejoin):
+        ap.error("--rejoin-curriculum without a rejoin fault event has "
+                 "no worker to run a curriculum for")
+    if args.non_iid_alpha < 0:
+        ap.error(f"--non-iid-alpha must be >= 0, got "
+                 f"{args.non_iid_alpha}")
     topology = None
     if args.topology:
         try:
@@ -211,12 +283,18 @@ def setup(args, ap):
         disp_ema_beta=args.disp_ema_beta,
         comm_budget=args.comm_budget,
         byte_budget=args.byte_budget,
-        budget_horizon=args.budget_horizon or args.steps)
+        budget_horizon=args.budget_horizon or args.steps,
+        straggle_aware=args.straggle_aware)
     outer = (OuterOptimizer(lr=1.0, momentum=args.outer_momentum)
              if args.outer_momentum > 0 else None)
     engine = PhaseEngine(loss_fn, opt, sch, device=str(device), outer=outer,
                          topology=topology, compression=compression,
-                         kernel_impl=args.kernel_impl)
+                         kernel_impl=args.kernel_impl, faults=faults)
+    if faults is not None and not faults.is_trivial:
+        crashes = sum(ev.kind == "crash" for ev in faults.events)
+        rejoins = sum(ev.kind == "rejoin" for ev in faults.events)
+        print(f"[train] faults: {crashes} crash / {rejoins} rejoin "
+              f"events, straggle_prob={faults.straggle_prob}")
     if topology is not None:
         print(f"[train] topology={topology.kind} "
               f"(spectral gap {topology.spectral_gap:.3f}, "

@@ -105,6 +105,19 @@ def random_bits(key, shape, *, device=None, start: int = 0) -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
+def fold_in_uniforms(key, data) -> np.ndarray:
+    """``[uniform(fold_in(key, d), ()) for d in data]`` as a float32 numpy
+    array, for host-side draws: both hashes of every ``d`` run at once
+    on int64 numpy words (the second hash with an array of keys), not
+    one ``d`` at a time."""
+    k1, k2 = _words(key)
+    d = np.asarray(data, np.int64) & _MASK
+    f1, f2 = threefry2x32(k1, k2, np.zeros_like(d), d)
+    b1, b2 = threefry2x32(f1, f2, np.zeros_like(d), np.zeros_like(d))
+    bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    return bits.astype(np.uint32).view(np.float32) - np.float32(1.0)
+
+
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     """``jax.random.uniform``'s float32 map of 32 random bits to [0, 1):
     the top 23 bits as the mantissa of a float in [1, 2), minus 1."""

@@ -2,7 +2,7 @@
 codes and the SchedState carry agree bit for bit over a fixed dispersion
 stream (the stochastic draws and the adaptive_bytes credit included),
 eager validation refuses the same configurations with the same
-messages, straggle_aware (faults not ported) raises NotImplementedError,
+messages, straggle_aware's discounted decisions match the reference's,
 and the outer optimizer's tree step matches the reference."""
 import numpy as np
 import pytest
@@ -104,13 +104,36 @@ def test_eager_validation_matches_jax(kw):
     assert str(ep.value) == str(ej.value)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(kind="adaptive_threshold", disp_threshold=1.0,
-         straggle_aware=True)], ids=["straggle_aware"])
-def test_unported_kinds_raise_not_implemented(kw):
-    JSched(**kw)  # valid for the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AveragingSchedule(**kw)
+@pytest.mark.parametrize("name", ["adaptive_threshold", "adaptive_budget",
+                                  "adaptive_bytes"])
+def test_straggle_aware_decisions_match_jax(name):
+    """straggle_aware: the dispersion times the step's ``disp_scale`` (a
+    float32 fraction of the cohort, as ``FaultPlan.disp_scale`` gives it)
+    feeds the EMA and the budget; codes and the carry bit for bit the
+    reference's; the unaware schedule accrues the unscaled stream."""
+    kw = dict(KINDS[name], straggle_aware=True)
+    port, ref = AveragingSchedule(**kw), JSched(**kw)
+    s_p, s_j = port.init_sched_state(), ref.init_sched_state()
+    s_u = AveragingSchedule(**KINDS[name]).init_sched_state()
+    scales = np.random.default_rng(1).integers(12, 25, STEPS).astype(
+        np.float32) / np.float32(24)
+    codes = []
+    for step, (d, sc) in enumerate(zip(_disp_stream(2), scales), start=1):
+        c_p, s_p = port.decision_state(step, s_p, d, None,
+                                       event_cost=EVENT_COST, disp_scale=sc)
+        c_j, s_j = ref.decision_state(jnp.asarray(step, jnp.int32), s_j,
+                                      jnp.asarray(d), None,
+                                      event_cost=EVENT_COST,
+                                      disp_scale=jnp.asarray(sc))
+        assert c_p == int(c_j), (step, c_p, int(c_j))
+        for f in ("disp_ema", "cum_disp", "credit"):
+            np.testing.assert_array_equal(
+                _bits(getattr(s_p, f), np.float32),
+                _bits(getattr(s_j, f), np.float32), err_msg=f"{f}@{step}")
+        _, s_u = AveragingSchedule(**KINDS[name]).decision_state(
+            step, s_u, d, None, event_cost=EVENT_COST, disp_scale=sc)
+        codes.append(c_p)
+    assert any(codes) and s_p.cum_disp < s_u.cum_disp
 
 
 def test_static_kinds_refuse_stateless_adaptive_code():

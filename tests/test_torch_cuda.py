@@ -312,6 +312,141 @@ def test_engine_indexed_on_card_matches_cpu(dev):
                                rtol=1e-4, atol=1e-6)
 
 
+# ---- the fault paths (alive / umask) ----------------------------------------
+
+FAULT_MASKS = ("dead", "straggle", "all-alive")
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("mask", FAULT_MASKS)
+def test_fault_events_match_plain(dev, mask, shape):
+    """avg_disp(alive=) (groups 1 and the shape's) and mix_disp(alive=)
+    over a ring: one mix_disp launch per call, none of avg_disp."""
+    m, p, groups = shape
+    alive, _ = cc.fault_masks(m)[mask]
+    x = cc.make_inputs(dev, m, p, "sgd", seed=5)[0]
+    n0, a0 = mix_disp.launches, avg_disp.launches
+    for grp in (1, groups):
+        cc.check_avg_disp_fault(f"g{grp}", x, alive, grp)
+    cc.check_mix_disp_fault("ring", x, cc.mixing_matrix("ring", m, dev),
+                            alive)
+    assert (mix_disp.launches - n0, avg_disp.launches - a0) == (6, 0)
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("mask", FAULT_MASKS)
+@pytest.mark.parametrize("mode", ["mean", "group", "mix"])
+@pytest.mark.parametrize("wire", cc.WIRES)
+def test_compressed_fault_matches_plain(dev, wire, mode, mask, shape):
+    m, p, groups = shape
+    alive, _ = cc.fault_masks(m)[mask]
+    x, _, _, _, codes = cc.make_inputs(dev, m, p, "sgd", "mixed", seed=6)
+    r, u = cc.wire_inputs(dev, m, p, seed=6)
+    n0 = compressed_mix.launches
+    cc.check_compressed_fault(
+        wire, x, r, alive, wire=wire, mode=mode,
+        groups=groups if mode == "group" else 1,
+        W=cc.mixing_matrix("ring", m, dev) if mode == "mix" else None,
+        u=u if wire == "int8" else None, codes=codes)
+    assert compressed_mix.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("mask", FAULT_MASKS)
+@pytest.mark.parametrize("codes", [None, "mixed"], ids=["f32", "codes"])
+@pytest.mark.parametrize("mode", ["none", "mean", "group", "mix"])
+def test_opt_step_fault_matches_plain(dev, mode, codes, mask, shape):
+    """One opt_step launch in mode none per call, then the masked event's
+    one mix_disp launch."""
+    m, p, groups = shape
+    alive, umask = cc.fault_masks(m)[mask]
+    x, g, st, scal, cd = cc.make_inputs(dev, m, p, "momentum", codes,
+                                        seed=7)
+    n0, x0 = opt_step.launches, mix_disp.launches
+    cc.check_opt_step_fault(
+        mode, x, g, st, scal, cd, alive, umask, kind="momentum", mu=0.9,
+        mode=mode, groups=groups if mode == "group" else 1,
+        W=cc.mixing_matrix("ring", m, dev) if mode == "mix" else None)
+    assert opt_step.launches == n0 + 2
+    assert mix_disp.launches == x0 + (0 if mode == "none" else 2)
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("mask", FAULT_MASKS)
+@pytest.mark.parametrize("wire", cc.WIRES)
+def test_opt_step_wire_fault_matches_plain(dev, wire, mask, shape):
+    m, p, _ = shape
+    alive, umask = cc.fault_masks(m)[mask]
+    x, g, st, scal, _ = cc.make_inputs(dev, m, p, "momentum", seed=8)
+    r, u = cc.wire_inputs(dev, m, p, seed=8)
+    n0, c0 = opt_step.launches, compressed_mix.launches
+    cc.check_opt_step_fault(
+        wire, x, g, st, scal, None, alive, umask, resid=r,
+        u=u if wire == "int8" else None, kind="momentum", mu=0.9,
+        mode="mix", wire=wire, W=cc.mixing_matrix("ring", m, dev))
+    assert (opt_step.launches - n0, compressed_mix.launches - c0) == (2, 2)
+
+
+@pytest.mark.parametrize("variant", ["periodic", "ring", "int8"])
+def test_engine_faults_on_card_matches_cpu(dev, variant):
+    """The least squares (24 workers) under a crash, a rejoin with a
+    curriculum and stragglers, on the card and on the CPU: the same
+    decisions, alive and staleness rows; params and losses within rtol
+    1e-4 (int8: but for quantum flips, counted and bounded); on the card
+    run and run_host bitwise equal."""
+    from repro_torch.core import AveragingSchedule, PhaseEngine
+    from repro_torch.core.compress import Compression
+    from repro_torch.data import DeviceDataset
+    from repro_torch.faults import FaultPlan
+    from repro_torch.optim import SGD
+    from repro_torch.topology import Topology
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((512, 64)).astype(np.float32)
+    y = (X @ rng.standard_normal(64)).astype(np.float32)
+    idx = rng.integers(0, 512, (48, 24))
+    plan = FaultPlan.parse("crash:m=3@t=10,crash:m=7@t=10,rejoin:m=3@t=30",
+                           24, straggle_prob=0.1, rejoin_curriculum=4)
+    comm = {"periodic": {}, "ring": dict(topology=Topology.ring(24)),
+            "int8": dict(compression=Compression("int8"))}[variant]
+
+    def loss(p, b, r):
+        return 0.5 * torch.square(b["x"] @ p["w"] - b["y"]), {}
+
+    def run(device, host=False):
+        eng = PhaseEngine(loss, SGD(lr=lambda t: 0.3 / (t + 20.0)),
+                          AveragingSchedule("periodic", phase_len=8),
+                          device=device, faults=plan, **comm)
+        if host:
+            return eng.run_host({"w": torch.zeros(64)},
+                                [{"x": X[i], "y": y[i]} for i in idx],
+                                num_workers=24, seed=0, record_every=1)
+        return eng.run({"w": torch.zeros(64)},
+                       DeviceDataset({"x": X, "y": y}, 24, indices=idx,
+                                     device=device),
+                       num_workers=24, seed=0, record_every=1,
+                       return_state=True)
+
+    fg, hg, sg = run("cuda")
+    fc, hc, sc = run("cpu")
+    assert hg["averages"] == hc["averages"] == 6
+    assert [t for t, _ in hg["dispersion"]] == [t for t, _ in
+                                                hc["dispersion"]]
+    np.testing.assert_array_equal(sg.fault.alive, sc.fault.alive)
+    np.testing.assert_array_equal(sg.fault.staleness, sc.fault.staleness)
+    np.testing.assert_allclose([v for _, v in hg["loss"]],
+                               [v for _, v in hc["loss"]], rtol=1e-4,
+                               atol=1e-7)
+    if variant == "int8":
+        cc.count_quantum_flips(sg.plane.cpu(), sc.plane, rtol=1e-4,
+                               atol=1e-6)
+    else:
+        np.testing.assert_allclose(fg["w"].cpu().numpy(), fc["w"].numpy(),
+                                   rtol=1e-4, atol=1e-6)
+    fh, hh = run("cuda", host=True)
+    assert torch.equal(fh["w"], fg["w"]) and hh["loss"] == hg["loss"]
+
+
 # ---- the serving kernels -----------------------------------------------------
 
 FLASH_CASES = [(sh, c, w, dt) for sh in cc.FLASH_SHAPES

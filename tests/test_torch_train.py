@@ -1,5 +1,6 @@
-"""The port's training CLI on the CPU, the port's import isolation from
-JAX, and ``chip_smoke.py``'s refusal to run without a card."""
+"""The port's training CLI on the CPU (its fault flags against the
+reference's CLI), the port's import isolation from JAX, and
+``chip_smoke.py``'s refusal to run without a card."""
 import json
 import os
 import shutil
@@ -111,6 +112,65 @@ def test_cli_communication_flags_train_on_cpu(argv, events, line, capsys):
                torch.utils._pytree.tree_leaves(final))
     assert (state.resid is not None) == ("--comm-dtype" in argv)
     assert (state.outer_state != ()) == ("--outer-momentum" in argv)
+
+
+FAULT_ARGV = ["--reduced", "--steps", "6", "--workers", "4", "--avg",
+              "periodic", "--phase-len", "2", "--batch", "1", "--seq", "8",
+              "--faults", "crash:m=1@t=3,rejoin:m=1@t=5",
+              "--straggle-prob", "0.2"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--rejoin-curriculum", "1"]],
+                         ids=["plan", "curriculum"])
+def test_cli_faults_train_on_cpu_as_the_reference(extra, capsys):
+    """A crash, a rejoin and stragglers: the port's CLI trains and reports
+    the reference CLI's fault line and averaging count."""
+    from repro.launch import train as jtrain
+    jtrain.main(FAULT_ARGV + extra)
+    want = [ln for ln in capsys.readouterr().out.splitlines()
+            if "faults:" in ln or "averaging ops" in ln]
+    final, hist, state = train.main(["--device", "cpu"] + FAULT_ARGV + extra)
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if "faults:" in ln or "averaging ops" in ln]
+    assert got[0] == want[0] == ("[train] faults: 1 crash / 1 rejoin "
+                                 "events, straggle_prob=0.2")
+    assert got[1].split("), ")[1] == want[1].split("), ")[1] == \
+        "3 averaging ops"
+    assert state.fault.alive.tolist() == [1.0] * 4
+    assert all(torch.isfinite(x).all() for x in
+               torch.utils._pytree.tree_leaves(final))
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["--rejoin", "5"], "--rejoin without --faults"),
+    (["--avg", "periodic", "--straggle-aware", "--straggle-prob", "0.1"],
+     "never consumes dispersion"),
+    (["--avg", "adaptive_threshold", "--disp-threshold", "0.1",
+      "--straggle-aware", "--faults", "crash:m=1@t=2"],
+     "--straggle-prob > 0"),
+    (["--faults", "crash:m=1@t=2", "--outer-momentum", "0.5"],
+     "full-membership"),
+    (["--faults", "crash:m=9@t=2"], "out of range"),
+    (["--faults", "crash m=1"], "cannot parse"),
+    (["--straggle-prob", "1.5"], "[0, 1]"),
+    (["--faults", "crash:m=1@t=2", "--rejoin-curriculum", "2"],
+     "curriculum"),
+    (["--non-iid-alpha", "-1"], "--non-iid-alpha"),
+], ids=["rejoin", "aware-static", "aware-no-stragglers", "outer", "row",
+        "syntax", "prob", "curriculum", "alpha"])
+def test_cli_refuses_bad_fault_flags_as_the_reference(argv, why, capsys):
+    """The reference's parse-time refusals of the fault flags: both CLIs
+    exit 2 with the reason, before any training."""
+    from repro.launch import train as jtrain
+    base = ["--reduced", "--steps", "2"]
+    with pytest.raises(SystemExit) as ej:
+        jtrain.main(base + argv)
+    assert ej.value.code == 2
+    assert why in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu"] + base + argv)
+    assert e.value.code == 2
+    assert why in capsys.readouterr().err
 
 
 def test_cli_kernel_impl_and_prefetch_leave_the_run_unchanged():

@@ -61,22 +61,27 @@ Phases, each printing one JSON line:
      launches no kernel, as the reference's does, and its cacheless
      prefill step (``steps.make_prefill_step``) launches ``rwkv6_scan``
      32 times, timed and held against the serve prefill's last logits
-     (reported, not gated); prefill ms, decode ms per token, tokens/s and
-     peak memory; the kernel path against ``impl="plain"`` on the card
+     (reported, not gated); ``init_params`` seconds (the reference's
+     keys, drawn on the card), prefill ms, decode ms per token, tokens/s
+     and peak memory; the kernel path against ``impl="plain"`` on the card
      where the serve prefill launches a kernel (reported, not gated);
      and the serve CLI once;
   7. faults (``repro_torch.faults``, the plane passes' ``alive`` /
-     ``umask`` paths through the same kernels): card_check's fault sweep
-     (dead, straggling and all-alive rows over the JAX suite's shapes);
-     at full width (M=4 x P=361,821,120) the fault paths of ``opt_step``
+     ``umask`` paths: ``opt_step`` and ``compressed_mix`` masked in their
+     kernels, one launch each, ``avg_disp`` and ``mix_disp`` wrapped
+     around ``mix_disp.cu``): card_check's fault sweep (dead, straggling
+     and all-alive rows over the JAX suite's shapes); at full width (M=4
+     x P=361,821,120, one dead row) the fault paths of ``opt_step``
      (Momentum, bf16 codes; mode none and the masked mean),
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` (one_bit over a
      ring) against their masked plain versions, timed beside their
-     bounds; smollm-360m training at full width under ``--faults
-     crash:m=1@t=3,rejoin:m=1@t=6 --straggle-prob 0.25
-     --rejoin-curriculum 2`` (periodic K=2, minibatch, ring + one_bit;
-     8 steps each, the last 2 under ``torch.profiler``) beside the same
-     runs without the plan: step ms, device-busy ms, peak memory; the
+     bounds (the masked kernels' one-pass bound, with the wrapped
+     yardstick they replaced beside it); smollm-360m training at full
+     width under ``--faults crash:m=1@t=3,rejoin:m=1@t=6
+     --straggle-prob 0.25 --rejoin-curriculum 2`` (periodic K=2,
+     minibatch, ring + one_bit; 8 steps each, the last 2 under
+     ``torch.profiler``) beside the same runs without the plan: step
+     ms, device-busy ms, peak memory, and their differences; the
      least squares of phase 4 (256 steps from a ``DeviceDataset``,
      crash:m=3@t=40,crash:m=7@t=40,rejoin:m=3@t=120, straggle 0.1,
      curriculum 16) under periodic 16, hierarchical (2 groups), ring,
@@ -87,8 +92,10 @@ Phases, each printing one JSON line:
      reported beside the same int8 run without the plan), and
      ``run_host`` bitwise ``run`` on the card; one paired curve, periodic
      128 with and without the plan, the objective every 64 steps;
-  8. summary: a ``kernels`` line over all eight kernels, the card, then
-     ``{"ok": true, "device": ...}`` as the last line.
+  8. summary: a ``kernels`` line over all eight kernels (``opt_step`` and
+     ``compressed_mix`` also with their masked pass's ``fault_ms`` and
+     ``fault_bound_ms``), the card, then ``{"ok": true, "device": ...}``
+     as the last line.
 
 Every launch count is set to 0 just before a main-path run (phases 3-7)
 and read just after; the ``kernels`` line sums those runs. Any failed
@@ -215,13 +222,44 @@ def opt_step_wire_cost(m, p, kind, wire, has_codes, mix=False):
 
 
 def fault_extra_cost(p, frozen_rows, n_alive):
-    """(bytes, flops) a fault path adds to the kernels it wraps: each of
-    its ``frozen_rows`` (rows of the plane and of the state planes or
-    the residual that the launch would overwrite) copied out and written
-    back (4 transfers of a row), and the masked dispersion's two reads
-    of the alive rows (the mean, then the squared deviations), 3 flops
-    an element."""
+    """(bytes, flops) a wrapped fault path (``avg_disp`` / ``mix_disp``
+    with ``alive``) adds to the kernel it wraps: each of its
+    ``frozen_rows`` copied out and written back (4 transfers of a row),
+    and the masked dispersion's two reads of the alive rows (the mean,
+    then the squared deviations), 3 flops an element."""
     return 4 * frozen_rows * p * 4 + 2 * n_alive * p * 4, 3 * n_alive * p
+
+
+def masked_opt_step_cost(m, p, kind, has_codes, n_update, n_stale,
+                         event=False, mix=False):
+    """The least a masked ``opt_step`` pass moves (one pass): each of the
+    ``n_update`` stepped rows' x, g and S state rows read and x and the
+    state rows written; each of the ``n_stale`` alive rows outside the
+    update read (and written, under an ``event``); the codes row read;
+    nothing of a row in neither mask (mode mix: W too). Flops: the
+    update on the stepped rows, 4 for the masked column sum and
+    dispersion term (+ 2 per alive row for a mix) on the alive rows."""
+    s = NSTATE[kind]
+    n_alive = n_update + n_stale
+    nbytes = (n_update * (3 + 2 * s) + n_stale * (2 if event else 1)) \
+        * p * 4 + (p * 4 if has_codes else 0) + (m * m * 4 if mix else 0)
+    upd = {"sgd": 2, "momentum": 4, "adamw": 14}[kind]
+    per = 4 + (2 * n_alive if mix else 0)
+    return nbytes, upd * n_update * p + per * n_alive * p
+
+
+def masked_compressed_cost(m, p, wire, has_codes, n_alive, mix=False):
+    """The least a masked compressed event moves: the ``n_alive`` rows'
+    plane and residual read and written once, their uniforms read
+    (int8), the codes row read (mode mix: W too); a dead row nothing.
+    Flops as :func:`compressed_cost`, on the alive rows (a mix over
+    them)."""
+    planes = 4 + (1 if wire == "int8" else 0)
+    nbytes = planes * n_alive * p * 4 + (p * 4 if has_codes else 0) \
+        + (m * m * 4 if mix else 0)
+    per = {"bf16": 2, "int8": 6, "one_bit": 3}[wire] + 1 \
+        + (2 * n_alive if mix else 1) + 4
+    return nbytes, per * n_alive * p
 
 
 def band_pairs(s, causal, window):
@@ -1092,7 +1130,12 @@ def main() -> None:
     for arch, run in SERVE.items():
         cfg = get_config(arch)
         batch, plen, gen = run["batch"], run["prompt"], run["gen"]
+        # the reference's key splits, drawn on the card in chunks
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
         params = init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize(dev)
+        t_init = time.perf_counter() - t0
         prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
                                generator=torch.Generator().manual_seed(1)
                                ).to(dev)
@@ -1167,7 +1210,8 @@ def main() -> None:
                     (toks == ptoks).float().mean()))
         served[arch] = dict(
             batch=batch, prompt=plen, gen=gen, params=cfg.num_params(),
-            prefill_ms=t_pre * 1e3, decode_ms_per_token=t_dec * 1e3 / gen,
+            init_params_s=t_init, prefill_ms=t_pre * 1e3,
+            decode_ms_per_token=t_dec * 1e3 / gen,
             prefill_tokens_per_s=batch * plen / t_pre,
             decode_tokens_per_s=batch * gen / t_dec,
             end_to_end_tokens_per_s=batch * gen / (t_pre + t_dec),
@@ -1196,10 +1240,14 @@ def main() -> None:
     dead1 = np.array([1, 0, 1, 1], np.float32)
     ff = {}
 
-    def record_fault(name, k_ms, p_ms, cost):
+    def record_fault(name, k_ms, p_ms, cost, pr20_cost=None):
         b_ms, b_by = bound_ms(*cost)
         ff[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                         bytes=cost[0], flops=cost[1])
+        if pr20_cost is not None:
+            # the yardstick of the wrapped path this one replaced (the
+            # wrapped kernels, the saved rows, the masked dispersion)
+            ff[name]["pr20_bound_ms"] = bound_ms(*pr20_cost)[0]
 
     x, g, st, scal, codes = cc.make_inputs(dev, FULL_M, FULL_P, "momentum",
                                            "bf16", seed=17, scale=1e-3)
@@ -1225,7 +1273,9 @@ def main() -> None:
             nb, fl = nb + mb, fl + mf
         eb, ef = fault_extra_cost(FULL_P, 2, 3)
         record_fault(f"opt_step/fault-{mode}-codes", k_ms, p_ms,
-                     (nb + eb, fl + ef))
+                     masked_opt_step_cost(FULL_M, FULL_P, "momentum", True,
+                                          3, 0, event=mode != "none"),
+                     pr20_cost=(nb + eb, fl + ef))
     # a straggler too (row 0 alive, skipping its update), checked only
     fault_err["opt_step"] = max(fault_err["opt_step"], cc.check_opt_step_fault(
         "opt_step/full-fault-straggle-none", x, g, st, scal, codes, dead1,
@@ -1250,7 +1300,9 @@ def main() -> None:
     nb, fl = compressed_cost(FULL_M, FULL_P, "one_bit", True, mix=True)
     eb, ef = fault_extra_cost(FULL_P, 2, 3)
     record_fault("compressed_mix/fault-one_bit-ring-codes", k_ms, p_ms,
-                 (nb + eb, fl + ef))
+                 masked_compressed_cost(FULL_M, FULL_P, "one_bit", True, 3,
+                                        mix=True),
+                 pr20_cost=(nb + eb, fl + ef))
     # the bf16 wire's masked mean (the event matrix), checked only
     fault_err["compressed_mix"] = max(
         fault_err["compressed_mix"],
@@ -1297,7 +1349,7 @@ def main() -> None:
             ("periodic", ["--avg", "periodic", "--phase-len", "2"],
              {"opt_step": 8}, {"opt_step": 8}, 4),
             ("minibatch", ["--avg", "minibatch"],
-             {"opt_step": 8, "mix_disp": 8}, {"opt_step": 8}, 8),
+             {"opt_step": 8}, {"opt_step": 8}, 8),
             ("periodic-ring-one_bit",
              ["--avg", "periodic", "--phase-len", "2", "--topology", "ring",
               "--comm-dtype", "one_bit"],
@@ -1350,6 +1402,9 @@ def main() -> None:
             pair["plan" if with_plan else "no_plan"] = run
             del engine, params, state, hist, hist2, prof
             free()
+        pair["plan_minus_no_plan"] = {
+            k: pair["plan"][k] - pair["no_plan"][k]
+            for k in ("step_ms", "device_busy_ms", "max_memory_gb")}
         fault_lm[name] = pair
 
     part_s["smollm_360m"] = time.perf_counter() - tp
@@ -1510,18 +1565,22 @@ def main() -> None:
           "wall_s": time.perf_counter() - t_faults, "card": smi})
 
     # ---- 8. summary --------------------------------------------------------
-    def line(name, src, replaces, row):
-        return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-                "replaces": replaces, "launches": main_launches[name],
-                "max_abs_err": err[name], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"],
-                "library_ms": row.get("library_ms")}
+    def line(name, src, replaces, row, fault=None):
+        out = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+               "replaces": replaces, "launches": main_launches[name],
+               "max_abs_err": err[name], "ms": row["ms"],
+               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+               "bound_by": row["bound_by"],
+               "library_ms": row.get("library_ms")}
+        if fault is not None:
+            # the masked pass in the kernel at full width, one dead row
+            out.update(fault_ms=fault["ms"], fault_bound_ms=fault["bound_ms"])
+        return out
 
     emit({"kernels": [
         line("opt_step", "opt_step", "src/repro/kernels/opt_step.py:185",
-             full["opt_step/none"]),
+             full["opt_step/none"], ff["opt_step/fault-none-codes"]),
         line("avg_disp", "avg_disp", "src/repro/kernels/avg_disp.py:156",
              full["avg_disp/g1"]),
         line("mix_disp", "mix_disp", "src/repro/kernels/avg_disp.py:203",
@@ -1531,7 +1590,8 @@ def main() -> None:
              full["avg_disp_outer/nesterov"]),
         line("compressed_mix", "compressed_mix",
              "src/repro/kernels/avg_disp.py:295",
-             full["compressed_mix/one_bit-mix-codes"]),
+             full["compressed_mix/one_bit-mix-codes"],
+             ff["compressed_mix/fault-one_bit-ring-codes"]),
         line("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:75",
              full["flash_attention/recurrentgemma-2b"]),

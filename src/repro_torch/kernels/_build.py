@@ -44,11 +44,13 @@ MAX_WORKERS = 64
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_ULL = ctypes.c_ulonglong
 #: C signatures of the entry points (see the .cu files)
 SIGNATURES = {
     "opt_step": ("opt_step_launch",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
-                  _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _P]),
+                  _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _I, _ULL,
+                  _ULL, _P]),
     "avg_disp": ("avg_disp_launch", [_P, _P, _P, _P, _I, _LL, _I, _P]),
     "mix_disp": ("mix_disp_launch", [_P, _P, _P, _P, _P, _I, _LL, _P]),
     "avg_disp_outer": ("avg_disp_outer_launch",
@@ -56,7 +58,7 @@ SIGNATURES = {
                         _I, _P]),
     "compressed_mix": ("compressed_mix_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
-                        _I, _I, _I, _P]),
+                        _I, _I, _I, _I, _ULL, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P]),
@@ -210,6 +212,25 @@ def check_workers(what: str, m: int) -> None:
     if not 1 <= m <= MAX_WORKERS:
         raise ValueError(f"{what}'s kernel takes 1..{MAX_WORKERS} worker "
                          f"rows, got {m}")
+
+
+def row_bits(what: str, mask, m: int) -> int:
+    """An (M,) 0/1 row mask (numpy, a sequence or a tensor; a CUDA
+    tensor is copied back) as the 64-bit word the masked plane kernels
+    take by value: bit i is row i. Raises ``ValueError`` for a mask of
+    another length, for entries other than 0 and 1, and for more rows
+    than the kernels take."""
+    import numpy as np
+    check_workers(what, m)
+    if hasattr(mask, "detach"):
+        mask = mask.detach().cpu().numpy()
+    a = np.asarray(mask, np.float64).reshape(-1)
+    if a.shape != (m,):
+        raise ValueError(f"{what}: a row mask of {m} rows, got shape "
+                         f"{np.shape(mask)}")
+    if not np.all((a == 0.0) | (a == 1.0)):
+        raise ValueError(f"{what}: a row mask holds 0 or 1, got {a}")
+    return sum(1 << i for i in np.flatnonzero(a).tolist())
 
 
 def check(err: int, what: str) -> None:

@@ -23,15 +23,21 @@ residual in place on the card (a full-width plane is 5.8 GB).
 
 ``alive`` ((M,) 0/1, :mod:`repro_torch.faults`) degrades ``avg_disp``,
 ``mix_disp`` and ``compressed_mix`` over the alive rows, as the
-reference's wrappers do, through the same kernels: a masked (group)
-mean is the mix kernel's ``A @ plane`` with ``A =
-faults.masked_event_matrix`` (identity rows for dead workers), a gossip
-``W`` becomes ``faults.degraded_matrix(W, alive)``, and the compressed
-event runs in mode "mix" on either matrix. Dead rows keep their values
-(``compressed_mix``: their residual too, saved before the in-place
-launch and written back after), and the dispersion is
-``faults.masked_dispersion`` of the input plane. The matrix's mean
-agrees with the plain versions' exact masked sums to rounding.
+reference's wrappers do. ``compressed_mix`` masks the event in its
+kernel: ONE launch of ``compressed_mix.cu``'s masked instantiation, the
+mask a 64-bit row word; dead rows ship nothing (not read, encoded or
+written: they keep their params and residual), the dispersion is the
+pre-encode one over the alive rows, modes "mean" / "group" take the
+exact masked (group) mean of the alive rows' decoded plane and mode
+"mix" ``faults.degraded_matrix(W, alive)`` — bitwise the plain versions
+(one_bit: within one ulp of its row scale). ``avg_disp`` and
+``mix_disp`` still run their masked event as a wrapper over
+``mix_disp.cu``: a masked (group) mean is the mix ``A @ plane`` with ``A
+= faults.masked_event_matrix`` (identity rows for dead workers), a
+gossip ``W`` becomes the degraded one, dead rows are written back, and
+the dispersion is ``faults.masked_dispersion`` of the input plane; that
+matrix's mean agrees with the plain versions' exact masked sums to
+rounding.
 """
 from __future__ import annotations
 
@@ -184,30 +190,52 @@ def _check_event(what: str, plane, resid, wire, u) -> None:
 
 
 def _compressed_event(plane, resid, *, wire, mode, groups, W, u, codes,
-                      error_feedback):
-    """Launch ``csrc/compressed_mix.cu`` on CUDA tensors: the plane and
-    the residual are updated in place. Counts the launch in
+                      error_feedback, alive=None):
+    """One launch of ``csrc/compressed_mix.cu`` on the card's tensors:
+    the plane and the residual are updated in place; ``alive`` masks the
+    event in the kernel (module note). Counts the launch in
     ``compressed_mix.launches``, whichever wrapper calls it. Returns the
     dispersion."""
     what = "compressed_mix"
-    _cuda_plane(what, plane)
+    m, p = plane.shape
+    _build.check_workers(what, m)
+    _build.check_plane(what, "plane", plane, plane)
     _build.check_plane(what, "resid", resid, plane)
     if u is not None:
         _build.check_plane(what, "u", u, plane)
     if codes is not None:
         _build.check_plane(what, "codes", codes, plane[0])
+    alive_bits = None
+    if alive is not None:
+        alive_bits = _build.row_bits(what, alive, m)
+        if W is not None:
+            W = faults.degraded_matrix(W, alive)
     if W is not None:
         _build.check_matrix(what, W, plane)
-    m, p = plane.shape
     dev = plane.device
     scaled = wire != "bf16"
     rowpart = torch.empty(-(-p // _STAT_COLS) * m if scaled else 1,
                           dtype=torch.float64, device=dev)
     scales = torch.empty(m, dtype=torch.float32, device=dev)
     dpart, disp = _scratch(plane)
+    err = _compressed_launch(plane, resid, u, codes, W, rowpart, scales,
+                             dpart, disp, wire=wire, mode=mode,
+                             groups=groups, error_feedback=error_feedback,
+                             alive_bits=alive_bits)
+    _build.check(err, what)
+    compressed_mix.launches += 1
+    return disp
+
+
+def _compressed_launch(plane, resid, u, codes, W, rowpart, scales, dpart,
+                       disp, *, wire, mode, groups, error_feedback,
+                       alive_bits) -> int:
+    """``compressed_mix_launch`` on the current stream (``alive_bits``
+    None: unmasked). Returns its ``cudaError_t``."""
+    m, p = plane.shape
     lib = _build.library("compressed_mix")
-    with torch.cuda.device(dev):
-        err = lib.compressed_mix_launch(
+    with torch.cuda.device(plane.device):
+        return lib.compressed_mix_launch(
             plane.data_ptr(), resid.data_ptr(),
             u.data_ptr() if u is not None else None,
             codes.data_ptr() if codes is not None else None,
@@ -215,10 +243,7 @@ def _compressed_event(plane, resid, *, wire, mode, groups, W, u, codes,
             rowpart.data_ptr(), scales.data_ptr(), dpart.data_ptr(),
             disp.data_ptr(), m, p, _WIRES.index(wire),
             _EVENT_MODES.index(mode), groups, int(error_feedback),
-            _stream())
-    _build.check(err, what)
-    compressed_mix.launches += 1
-    return disp
+            int(alive_bits is not None), alive_bits or 0, _stream())
 
 
 def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
@@ -243,30 +268,11 @@ def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
     if plane.device.type == "cpu":
         return compressed_mix_plain(plane, resid, mode=mode, groups=groups,
                                     W=W, alive=alive, **kw)
-    if alive is not None:
-        return _masked_compressed(plane, resid, alive, mode=mode,
-                                  groups=groups, W=W, **kw)
+    if plane.device.type != "cuda":
+        raise ValueError(f"compressed_mix runs on cpu or cuda, not "
+                         f"{plane.device}")
     disp = _compressed_event(plane, resid, mode=mode, groups=groups, W=W,
-                             **kw)
-    return plane, resid, disp
-
-
-def _masked_compressed(plane, resid, alive, *, mode, groups, W, **kw):
-    """The masked compressed event on the card: one launch in mode "mix"
-    on the masked event matrix or the degraded ``W``, in place, the dead
-    rows' params and residual written back (module note)."""
-    A = (faults.degraded_matrix(W, alive) if mode == "mix" else
-         faults.masked_event_matrix(alive, groups if mode == "group" else 1,
-                                    device=plane.device))
-    # the dispersion of the plane before the in-place encode; the dead
-    # rows' params and residual before it, k rows and not a plane
-    disp = faults.masked_dispersion(plane, alive)
-    dead = faults.rows_where(alive, on=False)
-    saved = [(plane[i].clone(), resid[i].clone()) for i in dead]
-    _compressed_event(plane, resid, mode="mix", groups=1, W=A, **kw)
-    for i, (x, r) in zip(dead, saved):
-        plane[i] = x
-        resid[i] = r
+                             alive=alive, **kw)
     return plane, resid, disp
 
 

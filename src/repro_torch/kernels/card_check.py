@@ -49,14 +49,18 @@ The fault paths (``alive`` / ``umask``, :func:`fault_sweep`) run over
 (:func:`fault_masks`), each against its masked plain version. Dead rows
 (and, for ``opt_step``, every row outside the update mask in mode
 "none", and the state planes' frozen rows) must equal their inputs bit
-for bit. A degraded-``W`` mix and the update are bitwise the plain
-versions (the same j-ordered sums). A masked (group) mean runs on the
-card as the mix ``A @ x`` with ``A = 1/n`` on the cohort's columns,
-while the plain version sums the n rows and divides once: each side is
-within (n + 1) float32 units of rounding of sum_j |x_j| / n of the
-exact mean, so alive rows are held within (2n + 2) * 2**-24 *
-sum_j |x_j| / n (``MEAN_ULPS``), plus one dtype ulp on coded columns
-and the one_bit bound above. Dispersions rtol 1e-5; two runs bitwise.
+for bit. ``opt_step`` and ``compressed_mix`` mask in their kernels: the
+update, the degraded-``W`` mix and the masked (group) mean (the alive
+rows summed in order and divided once, as the plain versions do) are
+bitwise the plain versions — one_bit within its bound above — and each
+call is one launch of its kernel (with a wire, one of each) and none of
+``mix_disp``. ``avg_disp`` and ``mix_disp`` still run a masked event as
+the mix ``A @ x`` with ``A = 1/n`` on the cohort's columns, while the
+plain version sums the n rows and divides once: each side is within
+(n + 1) float32 units of rounding of sum_j |x_j| / n of the exact mean,
+so their alive rows are held within (2n + 2) * 2**-24 * sum_j |x_j| / n
+(``MEAN_ULPS``); their degraded-``W`` mixes are bitwise. Dispersions
+rtol 1e-5; two runs bitwise.
 """
 from __future__ import annotations
 
@@ -66,7 +70,9 @@ import numpy as np
 import torch
 
 from repro_torch import faults, rng
-from repro_torch.core.compress import encode_decode, row_scales
+from repro_torch.core.compress import row_scales
+from repro_torch.kernels import avg_disp as _avg_mod
+from repro_torch.kernels import opt_step as _opt_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
                                           compressed_mix,
@@ -521,8 +527,9 @@ def sweep(dev) -> tuple[int, dict]:
 # ---- the fault paths --------------------------------------------------------
 
 #: float32 units of rounding per cohort row allowed between a masked mean
-#: run as the mix ``A @ x`` and the exact sum over n rows divided once:
-#: (MEAN_ULPS * n + MEAN_ULPS) * 2**-24 * sum_j |x_j| / n (module note)
+#: run as the mix ``A @ x`` (``avg_disp`` / ``mix_disp``) and the exact
+#: sum over n rows divided once: (MEAN_ULPS * n + MEAN_ULPS) * 2**-24 *
+#: sum_j |x_j| / n (module note)
 MEAN_ULPS = 2
 
 
@@ -623,39 +630,48 @@ def check_mix_disp_fault(name, x, W, alive) -> float:
     return err
 
 
-def _event_bounds(q, alive, mode, groups):
-    """The masked-mean bounds of a mean / group event on ``q``; None for
-    a mix (bitwise)."""
-    if mode == "mix":
-        return None
-    return mean_bounds(q, alive, groups if mode == "group" else 1)
+def _launch_counts() -> tuple:
+    """(opt_step, compressed_mix, mix_disp) launches so far."""
+    return (_opt_mod.opt_step.launches, _avg_mod.compressed_mix.launches,
+            _avg_mod.mix_disp.launches)
+
+
+def _held_launches(name, before, in_place, want) -> None:
+    """On the card's path (the call updated in place), the launches of
+    (opt_step, compressed_mix, mix_disp) since ``before`` equal
+    ``want``."""
+    if not in_place:
+        return
+    got = tuple(a - b for a, b in zip(_launch_counts(), before))
+    _require(got == want, f"{name}: launches (opt_step, compressed_mix, "
+             f"mix_disp) {got}, want {want}")
 
 
 def check_compressed_fault(name, x, r, alive, *, wire, mode, groups=1,
                            W=None, u=None, codes=None,
                            error_feedback=True) -> float:
     """``compressed_mix(alive=)`` twice on fresh copies (in place on the
-    card), plane and residual against ``compressed_mix_plain(alive=)``;
-    dead rows keep both. Returns the max abs error."""
+    card, one launch each), plane and residual against
+    ``compressed_mix_plain(alive=)``: dead rows keep both, alive rows
+    bitwise (one_bit within its bound). Returns the max abs error."""
     kw = dict(wire=wire, mode=mode, groups=groups, W=W, u=u, codes=codes,
               error_feedback=error_feedback, alive=alive)
     want_x, want_r, want_d = compressed_mix_plain(x, r, **kw)
     extra = _wire_bound(x + r if error_feedback else x, wire)
-    q = encode_decode(x, r, wire=wire, u=u,
-                      error_feedback=error_feedback)[0]
-    bounds = _event_bounds(q, alive, mode, groups)
-    del q
 
     def run():
         xk, rk = x.clone(), r.clone()
+        before = _launch_counts()
         out = compressed_mix(xk, rk, **kw)
-        _require((out[0] is xk and out[1] is rk) or not xk.is_cuda,
+        in_place = out[0] is xk and out[1] is rk
+        _require(in_place or not xk.is_cuda,
                  f"{name}: plane / residual not updated in place")
+        _held_launches(name, before, in_place, (0, 1, 0))
         return out
 
     got_x, got_r, got_d = run()
-    err = max(hold_rows(name, got_x, want_x, x, alive, bounds=bounds,
-                        extra=extra, codes=codes),
+    err = max(hold_rows(name, got_x, want_x, x, alive, extra=extra,
+                        codes=codes),
               hold_rows(f"{name}/resid", got_r, want_r, r, alive,
                         extra=extra))
     del want_x, want_r
@@ -668,46 +684,46 @@ def check_compressed_fault(name, x, r, alive, *, wire, mode, groups=1,
 
 def check_opt_step_fault(name, x, g, st, scal, codes, alive, umask, *,
                          resid=None, u=None, **kw) -> float:
-    """``opt_step(alive=, umask=)`` twice on fresh copies, against
+    """``opt_step(alive=, umask=)`` twice on fresh copies (on the card one
+    launch of ``opt_step.cu`` each, with a ``wire`` one of
+    ``compressed_mix.cu`` too, none of ``mix_disp.cu``), against
     ``opt_step_ref(alive=, umask=)``: the state planes bitwise (their
-    rows outside ``umask`` the inputs'), the plane's dead rows (every
-    row outside ``umask`` in mode "none") the inputs', its alive rows
-    bitwise or within the masked-mean bound of the event; with a
-    ``wire`` the residual too. Returns the max abs error."""
+    rows outside ``umask`` the inputs'), the plane's rows in neither
+    mask (in mode "none": outside ``umask``) the inputs', its other rows
+    bitwise (a one_bit wire: within its bound); with a ``wire`` the
+    residual too. Returns the max abs error."""
     wire, mode = kw.get("wire"), kw["mode"]
-    fkw = dict(codes=codes, alive=alive, umask=umask, resid=resid, u=u,
-               **kw)
-    want = ref.opt_step_ref(x, g, st, scal, **fkw)
-    hyp = {k: v for k, v in kw.items()
-           if k in ("kind", "mu", "nesterov", "b1", "b2", "eps",
-                    "weight_decay")}
-    extra, bounds = 0.0, None
-    if mode != "none":
+    want = ref.opt_step_ref(x, g, st, scal, codes=codes, alive=alive,
+                            umask=umask, resid=resid, u=u, **kw)
+    extra = 0.0
+    if wire is not None:
+        hyp = {k: v for k, v in kw.items()
+               if k in ("kind", "mu", "nesterov", "b1", "b2", "eps",
+                        "weight_decay")}
         upd = ref.opt_step_ref(x, g, st, scal, codes=codes, alive=alive,
                                umask=umask, **hyp)[0]
-        ef = kw.get("error_feedback", True)
-        q = upd
-        if wire is not None:
-            extra = _wire_bound(upd + resid if ef else upd, wire)
-            q = encode_decode(upd, resid, wire=wire, u=u,
-                              error_feedback=ef)[0]
-        bounds = _event_bounds(q, alive, mode, kw.get("groups", 1))
-        del upd, q
+        extra = _wire_bound(upd + resid if kw.get("error_feedback", True)
+                            else upd, wire)
+        del upd
+    kept = (faults.host_mask(umask) if mode == "none" else
+            np.maximum(faults.host_mask(alive), faults.host_mask(umask)))
 
     def run():
         xk, sk = x.clone(), tuple(s.clone() for s in st)
         rk = None if resid is None else resid.clone()
+        before = _launch_counts()
         out = opt_step(xk, g, sk, scal, codes=codes, alive=alive,
                        umask=umask, resid=rk, u=u, **kw)
-        _require((out[0] is xk and all(a is b for a, b in zip(out[1], sk)))
-                 or not xk.is_cuda,
+        in_place = out[0] is xk and all(a is b for a, b in zip(out[1], sk))
+        _require(in_place or not xk.is_cuda,
                  f"{name}: plane / state planes not updated in place")
+        _held_launches(name, before, in_place,
+                       (1, int(wire is not None), 0))
         return out
 
     got = run()
-    err = hold_rows(name, got[0], want[0], x,
-                    umask if mode == "none" else alive, bounds=bounds,
-                    extra=extra, codes=codes)
+    err = hold_rows(name, got[0], want[0], x, kept, extra=extra,
+                    codes=codes)
     for a, b, s0 in zip(got[1], want[1], st):
         hold_rows(f"{name}/state", a, b, s0, umask)
     if wire is not None:

@@ -1,8 +1,10 @@
 // Shared pieces of the (M, P) plane kernels: per-column dtype rounding,
 // a column loaded into registers with its mean and dispersion term, the
 // mixing matrix staged in shared memory and one row of its product, the
-// register-array size dispatch, the fixed-order block reduction of the
-// dispersion partials, and the fixed-order second pass that sums them.
+// same over the rows of a 64-bit row mask (the fault-degraded passes) with
+// the masked (group) means, the register-array size dispatch, the
+// fixed-order block reduction of the dispersion partials, and the
+// fixed-order second pass that sums them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,6 +60,36 @@ __device__ __forceinline__ float column_mean_dsq(const float (&u)[MAXM],
   return mean;
 }
 
+// Bit i of a 64-bit row mask: bit i is worker row i (the plane kernels
+// take at most 64 rows).
+__device__ __forceinline__ bool row_on(unsigned long long mask, int i) {
+  return (mask >> i) & 1ull;
+}
+
+// column_mean_dsq over the rows set in `alive` only: their sum in row
+// order from 0 divided once by n_alive, and their squared deviations
+// summed in the same order — the terms of faults.masked_dispersion.
+template <int MAXM>
+__device__ __forceinline__ float masked_column_mean_dsq(
+    const float (&u)[MAXM], int m, unsigned long long alive, float n_alive,
+    float* dsq) {
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXM; ++i)
+    if (i < m && row_on(alive, i)) sum += u[i];
+  const float mean = sum / n_alive;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXM; ++i) {
+    if (i < m && row_on(alive, i)) {
+      const float d = u[i] - mean;
+      acc += d * d;
+    }
+  }
+  *dsq = acc;
+  return mean;
+}
+
 // Copy the (m, m) mixing matrix into shared memory, then sync the block.
 // Every thread of the block must call it.
 __device__ __forceinline__ void stage_matrix(const float* __restrict__ w,
@@ -77,6 +109,53 @@ __device__ __forceinline__ float mix_row(const float (&u)[MAXM],
   for (int k = 0; k < MAXM; ++k)
     if (k < m) acc += sw[i * m + k] * u[k];
   return acc;
+}
+
+// mix_row over the rows set in `alive`: W[i, k] * u[k] for alive k only.
+// The plain version sums every k, but the degraded W
+// (faults.degraded_matrix) has W[i, k] = 0 for an alive i and a dead k,
+// and a term 0 * u[k] = +-0 (u finite) added to a sum that starts from
+// +0 never changes it (a sum of two floats is -0 only when both are), so
+// the two agree bitwise while a dead row's u[k] is neither read nor set.
+template <int MAXM>
+__device__ __forceinline__ float masked_mix_row(const float (&u)[MAXM],
+                                                const float* sw, int m,
+                                                int i,
+                                                unsigned long long alive) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < MAXM; ++k)
+    if (k < m && row_on(alive, k)) acc += sw[i * m + k] * u[k];
+  return acc;
+}
+
+// The masked (group) means of column j: for each group of gs contiguous
+// rows, its rows set in `alive` summed in row order from 0, divided once
+// by their count (IEEE), rounded through the code and written to those
+// rows of x only. A group without an alive row is left as it is. The
+// arithmetic of faults.masked_mean / masked_group_mean.
+template <int MAXM>
+__device__ __forceinline__ void write_masked_means(
+    const float (&u)[MAXM], int m, int gs, unsigned long long alive,
+    float code, float* __restrict__ x, int64_t p, int64_t j) {
+  for (int lo = 0; lo < m; lo += gs) {
+    const int hi = lo + gs;
+    float gsum = 0.0f;
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < MAXM; ++i) {
+      if (i >= lo && i < hi && row_on(alive, i)) {
+        gsum += u[i];
+        ++n;
+      }
+    }
+    if (n == 0) continue;
+    const float out = round_code(gsum / static_cast<float>(n), code);
+#pragma unroll
+    for (int i = 0; i < MAXM; ++i)
+      if (i >= lo && i < hi && row_on(alive, i))
+        x[static_cast<int64_t>(i) * p + j] = out;
+  }
 }
 
 // Call f(MaxM<N>{}) with the smallest register-array bound N in
@@ -113,8 +192,9 @@ __device__ __forceinline__ void block_partial(float v, float* dpart) {
   if (threadIdx.x == 0) dpart[blockIdx.x] = red[0];
 }
 
-// One block of kSumThreads: out[0] = (sum of the n partials) / m. Each
-// thread sums a fixed strided slice in double, then a fixed tree.
+// One block of kSumThreads: out[0] = (sum of the n partials) / m, m the
+// row count (the alive rows' under a mask). Each thread sums a fixed
+// strided slice in double, then a fixed tree.
 __global__ void sum_partials(const float* __restrict__ dpart, int64_t n,
                              float m, float* __restrict__ out) {
   __shared__ double red[kSumThreads];

@@ -18,14 +18,17 @@ updated plane and its residual in place — the update is written once
 and read by the event, never applied twice.
 
 ``alive`` / ``umask`` ((M,) 0/1, :mod:`repro_torch.faults`) run the
-fault-degraded pass as the reference's wrapper does: ``opt_step.cu`` in
-mode "none", the rows outside ``umask`` (dead and straggling workers)
-written back from copies saved before the in-place launch — params and
-state planes, k rows and not a plane — then the masked event of
-``repro_torch.kernels.avg_disp`` (``avg_disp`` / ``mix_disp`` /
-``compressed_mix`` with ``alive``, each one kernel launch), on a coded
-plane the alive rows rounded to their codes after the event, and the
-event's output copied back into the plane.
+fault-degraded pass in the kernel, as the reference's wrapper computes
+it: ONE launch of ``opt_step.cu``'s masked instantiation, in place, the
+masks passed as two 64-bit row words (no mask tensor on the card, no
+synchronisation). Rows outside ``umask`` (dead and straggling workers)
+are not stepped — their gradient and state are not read, their params
+and state not written — the dispersion is over the alive rows, modes
+"mean" / "group" write the exact masked (group) mean of the alive rows
+to the alive rows and mode "mix" the rows of
+``faults.degraded_matrix(W, alive)``. With a ``wire`` it is that launch
+in mode "none", then the masked compressed event of
+``csrc/compressed_mix.cu`` (one launch).
 """
 from __future__ import annotations
 
@@ -34,13 +37,8 @@ import torch
 from repro_torch import faults
 from repro_torch.kernels import _build
 from repro_torch.kernels.avg_disp import (_check_event, _check_mix,
-                                          _compressed_event, avg_disp,
-                                          compressed_mix, mix_disp)
-from repro_torch.kernels.ref import (_KINDS, _MODES, opt_step_ref,
-                                     round_to_codes)
-
-#: columns per chunk of the in-place rounding after a masked event
-_ROUND_COLS = 1 << 24
+                                          _compressed_event)
+from repro_torch.kernels.ref import _KINDS, _MODES, opt_step_ref
 
 _STATE_PLANES = {"sgd": 0, "momentum": 1, "adamw": 2}
 
@@ -93,11 +91,19 @@ def opt_step(plane, grads, planes, scalars, *, kind, mode="none",
     if plane.device.type == "cpu":
         return opt_step_ref(plane, grads, planes, scalars, alive=alive,
                             umask=umask, **kw)
-    if alive is not None:
-        return _fault_step(plane, grads, planes, scalars, alive,
-                           alive if umask is None else umask, **kw)
     if plane.device.type != "cuda":
         raise ValueError(f"opt_step runs on cpu or cuda, not {plane.device}")
+    return _card_step(plane, grads, planes, scalars, alive=alive,
+                      umask=umask, **kw)
+
+
+def _card_step(plane, grads, planes, scalars, *, kind, mode, groups, W,
+               codes, wire, resid, u, error_feedback, alive=None,
+               umask=None, **hyp):
+    """The pass on the card: one ``opt_step.cu`` launch, in place, then
+    the wire's compressed event; masked over ``alive`` / ``umask`` in
+    the kernels when given (module note)."""
+    m, p = plane.shape
     _build.check_workers("opt_step", m)
     _build.check_plane("opt_step", "plane", plane, plane)
     _build.check_plane("opt_step", "grads", grads, plane)
@@ -105,71 +111,59 @@ def opt_step(plane, grads, planes, scalars, *, kind, mode="none",
         _build.check_plane("opt_step", "state plane", s, plane)
     if codes is not None:
         _build.check_plane("opt_step", "codes", codes, plane[0])
-    if W is not None:
-        _build.check_matrix("opt_step", W, plane)
     # the wire path's event inputs, checked before the update runs in place
     for name, t in (("resid", resid), ("u", u)):
         if t is not None:
             _build.check_plane("opt_step", name, t, plane)
+    kmode = "none" if wire is not None else mode
+    kW = W if kmode == "mix" else None
+    masks = None
+    if alive is not None:
+        umask = alive if umask is None else umask
+        masks = (_build.row_bits("opt_step", alive, m),
+                 _build.row_bits("opt_step", umask, m))
+        if kW is not None:
+            kW = faults.degraded_matrix(kW, alive)
+    if kW is not None:
+        _build.check_matrix("opt_step", kW, plane)
     lr, c1, c2 = (float(v) for v in scalars.tolist()[:3])
     nblocks = -(-p // 256)
     dpart = torch.empty(nblocks, dtype=torch.float32, device=plane.device)
     disp = torch.empty((), dtype=torch.float32, device=plane.device)
-    s0 = planes[0].data_ptr() if planes else None
-    s1 = planes[1].data_ptr() if len(planes) > 1 else None
-    kmode = "none" if wire is not None else mode
-    lib = _build.library("opt_step")
-    with torch.cuda.device(plane.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.opt_step_launch(
-            plane.data_ptr(), grads.data_ptr(), s0, s1,
-            codes.data_ptr() if codes is not None else None,
-            W.data_ptr() if W is not None else None,
-            dpart.data_ptr(), disp.data_ptr(), m, p, _KINDS.index(kind),
-            _MODES.index(kmode), groups, lr, c1, c2, mu, int(nesterov),
-            b1, 1 - b1, b2, 1 - b2, eps, weight_decay, stream)
+    err = _launch(plane, grads, planes, codes, kW, dpart, disp, kind=kind,
+                  mode=kmode, groups=groups, lr=lr, c1=c1, c2=c2,
+                  masks=masks, **hyp)
     _build.check(err, "opt_step")
     opt_step.launches += 1
     if wire is None:
         return plane, tuple(planes), disp
     _compressed_event(plane, resid, wire=wire, mode=mode, groups=groups,
-                      W=W, u=u, codes=codes, error_feedback=error_feedback)
+                      W=W, u=u, codes=codes, error_feedback=error_feedback,
+                      alive=alive)
     return plane, tuple(planes), resid, disp
 
 
-def _fault_step(plane, grads, planes, scalars, alive, umask, *, kind, mode,
-                groups, W, codes, wire, resid, u, error_feedback, **hyp):
-    """The fault-degraded pass on the card (module note)."""
-    frozen = faults.rows_where(umask, on=False)
-    saved = [[t[i].clone() for t in (plane, *planes)] for i in frozen]
-    plane, planes, _ = opt_step(plane, grads, planes, scalars, kind=kind,
-                                codes=codes, **hyp)
-    for i, rows in zip(frozen, saved):
-        for t, row in zip((plane, *planes), rows):
-            t[i] = row
-    del saved  # not held through the event's new plane
-    if wire is not None:
-        plane, resid, disp = compressed_mix(
-            plane, resid, wire=wire, mode=mode, groups=groups, W=W, u=u,
-            codes=codes, error_feedback=error_feedback, alive=alive)
-        return plane, planes, resid, disp
-    if mode == "none":
-        return plane, planes, faults.masked_dispersion(plane, alive)
-    if mode == "mix":
-        out, disp = mix_disp(plane, W, alive=alive)
-    else:
-        out, disp = avg_disp(plane, groups=groups if mode == "group" else 1,
-                             alive=alive)
-    if codes is not None:
-        # the dead rows are the update's, already on their codes
-        for i in faults.rows_where(alive):
-            for c0 in range(0, out.shape[1], _ROUND_COLS):
-                seg = out[i, c0:c0 + _ROUND_COLS]
-                seg.copy_(round_to_codes(seg, codes[c0:c0 + _ROUND_COLS]))
-    # back into the plane, which stays the caller's one tensor: a new one
-    # each step would coexist with the plane its phase started from
-    plane.copy_(out)
-    return plane, planes, disp
+def _launch(plane, grads, planes, codes, W, dpart, disp, *, kind, mode,
+            groups, lr, c1, c2, masks, mu, nesterov, b1, b2, eps,
+            weight_decay) -> int:
+    """``opt_step_launch`` of ``csrc/opt_step.cu`` on the current stream:
+    ``masks`` None or the (alive, update) row words. Returns its
+    ``cudaError_t``."""
+    m, p = plane.shape
+    s0 = planes[0].data_ptr() if planes else None
+    s1 = planes[1].data_ptr() if len(planes) > 1 else None
+    alive_bits, update_bits = masks if masks is not None else (0, 0)
+    lib = _build.library("opt_step")
+    with torch.cuda.device(plane.device):
+        return lib.opt_step_launch(
+            plane.data_ptr(), grads.data_ptr(), s0, s1,
+            codes.data_ptr() if codes is not None else None,
+            W.data_ptr() if W is not None else None,
+            dpart.data_ptr(), disp.data_ptr(), m, p, _KINDS.index(kind),
+            _MODES.index(mode), groups, lr, c1, c2, mu, int(nesterov),
+            b1, 1 - b1, b2, 1 - b2, eps, weight_decay,
+            int(masks is not None), alive_bits, update_bits,
+            torch.cuda.current_stream().cuda_stream)
 
 
 #: opt_step.cu launches so far (the CPU plain path does not count; the

@@ -16,19 +16,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import rng
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
                                        rope_freqs)
 
 
-def init_attn(cfg: ModelConfig, gen, device="cpu"):
+def init_attn(cfg: ModelConfig, key, device="cpu"):
     d, dt = cfg.d_model, cdtype(cfg)
+    ks = rng.split(key, 4)
     return {
-        "wq": dense_init(gen, (d, cfg.q_dim), 0, dt, device),
-        "wk": dense_init(gen, (d, cfg.kv_dim), 0, dt, device),
-        "wv": dense_init(gen, (d, cfg.kv_dim), 0, dt, device),
-        "wo": dense_init(gen, (cfg.q_dim, d), 0, dt, device),
+        "wq": dense_init(ks[0], (d, cfg.q_dim), 0, dt, device),
+        "wk": dense_init(ks[1], (d, cfg.kv_dim), 0, dt, device),
+        "wv": dense_init(ks[2], (d, cfg.kv_dim), 0, dt, device),
+        "wo": dense_init(ks[3], (cfg.q_dim, d), 0, dt, device),
     }
 
 

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import rng
 from repro_torch.configs import ModelConfig
 
 
@@ -18,17 +19,16 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
-               dtype=torch.float32, device="cpu") -> torch.Tensor:
+def dense_init(key, shape, in_axis: int = 0, dtype=torch.float32,
+               device="cpu") -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) truncated to [-2, 2], times
-    1/sqrt(fan_in) — the reference's law, drawn from a torch generator
-    (not bit-identical to JAX's draws; parity tests convert JAX params
-    instead)."""
+    1/sqrt(fan_in) — the reference's draw from the same key
+    (:func:`repro_torch.rng.truncated_normal`), scaled in float32 and
+    cast to ``dtype``."""
     fan_in = shape[in_axis] if in_axis is not None else 1
-    std = 1.0 / math.sqrt(max(fan_in, 1))
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+    std = np.float32(1.0 / np.sqrt(max(fan_in, 1)))
+    t = rng.truncated_normal(key, -2.0, 2.0, shape, device=device)
+    return t.mul_(float(std)).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -75,13 +75,14 @@ def activate(cfg: ModelConfig, x):
     raise ValueError(cfg.act)
 
 
-def init_mlp(cfg: ModelConfig, gen, device="cpu", d_ff: int | None = None):
+def init_mlp(cfg: ModelConfig, key, device="cpu", d_ff: int | None = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cdtype(cfg)
-    p = {"w_in": dense_init(gen, (d, f), 0, dt, device),
-         "w_out": dense_init(gen, (f, d), 0, dt, device)}
+    ks = rng.split(key, 3)
+    p = {"w_in": dense_init(ks[0], (d, f), 0, dt, device),
+         "w_out": dense_init(ks[1], (f, d), 0, dt, device)}
     if cfg.gated_mlp:
-        p["w_gate"] = dense_init(gen, (d, f), 0, dt, device)
+        p["w_gate"] = dense_init(ks[2], (d, f), 0, dt, device)
     return p
 
 
@@ -98,16 +99,17 @@ def apply_mlp(cfg: ModelConfig, p, x):
 # Embedding / unembedding (padded vocab, see ModelConfig.padded_vocab)
 # --------------------------------------------------------------------------
 
-def init_embed(cfg: ModelConfig, gen, device="cpu"):
+def init_embed(cfg: ModelConfig, key, device="cpu"):
     """The token table (V, d), and an untied unembedding (d, V) where the
     config unties them."""
     if cfg.pos_emb == "learned":
         raise NotImplementedError(
             "learned-position embeddings are not ported yet")
-    p = {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model), 1,
+    ks = rng.split(key, 3)
+    p = {"tok": dense_init(ks[0], (cfg.padded_vocab, cfg.d_model), 1,
                            cdtype(cfg), device)}
     if not cfg.tie_embeddings:
-        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), 0,
+        p["unembed"] = dense_init(ks[1], (cfg.d_model, cfg.padded_vocab), 0,
                                   cdtype(cfg), device)
     return p
 

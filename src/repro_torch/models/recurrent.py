@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import rng
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import rglru_scan as rglru_kernel
 from repro_torch.models.layers import cdtype, dense_init
@@ -29,23 +30,24 @@ from repro_torch.models.scan import associative_scan
 _C = 8.0
 
 
-def init_rglru(cfg: ModelConfig, gen, device="cpu"):
+def init_rglru(cfg: ModelConfig, key, device="cpu"):
     d, w, h = cfg.d_model, cfg.rnn_width or cfg.d_model, cfg.num_heads
     bw = w // h  # block size of the block-diagonal gates
     dt = cdtype(cfg)
+    ks = rng.split(key, 7)
     p = {
-        "w_gate": dense_init(gen, (d, w), 0, dt, device),
-        "w_x": dense_init(gen, (d, w), 0, dt, device),
-        "conv": dense_init(gen, (cfg.conv_width, w), 0, dt, device),
+        "w_gate": dense_init(ks[0], (d, w), 0, dt, device),
+        "w_x": dense_init(ks[1], (d, w), 0, dt, device),
+        "conv": dense_init(ks[2], (cfg.conv_width, w), 0, dt, device),
         "conv_b": torch.zeros((w,), dtype=dt, device=device),
-        "wa": dense_init(gen, (h, bw, bw), 1, dt, device),
-        "wi": dense_init(gen, (h, bw, bw), 1, dt, device),
+        "wa": dense_init(ks[3], (h, bw, bw), 1, dt, device),
+        "wi": dense_init(ks[4], (h, bw, bw), 1, dt, device),
     }
     # Lambda so that a ~ Uniform(0.9, 0.999) at r = 1 (Griffin appendix),
     # kept in float32 in a bf16 model, as the reference keeps it
-    u = torch.empty((w,), device=device).uniform_(0.9, 0.999, generator=gen)
+    u = rng.uniform(ks[5], (w,), minval=0.9, maxval=0.999, device=device)
     p["lam"] = torch.log(torch.expm1(-torch.log(u) / _C))
-    p["w_out"] = dense_init(gen, (w, d), 0, dt, device)
+    p["w_out"] = dense_init(ks[6], (w, d), 0, dt, device)
     return p
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import rng
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import rwkv6_scan as wkv_kernel
 from repro_torch.models.layers import cdtype, dense_init
@@ -31,7 +32,7 @@ CHUNK = 16
 LOG_W_MIN = -5.0
 
 
-def init_rwkv(cfg: ModelConfig, gen, device="cpu"):
+def init_rwkv(cfg: ModelConfig, key, device="cpu"):
     """Time-mix params in the config's dtype; ``w0``, ``u`` and ``ln_out``
     in float32, as the reference keeps them."""
     d = cfg.d_model
@@ -41,16 +42,17 @@ def init_rwkv(cfg: ModelConfig, gen, device="cpu"):
     def half():
         return torch.full((d,), 0.5, dtype=dt, device=device)
 
+    ks = rng.split(key, 10)
     p = {"mu_r": half(), "mu_k": half(), "mu_v": half(), "mu_w": half(),
          "mu_g": half()}
-    for name in ("wr", "wk", "wv", "wg", "wo"):
-        p[name] = dense_init(gen, (d, d), 0, dt, device)
+    for k, name in enumerate(("wr", "wk", "wv", "wg", "wo")):
+        p[name] = dense_init(ks[k], (d, d), 0, dt, device)
     # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
     ramp = torch.arange(d, dtype=torch.float32, device=device) / max(d - 1, 1)
     p["w0"] = -6.0 + 8.0 * ramp ** 3
-    p["wA"] = dense_init(gen, (d, lora), 0, dt, device)
-    p["wB"] = dense_init(gen, (lora, d), 0, dt, device)
-    p["u"] = dense_init(gen, (d,), None, torch.float32, device)  # bonus
+    p["wA"] = dense_init(ks[5], (d, lora), 0, dt, device)
+    p["wB"] = dense_init(ks[6], (lora, d), 0, dt, device)
+    p["u"] = dense_init(ks[7], (d,), None, torch.float32, device)  # bonus
     p["ln_out"] = torch.ones((d,), dtype=torch.float32, device=device)
     return p
 
@@ -182,12 +184,13 @@ def apply_rwkv(cfg: ModelConfig, p, x, *, impl="plain", return_state=False):
 
 # ---- channel mix ----------------------------------------------------------
 
-def init_rwkv_cmix(cfg: ModelConfig, gen, device="cpu"):
+def init_rwkv_cmix(cfg: ModelConfig, key, device="cpu"):
     d, f = cfg.d_model, cfg.d_ff
     dt = cdtype(cfg)
+    ks = rng.split(key, 2)
     return {"mu_k": torch.full((d,), 0.5, dtype=dt, device=device),
-            "wk": dense_init(gen, (d, f), 0, dt, device),
-            "wv": dense_init(gen, (f, d), 0, dt, device)}
+            "wk": dense_init(ks[0], (d, f), 0, dt, device),
+            "wv": dense_init(ks[1], (f, d), 0, dt, device)}
 
 
 def apply_rwkv_cmix(cfg: ModelConfig, p, x, prev=None):

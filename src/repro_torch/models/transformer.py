@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import rng
 from repro_torch.configs import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -38,33 +39,38 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError("encoder / media stacks are not ported")
 
 
-def _init_block(cfg: ModelConfig, spec: LayerSpec, gen, device):
+def _init_block(cfg: ModelConfig, spec: LayerSpec, key, device):
+    # the reference's four keys: mixer, cross-attention (not ported), FFN
+    ks = rng.split(key, 4)
     p = {"norm1": L.init_norm(cfg, device)}
     if spec.mixer == "rglru":
-        p["mixer"] = rec_mod.init_rglru(cfg, gen, device)
+        p["mixer"] = rec_mod.init_rglru(cfg, ks[0], device)
     elif spec.mixer == "rwkv":
-        p["mixer"] = rwkv_mod.init_rwkv(cfg, gen, device)
+        p["mixer"] = rwkv_mod.init_rwkv(cfg, ks[0], device)
     else:
-        p["mixer"] = attn_mod.init_attn(cfg, gen, device)
+        p["mixer"] = attn_mod.init_attn(cfg, ks[0], device)
     p["norm2"] = L.init_norm(cfg, device)
     if spec.ffn == "rwkv_cmix":
-        p["ffn"] = rwkv_mod.init_rwkv_cmix(cfg, gen, device)
+        p["ffn"] = rwkv_mod.init_rwkv_cmix(cfg, ks[2], device)
     else:
-        p["ffn"] = L.init_mlp(cfg, gen, device)
+        p["ffn"] = L.init_mlp(cfg, ks[2], device)
     return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     """Random params in the config's dtype (RG-LRU ``lam``, RWKV ``w0``,
-    ``u`` and ``ln_out`` in float32),
-    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    ``u`` and ``ln_out`` in float32) on ``device``: the reference's
+    ``init_params(cfg, PRNGKey(seed))``, split for split, drawn with
+    :mod:`repro_torch.rng` (within a few float32 ulps of its draws)."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    ks = rng.split(rng.PRNGKey(seed), cfg.num_layers + cfg.encoder_layers
+                   + 2)
     return {
-        "embed": L.init_embed(cfg, gen, dev),
+        "embed": L.init_embed(cfg, ks[0], dev),
         "final_norm": L.init_norm(cfg, dev),
-        "layers": [_init_block(cfg, spec, gen, dev) for spec in cfg.layers],
+        "layers": [_init_block(cfg, spec, ks[1 + i], dev)
+                   for i, spec in enumerate(cfg.layers)],
     }
 
 

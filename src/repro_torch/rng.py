@@ -12,11 +12,17 @@ it needs the same bits, so this module re-implements the pieces of
   fold_in(key, d)      -> threefry(key, (0, d))
   random_bits(key, s)  -> b1 ^ b2 of threefry(key, (0, i)), i the flat
                           index (the partitionable counter layout)
-  uniform(key, s)      -> bits >> 9 | 0x3F800000 as float32, minus 1
+  uniform(key, s)      -> bits >> 9 | 0x3F800000 as float32, minus 1;
+                          on [lo, hi): that * (hi - lo) + lo, then
+                          max(lo, .)
   bernoulli(key, p, s) -> uniform(key, s) < float32(p)
   normal(key, s)       -> sqrt(2) * erfinv(u), u the uniform mapped onto
                           [nextafter(-1, 0), 1) as ``jax.random.uniform``
                           maps it, erfinv XLA's float32 polynomial
+  truncated_normal(key, lo, hi, s)
+                       -> sqrt(2) * erfinv(u), u uniform on
+                          [erf(lo / sqrt 2), erf(hi / sqrt 2)), clipped
+                          inside (lo, hi) (the model inits' law)
   permutation(key, n)  -> sort-keyed shuffle of arange(n): rounds of
                           (key, sub = split(key); stable sort by
                           random_bits(sub, (n,)))
@@ -125,9 +131,25 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key, shape=(), *, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, jnp.float32)`` on [0, 1)."""
-    return bits_to_uniform(random_bits(key, shape, device=device))
+def _on_range(u: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """``jax.random.uniform``'s map of a [0, 1) float32 draw onto
+    [minval, maxval): ``u * (maxval - minval) + minval`` (the bounds
+    rounded to float32 first, their difference taken in float32), then
+    ``max(minval, .)``. XLA contracts the multiply-add into one fused
+    operation: it is taken in float64, where the product is exact, and
+    rounded to float32 once."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    v = (u.double() * float(hi - lo) + float(lo)).float()
+    return torch.clamp_min(v, float(lo))
+
+
+def uniform(key, shape=(), *, minval=0.0, maxval=1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``."""
+    u = bits_to_uniform(random_bits(key, shape, device=device))
+    if (minval, maxval) == (0.0, 1.0):
+        return u  # u * 1 + 0, then max(0, .), is u itself
+    return _on_range(u, minval, maxval)
 
 
 def bernoulli(key, p: float, shape=()) -> torch.Tensor:
@@ -177,6 +199,52 @@ def normal(key, shape=(), *, device=None) -> torch.Tensor:
     u = uniform(key, shape, device=device) * float(span) + float(lo)
     u = torch.clamp_min(u, float(lo))
     return _erfinv32(u) * float(np.float32(np.sqrt(2)))
+
+
+#: float32 erf(-2 / sqrt(2)) and erf(2 / sqrt(2)) as
+#: ``jax.random.truncated_normal`` computes them for the bounds the model
+#: inits take (-2, 2): XLA's float32 erf of float32(-2) / float32(sqrt 2)
+#: under jax 0.9.0 on the CPU, read off as float32 bit patterns
+_ERF_AT = {-2.0: float(np.uint32(0xBF745A18).view(np.float32)),
+           2.0: float(np.uint32(0x3F745A18).view(np.float32))}
+#: draws per chunk of :func:`truncated_normal`: its int64 threefry and
+#: float64 erfinv temporaries stay near 3 GB at any shape
+_DRAW_CHUNK = 1 << 25
+
+
+def _erf32(v: float) -> float:
+    """XLA's float32 erf(v / sqrt 2) for a bound of :data:`_ERF_AT`."""
+    if float(v) not in _ERF_AT:
+        raise ValueError(f"truncated_normal takes the bounds "
+                         f"{sorted(_ERF_AT)}, whose erf constants are "
+                         f"jax's; got {v}")
+    return _ERF_AT[float(v)]
+
+
+def truncated_normal(key, lower, upper, shape, *,
+                     device=None) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` in
+    float32, step by step as jax 0.9.0 computes it: ``a = erf(lower /
+    sqrt 2)`` and ``b = erf(upper / sqrt 2)`` (float32 constants), a
+    uniform on [a, b) from the same threefry bits as
+    ``jax.random.uniform(minval=a, maxval=b)``, ``sqrt(2) * erfinv(u)``
+    with XLA's float32 erfinv (:func:`normal`'s), clipped to
+    ``(nextafter(lower, +inf), nextafter(upper, -inf))``. Drawn in
+    chunks of the flat counter range (``random_bits(..., start=)``), so
+    the temporaries stay bounded whatever the shape. The bounds are
+    those of :data:`_ERF_AT` (the inits' -2, 2)."""
+    a, b = _erf32(lower), _erf32(upper)
+    lo = float(np.nextafter(np.float32(lower), np.float32(np.inf)))
+    hi = float(np.nextafter(np.float32(upper), np.float32(-np.inf)))
+    sqrt2 = float(np.float32(np.sqrt(2)))
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for s in range(0, n, _DRAW_CHUNK):
+        c = min(_DRAW_CHUNK, n - s)
+        u = _on_range(bits_to_uniform(random_bits(key, (c,), device=device,
+                                                  start=s)), a, b)
+        out[s:s + c] = torch.clamp(_erfinv32(u) * sqrt2, lo, hi)
+    return out.reshape(shape)
 
 
 def permutation(key, n: int) -> torch.Tensor:

@@ -356,8 +356,8 @@ def test_compressed_fault_matches_plain(dev, wire, mode, mask, shape):
 @pytest.mark.parametrize("codes", [None, "mixed"], ids=["f32", "codes"])
 @pytest.mark.parametrize("mode", ["none", "mean", "group", "mix"])
 def test_opt_step_fault_matches_plain(dev, mode, codes, mask, shape):
-    """One opt_step launch in mode none per call, then the masked event's
-    one mix_disp launch."""
+    """One masked opt_step launch per call in every mode, the event in
+    the kernel: no mix_disp launch."""
     m, p, groups = shape
     alive, umask = cc.fault_masks(m)[mask]
     x, g, st, scal, cd = cc.make_inputs(dev, m, p, "momentum", codes,
@@ -368,7 +368,25 @@ def test_opt_step_fault_matches_plain(dev, mode, codes, mask, shape):
         mode=mode, groups=groups if mode == "group" else 1,
         W=cc.mixing_matrix("ring", m, dev) if mode == "mix" else None)
     assert opt_step.launches == n0 + 2
-    assert mix_disp.launches == x0 + (0 if mode == "none" else 2)
+    assert mix_disp.launches == x0
+
+
+@pytest.mark.parametrize("mode", ["none", "mean", "group", "mix", "wire"])
+def test_opt_step_fault_solo_rows_keep_their_step(dev, mode):
+    """A row in the update mask and outside the event's cohort (a
+    rejoining worker's solo window) takes its step and keeps it."""
+    alive = np.array([1, 0, 1, 0, 1, 1, 1, 1], np.float32)
+    umask = np.array([0, 0, 1, 1, 1, 1, 1, 1], np.float32)
+    x, g, st, scal, cd = cc.make_inputs(dev, 8, 5003, "momentum", "mixed",
+                                        seed=12)
+    r, _ = cc.wire_inputs(dev, 8, 5003, seed=12)
+    mix = mode in ("mix", "wire")
+    kw = dict(kind="momentum", mu=0.9, mode="mix" if mix else mode,
+              groups=4 if mode == "group" else 1,
+              W=cc.mixing_matrix("ring", 8, dev) if mix else None)
+    if mode == "wire":
+        kw.update(wire="one_bit", resid=r)
+    cc.check_opt_step_fault(mode, x, g, st, scal, cd, alive, umask, **kw)
 
 
 @pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)

@@ -21,10 +21,12 @@ reference's engine, the same numpy draws fed to both.
   (2n + 2) float32 roundings of sum |x| / n of the exact one, under 1e-6
   at these magnitudes and M <= 8) and one dtype ulp on coded columns;
   dispersions rtol 1e-5.
-- The card paths' logic on CPU tensors (``TestCardPathsOnCpu``: the
-  matrix mean, rows saved and written back around in-place launches,
-  each launch replaced by its plain version) held by
-  ``card_check.fault_sweep``'s criteria.
+- The card paths' logic on CPU tensors (``TestCardPathsOnCpu``: the row
+  words, the degraded W and one launch per call, each ctypes caller
+  replaced by a torch emulation of its kernel's masked column pass; the
+  matrix mean of ``avg_disp`` / ``mix_disp``) held by
+  ``card_check.fault_sweep``'s criteria; rows in a solo window keep
+  their step; ``_build.row_bits``' bit order and refusals.
 - The engine under ``crash:m=1@t=6,rejoin:m=1@t=14`` with straggles
   (0.1) over all seven schedules, a ring, int8, rejoin curricula,
   straggle-aware schedules and a bf16 weight: decisions, ``averages``,
@@ -34,6 +36,8 @@ reference's engine, the same numpy draws fed to both.
   dispersion rtol 1e-4. An all-alive plan is the no-fault engine bit for
   bit, and ``run_host`` is ``run`` bit for bit under faults.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -61,7 +65,9 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import AveragingSchedule, PhaseEngine  # noqa: E402
 from repro_torch.core.averaging import OuterOptimizer  # noqa: E402
 from repro_torch.core.compress import Compression  # noqa: E402
+from repro_torch.core.compress import encode_decode  # noqa: E402
 from repro_torch.data import convex_dataset  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import avg_disp as pad  # noqa: E402
 from repro_torch.kernels import card_check as cc  # noqa: E402
 from repro_torch.kernels import opt_step as pos  # noqa: E402
@@ -502,12 +508,124 @@ class TestFaultWrappers:
                                 mode="mean", wire="one_bit")
 
 
+def _bit_rows(bits, m) -> list:
+    """The rows set in a kernel's 64-bit row word."""
+    return [i for i in range(m) if bits >> i & 1]
+
+
+def _masked_disp(u, alive):
+    """The column pass's Eq. 4 term over the alive rows (their sum in
+    row order from 0, divided once by their count; the squared
+    deviations summed in the same order), its partials summed in double
+    and divided by the count."""
+    n = torch.tensor(float(len(alive)))
+    s = torch.zeros_like(u[alive[0]])
+    for i in alive:
+        s += u[i]
+    mean = s / n
+    dsq = torch.zeros_like(mean)
+    for i in alive:
+        d = u[i] - mean
+        dsq += d * d
+    return dsq.double().sum().float() / n
+
+
+def _write_event(plane, u, alive, mode, groups, W, codes):
+    """The masked event of the column pass, into the alive rows only:
+    ``W`` (the degraded one) over the alive columns in order, or the
+    alive rows of each group summed in order and divided once."""
+    m = plane.shape[0]
+
+    def rounded(v):
+        return v if codes is None else pref.round_to_codes(v, codes)
+
+    if mode == "mix":
+        for i in alive:
+            acc = torch.zeros_like(plane[0])
+            for k in alive:
+                acc += W[i, k] * u[k]
+            plane[i] = rounded(acc)
+        return
+    gs = m // groups if mode == "group" else m
+    for lo in range(0, m, gs):
+        rows = [i for i in alive if lo <= i < lo + gs]
+        if not rows:
+            continue
+        s = torch.zeros_like(plane[0])
+        for i in rows:
+            s += u[i]
+        out = rounded(s / torch.tensor(float(len(rows))))
+        for i in rows:
+            plane[i] = out
+
+
+def _emulated_opt_step_cu(plane, grads, planes, codes, W, dpart, disp, *,
+                          kind, mode, groups, lr, c1, c2, masks, **hyp):
+    """``opt_step_launch`` in torch on CPU tensors, in place: the masked
+    instantiation's rows from the two row words (the unmasked one's: all
+    rows), only the update rows stepped (their g and state read and
+    written), the old x of the other alive rows, the dispersion over the
+    alive rows, the event into the alive rows, and no write to a row in
+    neither word."""
+    m = plane.shape[0]
+    everyone = (1 << m) - 1
+    alive_b, update_b = masks if masks is not None else (everyone, everyone)
+    alive, update = _bit_rows(alive_b, m), _bit_rows(update_b, m)
+    u = {}
+    if update:
+        idx = torch.tensor(update)
+        upd, st = pref.plane_update_ref(
+            plane[idx], grads[idx], tuple(s[idx] for s in planes),
+            torch.tensor([lr, c1, c2, 0.0]), kind=kind, codes=codes, **hyp)
+        for k, i in enumerate(update):
+            u[i] = upd[k]
+            for s, n in zip(planes, st):
+                s[i] = n[k]
+    for i in alive:
+        u.setdefault(i, plane[i].clone())
+    disp.copy_(_masked_disp(u, alive))
+    for i in update:
+        if mode == "none" or i not in alive:
+            plane[i] = u[i]
+    if mode != "none":
+        _write_event(plane, u, alive, mode, groups, W, codes)
+    return 0
+
+
+def _emulated_compressed_mix_cu(plane, resid, u, codes, W, rowpart, scales,
+                                dpart, disp, *, wire, mode, groups,
+                                error_feedback, alive_bits):
+    """``compressed_mix_launch`` in torch on CPU tensors, in place: the
+    alive rows (all rows unmasked) encoded with their residuals, the
+    pre-encode dispersion over them, the event of their decoded rows into
+    them; a dead row neither read nor written."""
+    m = plane.shape[0]
+    alive = _bit_rows((1 << m) - 1 if alive_bits is None else alive_bits, m)
+    idx = torch.tensor(alive)
+    disp.copy_(_masked_disp({i: plane[i] for i in alive}, alive))
+    q, r = encode_decode(plane[idx], resid[idx], wire=wire,
+                         u=None if u is None else u[idx],
+                         error_feedback=error_feedback)
+    for k, i in enumerate(alive):
+        resid[i] = r[k]
+    _write_event(plane, dict(zip(alive, q)), alive, mode, groups, W, codes)
+    return 0
+
+
+#: opt_step's keyword defaults, which the card step takes explicitly
+_OPT_DEFAULTS = {k: v.default for k, v in
+                 inspect.signature(pos.opt_step).parameters.items()
+                 if v.default is not inspect.Parameter.empty}
+
+
 class TestCardPathsOnCpu:
-    """The fault paths' card-side logic — the masked mean as the mix
-    ``A @ x``, the degraded W, rows saved before an in-place launch and
-    written back — on CPU tensors, each launch replaced by its plain
-    version acting in place, held by ``card_check.fault_sweep`` (the
-    card's criteria) to the exact masked plain versions."""
+    """The fault paths' card-side logic on CPU tensors: ``opt_step`` and
+    ``compressed_mix`` reach their kernels' ctypes callers through the
+    card path (row words, the degraded W, one launch each), each caller
+    replaced by a torch emulation of its masked column pass; ``avg_disp``
+    and ``mix_disp`` run their masked event as the mix ``A @ x`` (plain).
+    Held by ``card_check.fault_sweep``'s criteria (the card's) to the
+    exact masked plain versions."""
 
     @pytest.fixture
     def card(self, monkeypatch):
@@ -524,36 +642,21 @@ class TestCardPathsOnCpu:
             return pad._masked_mix(plane, pf.degraded_matrix(W, alive),
                                    alive)
 
-        def compressed(plane, resid, *, alive=None, mode="mean", groups=1,
-                       W=None, **kw):
-            if alive is None:
-                return pad.compressed_mix(plane, resid, mode=mode,
-                                          groups=groups, W=W, **kw)
-            return pad._masked_compressed(plane, resid, alive, mode=mode,
-                                          groups=groups, W=W, **kw)
+        def compressed(plane, resid, *, mode="mean", groups=1, W=None,
+                       **kw):
+            return plane, resid, pad._compressed_event(
+                plane, resid, mode=mode, groups=groups, W=W, **kw)
 
-        def launch(plane, resid, **kw):  # compressed_mix.cu, in place
-            out, r, disp = pad.compressed_mix_plain(plane, resid, **kw)
-            plane.copy_(out)
-            resid.copy_(r)
-            return disp
+        def opt(plane, grads, planes, scalars, **kw):
+            return pos._card_step(plane, grads, planes, scalars,
+                                  **{**_OPT_DEFAULTS, **kw})
 
-        def opt(plane, grads, planes, scalars, *, alive=None, umask=None,
-                **kw):
-            if alive is None:
-                return pos.opt_step(plane, grads, planes, scalars, **kw)
-            full = dict(mode="none", groups=1, W=None, codes=None,
-                        wire=None, resid=None, u=None, error_feedback=True)
-            full.update(kw)
-            return pos._fault_step(plane, grads, planes, scalars, alive,
-                                   alive if umask is None else umask, **full)
-
-        monkeypatch.setattr(pad, "_compressed_event", launch)
-        for mod in (pos, cc):
-            monkeypatch.setattr(mod, "avg_disp", avg)
-            monkeypatch.setattr(mod, "mix_disp", mix)
-            monkeypatch.setattr(mod, "compressed_mix", compressed)
-        monkeypatch.setattr(cc, "opt_step", opt)
+        monkeypatch.setattr(pos, "_launch", _emulated_opt_step_cu)
+        monkeypatch.setattr(pad, "_compressed_launch",
+                            _emulated_compressed_mix_cu)
+        for name, fn in (("avg_disp", avg), ("mix_disp", mix),
+                         ("compressed_mix", compressed), ("opt_step", opt)):
+            monkeypatch.setattr(cc, name, fn)
 
     @pytest.mark.parametrize("shape", [(4, 1001, 2), (8, 503, 4),
                                        (24, 257, 4)],
@@ -561,11 +664,61 @@ class TestCardPathsOnCpu:
     def test_fault_sweep_holds_the_card_logic(self, card, shape,
                                               monkeypatch):
         monkeypatch.setattr(cc, "COMM_SHAPES", [shape])
+        n0 = cc._launch_counts()
         n, err = cc.fault_sweep(torch.device("cpu"))
         assert n == 3 * 31
-        # the masked means differ from the exact ones by rounding
+        # the matrix means differ from the exact ones by rounding; the
+        # kernels' masked passes are bitwise (their launches checked
+        # case by case: one each, none of mix_disp)
         assert 0.0 < err["avg_disp"] < 1e-5
         assert err["mix_disp"] == 0.0
+        assert err["opt_step"] == 0.0 and err["compressed_mix"] == 0.0
+        # two runs of each of 3 masks x (16 opt_step cases and 3 wire
+        # cases; 9 compressed events and those 3)
+        launched = [a - b for a, b in zip(cc._launch_counts(), n0)]
+        assert launched == [2 * 3 * 19, 2 * 3 * 12, 0]
+
+    @pytest.mark.parametrize("mode", ["none", "mean", "group", "mix",
+                                      "wire"])
+    def test_solo_rows_keep_their_step(self, card, mode):
+        """A rejoining row inside its solo window is in the update mask
+        and outside the event's cohort: it takes its step and keeps it."""
+        alive = np.array([1, 0, 1, 0, 1, 1, 1, 1], np.float32)
+        umask = np.array([0, 0, 1, 1, 1, 1, 1, 1], np.float32)
+        x, g, st, scal, cd, r, u = _plane_inputs(8, 333, "momentum",
+                                                 "mixed", seed=12)
+        W = ptopo.Topology.ring(8).mixing_matrix()
+        kw = dict(kind="momentum", mu=0.9,
+                  mode="mix" if mode in ("mix", "wire") else mode,
+                  groups=4 if mode == "group" else 1,
+                  W=W if mode in ("mix", "wire") else None)
+        if mode == "wire":
+            kw.update(wire="one_bit", resid=r)
+        assert cc.check_opt_step_fault(mode, x, g, st, scal, cd, alive,
+                                       umask, **kw) == 0.0
+
+
+class TestRowBits:
+    """``_build.row_bits``: the row word the masked kernels take."""
+
+    def test_bit_i_is_row_i(self):
+        assert _build.row_bits("t", [1, 0, 1, 1], 4) == 0b1101
+        assert _build.row_bits("t", np.float32([0, 0, 0, 1, 0]), 5) == 8
+        assert _build.row_bits("t", torch.tensor([1.0, 0.0]), 2) == 1
+        assert _build.row_bits("t", np.zeros(3), 3) == 0
+
+    def test_sixty_four_rows(self):
+        assert _build.row_bits("t", np.ones(64), 64) == 2 ** 64 - 1
+        last = np.zeros(64)
+        last[63] = 1.0
+        assert _build.row_bits("t", last, 64) == 1 << 63
+
+    @pytest.mark.parametrize("mask,m", [([1, 0.5, 1], 3), ([1, 2, 0], 3),
+                                        ([1, -1], 2), ([1, 1, 1], 4),
+                                        (np.ones(65), 65)])
+    def test_refuses_other_values_lengths_and_rows(self, mask, m):
+        with pytest.raises(ValueError):
+            _build.row_bits("t", mask, m)
 
 
 # ---- the engine -------------------------------------------------------------

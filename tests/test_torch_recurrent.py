@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from conftest import reduced_f32  # noqa: E402
 from repro.models import recurrent as jax_rec  # noqa: E402
 from repro_torch import configs as port_configs  # noqa: E402
+from repro_torch import rng  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
@@ -108,8 +109,7 @@ def test_prefill_state_continues_into_decode(setup):
 def test_init_rglru_law_and_layout(setup):
     jcfg, pcfg, p, _ = setup
     bf = port_configs.get_config("recurrentgemma-2b", reduced=True)
-    gen = torch.Generator().manual_seed(0)
-    mine = rec.init_rglru(bf, gen)
+    mine = rec.init_rglru(bf, rng.PRNGKey(0))
     assert set(mine) == set(p)
     for k, v in mine.items():
         assert tuple(v.shape) == p[k].shape, k

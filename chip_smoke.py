@@ -15,9 +15,12 @@ Phases, each printing one JSON line:
   2. kernels vs plain: ``opt_step`` (modes none / mean / group / mix and
      the wire path), ``avg_disp``, ``mix_disp``, ``avg_disp_outer`` and
      ``compressed_mix`` against their plain PyTorch versions over the
-     sweep of ``repro_torch.kernels.card_check`` and at full width (M=4
-     workers x P=361,821,120, smollm-360m), bitwise reproducible across
-     two runs, timed with CUDA events beside their memory bound; then
+     sweep of ``repro_torch.kernels.card_check`` (``avg_disp`` and
+     ``mix_disp`` also with bf16 and mixed rounding codes, bitwise) and
+     at full width (M=4 workers x P=361,821,120, smollm-360m; the coded
+     ``avg_disp`` mean and ``mix_disp`` ring mix of the LM plane too),
+     bitwise reproducible across two runs, timed with CUDA events beside
+     their memory bound; then
      ``flash_attention``, ``rglru_scan`` and ``rwkv6_scan`` over
      card_check's serving sweep (the JAX suite's shapes in float32 and
      bfloat16, and the serving shapes) and timed at the serving shapes
@@ -27,10 +30,12 @@ Phases, each printing one JSON line:
      ``rwkv6_scan`` is held to the recurrence evaluated in float64, its
      error reported beside the float32 plain version's own;
   3. the main path at full width: ``repro_torch.launch.train`` trains
-     smollm-360m (bf16, 4 workers, Momentum) — periodic K=2, minibatch,
-     minibatch over a ring (``opt_step`` mode mix), periodic K=2 over a
-     ring with the one_bit wire (``compressed_mix``), and minibatch with
-     the bf16 wire (the ``opt_step`` wire path);
+     smollm-360m (bf16, 4 workers, Momentum) — periodic K=2 (the coded
+     mean in ``avg_disp``), periodic K=2 over a ring (the coded mix in
+     ``mix_disp``), minibatch, minibatch over a ring (``opt_step`` mode
+     mix), periodic K=2 over a ring with the one_bit wire
+     (``compressed_mix``), and minibatch with the bf16 wire (the
+     ``opt_step`` wire path);
   4. the f32 path: the paper's least-squares ``synth-ls-sparse-highrho``
      (4096 x 1024, 24 workers, SGD on lr0 / (t - 1 + d)), its batches
      gathered on the card from a ``DeviceDataset`` index list, its loss
@@ -67,16 +72,18 @@ Phases, each printing one JSON line:
      where the serve prefill launches a kernel (reported, not gated);
      and the serve CLI once;
   7. faults (``repro_torch.faults``, the plane passes' ``alive`` /
-     ``umask`` paths: ``opt_step`` and ``compressed_mix`` masked in their
-     kernels, one launch each, ``avg_disp`` and ``mix_disp`` wrapped
-     around ``mix_disp.cu``): card_check's fault sweep (dead, straggling
-     and all-alive rows over the JAX suite's shapes); at full width (M=4
-     x P=361,821,120, one dead row) the fault paths of ``opt_step``
-     (Momentum, bf16 codes; mode none and the masked mean),
-     ``avg_disp``, ``mix_disp`` and ``compressed_mix`` (one_bit over a
-     ring) against their masked plain versions, timed beside their
-     bounds (the masked kernels' one-pass bound, with the wrapped
-     yardstick they replaced beside it); smollm-360m training at full
+     ``umask`` paths, each one launch of its kernel's masked pass):
+     card_check's fault sweep (dead, straggling and all-alive rows, and
+     a group with no alive row, over the JAX suite's shapes, with and
+     without codes); at full width (M=4 x P=361,821,120, one dead row)
+     the fault paths of ``opt_step`` (Momentum, bf16 codes; mode none
+     and the masked mean), ``avg_disp`` and ``mix_disp`` (f32 and bf16
+     codes each, timed on clones: they run in place) and
+     ``compressed_mix`` (one_bit over a ring) against their masked plain
+     versions, timed beside their bounds (the masked kernels' one-pass
+     bound, with the wrapped yardstick of PR 20 beside it, and for the
+     masked mix ``torch.matmul`` over the degraded W); smollm-360m
+     training at full
      width under ``--faults crash:m=1@t=3,rejoin:m=1@t=6
      --straggle-prob 0.25 --rejoin-curriculum 2`` (periodic K=2,
      minibatch, ring + one_bit; 8 steps each, the last 2 under
@@ -92,10 +99,10 @@ Phases, each printing one JSON line:
      reported beside the same int8 run without the plan), and
      ``run_host`` bitwise ``run`` on the card; one paired curve, periodic
      128 with and without the plan, the objective every 64 steps;
-  8. summary: a ``kernels`` line over all eight kernels (``opt_step`` and
-     ``compressed_mix`` also with their masked pass's ``fault_ms`` and
-     ``fault_bound_ms``), the card, then ``{"ok": true, "device": ...}``
-     as the last line.
+  8. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+     ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
+     masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
+     ``{"ok": true, "device": ...}`` as the last line.
 
 Every launch count is set to 0 just before a main-path run (phases 3-7)
 and read just after; the ``kernels`` line sums those runs. Any failed
@@ -181,16 +188,29 @@ def opt_step_cost(m, p, kind, has_codes, mix=False):
     return nbytes, per * m * p
 
 
-def avg_disp_cost(m, p):
-    """(bytes, flops): the plane read once, the output written once; a
-    sum, a difference, a square and an add per element."""
-    return 2 * m * p * 4, 4 * m * p
+def avg_disp_cost(m, p, has_codes=False):
+    """(bytes, flops): the plane (and the codes row) read once, the
+    output written once; a sum, a difference, a square and an add per
+    element."""
+    return 2 * m * p * 4 + (p * 4 if has_codes else 0), 4 * m * p
 
 
-def mix_disp_cost(m, p):
-    """The plane and W read once, the mixed plane written once; 2M flops
-    of the mix and 4 of the dispersion per element."""
-    return 2 * m * p * 4 + m * m * 4, (2 * m + 4) * m * p
+def mix_disp_cost(m, p, has_codes=False):
+    """The plane, W (and the codes row) read once, the mixed plane
+    written once; 2M flops of the mix and 4 of the dispersion per
+    element."""
+    return (2 * m * p * 4 + m * m * 4 + (p * 4 if has_codes else 0),
+            (2 * m + 4) * m * p)
+
+
+def masked_event_cost(m, p, n_alive, has_codes, mix=False):
+    """The least a masked ``avg_disp`` / ``mix_disp`` pass moves: the
+    ``n_alive`` rows read and written once, the codes row read (a mix:
+    W too); a dead row nothing. Flops as :func:`avg_disp_cost` /
+    :func:`mix_disp_cost`, on the alive rows (a mix over them)."""
+    nbytes = 2 * n_alive * p * 4 + (p * 4 if has_codes else 0) \
+        + (m * m * 4 if mix else 0)
+    return nbytes, (4 + (2 * n_alive if mix else 0)) * n_alive * p
 
 
 def avg_disp_outer_cost(m, p):
@@ -222,8 +242,8 @@ def opt_step_wire_cost(m, p, kind, wire, has_codes, mix=False):
 
 
 def fault_extra_cost(p, frozen_rows, n_alive):
-    """(bytes, flops) a wrapped fault path (``avg_disp`` / ``mix_disp``
-    with ``alive``) adds to the kernel it wraps: each of its
+    """(bytes, flops) a wrapped fault path (PR 20's yardstick, beside the
+    masked kernels' bounds) adds to the kernel it wraps: each of its
     ``frozen_rows`` copied out and written back (4 transfers of a row),
     and the masked dispersion's two reads of the alive rows (the mean,
     then the squared deviations), 3 flops an element."""
@@ -598,35 +618,49 @@ def main() -> None:
                     mode="mix", W=ring)
     time_compressed("bf16-mean-codes", x, r, None, codes, wire="bf16",
                     mode="mean")
-    del codes
-    free()
     u = cc.wire_inputs(dev, FULL_M, FULL_P, seed=9)[1]
     time_compressed("int8-mean", x, r, u, None, wire="int8", mode="mean")
     del u, r
     free()
 
-    for grp in (1, 2):
-        e = cc.check_avg_disp(f"avg_disp/full-g{grp}", x, grp)
-        err["avg_disp"] = max(err["avg_disp"], e)
+    def time_event(name, kname, check_fn, run_k, run_p, cost, lib=None):
+        """A full-width ``avg_disp`` / ``mix_disp`` call: checked, then
+        timed beside its plain version (and ``lib``, one PyTorch call)."""
+        err[kname] = max(err[kname], check_fn())
         free()
-        k_ms = cuda_time(lambda: avg_disp(x, groups=grp), 10)
+        k_ms = cuda_time(run_k, 10)
         free()
-        p_ms = cuda_time(lambda: ref.avg_disp_ref(x, groups=grp), 3)
+        p_ms = cuda_time(run_p, 3)
         free()
-        record(f"avg_disp/g{grp}", k_ms, p_ms, avg_disp_cost(FULL_M, FULL_P))
+        lib_ms = None
+        if lib is not None:
+            lib_ms = cuda_time(lib, 10)
+            free()
+        record(name, k_ms, p_ms, cost, library_ms=lib_ms)
 
-    e = cc.check_mix_disp("mix_disp/full-ring", x, ring)
-    err["mix_disp"] = max(err["mix_disp"], e)
+    # f32 means and group means, then the coded mean of the LM plane's
+    # periodic event (bf16 codes)
+    for grp, cd in ((1, None), (2, None), (1, codes)):
+        tag = f"g{grp}" + ("-codes" if cd is not None else "")
+        time_event(f"avg_disp/{tag}", "avg_disp",
+                   lambda: cc.check_avg_disp(f"avg_disp/full-{tag}", x, grp,
+                                             cd),
+                   lambda: avg_disp(x, groups=grp, codes=cd),
+                   lambda: ref.plane_average_ref(x, groups=grp, codes=cd),
+                   avg_disp_cost(FULL_M, FULL_P, cd is not None))
+    # the ring mix, f32 and coded; one PyTorch call for the mix (not the
+    # dispersion, nor the rounding): W @ x in full f32
+    for cd in (None, codes):
+        tag = "ring" + ("-codes" if cd is not None else "")
+        time_event(f"mix_disp/{tag}", "mix_disp",
+                   lambda: cc.check_mix_disp(f"mix_disp/full-{tag}", x, ring,
+                                             cd),
+                   lambda: mix_disp(x, ring, codes=cd),
+                   lambda: ref.mix_disp_ref(x, ring, codes=cd),
+                   mix_disp_cost(FULL_M, FULL_P, cd is not None),
+                   lib=lambda: torch.matmul(ring, x))
+    del codes
     free()
-    k_ms = cuda_time(lambda: mix_disp(x, ring), 10)
-    free()
-    p_ms = cuda_time(lambda: ref.mix_disp_ref(x, ring), 3)
-    free()
-    # one PyTorch call for the mix (not the dispersion): W @ x in full f32
-    lib_ms = cuda_time(lambda: torch.matmul(ring, x), 10)
-    free()
-    record("mix_disp/ring", k_ms, p_ms, mix_disp_cost(FULL_M, FULL_P),
-           library_ms=lib_ms)
 
     gen = torch.Generator(device=dev).manual_seed(10)
     prev = torch.randn(FULL_P, device=dev, generator=gen)
@@ -731,7 +765,10 @@ def main() -> None:
     runs = {}
     for name, extra, phase_len, steps, events, expect in (
             ("periodic", ["--avg", "periodic", "--phase-len", "2"], None, 6,
-             3, {"opt_step": 6}),
+             3, {"opt_step": 6, "avg_disp": 3}),
+            ("periodic-ring", ["--avg", "periodic", "--phase-len", "2",
+                               "--topology", "ring"], None, 4, 2,
+             {"opt_step": 4, "mix_disp": 2}),
             ("minibatch", ["--avg", "minibatch"], 1, 2, 2, {"opt_step": 2}),
             ("minibatch-ring", ["--avg", "minibatch", "--topology", "ring"],
              1, 2, 2, {"opt_step": 2}),
@@ -1228,7 +1265,7 @@ def main() -> None:
     emit({"phase": "serve", **served, "card": smi})
 
     # ---- 7. faults ----------------------------------------------------------
-    from repro_torch.faults import FaultPlan
+    from repro_torch.faults import FaultPlan, degraded_matrix
     from repro_torch.launch.profile import _breakdown
     t_faults = time.perf_counter()
     t0 = time.perf_counter()
@@ -1309,32 +1346,48 @@ def main() -> None:
         cc.check_compressed_fault("compressed_mix/full-fault-bf16-mean", x,
                                   r, dead1, wire="bf16", mode="mean",
                                   codes=codes))
-    del r, codes, x
+    del r, x
     free()
+    # the masked mean and mix in their kernels, f32 and with the bf16
+    # codes, timed on a clone (they run in place); beside them PR 20's
+    # wrapped path (mix_disp.cu + the masked dispersion) and, for the
+    # mix, torch.matmul over the degraded W
     x = cc.make_inputs(dev, FULL_M, FULL_P, "sgd", seed=19)[0]
-    for name, run_k, run_p in (
-            ("avg_disp/fault-g1",
-             lambda: avg_disp(x, alive=dead1),
-             lambda: ref.avg_disp_ref(x, alive=dead1)),
-            ("mix_disp/fault-ring",
-             lambda: mix_disp(x, ring, alive=dead1),
-             lambda: ref.mix_disp_ref(x, ring, alive=dead1))):
-        check_fn = (cc.check_avg_disp_fault if name.startswith("avg")
-                    else cc.check_mix_disp_fault)
-        args = (x, dead1, 1) if name.startswith("avg") else (x, ring, dead1)
-        kname = name.split("/")[0]
-        fault_err[kname] = max(fault_err[kname], check_fn(name, *args))
-        free()
-        k_ms = cuda_time(run_k, 5)
-        free()
-        p_ms = cuda_time(run_p, 2)
-        free()
-        nb, fl = mix_disp_cost(FULL_M, FULL_P)
-        eb, ef = fault_extra_cost(FULL_P, 0, 3)
-        record_fault(name, k_ms, p_ms, (nb + eb, fl + ef))
+    w_dead = degraded_matrix(ring, dead1)
+    nb, fl = mix_disp_cost(FULL_M, FULL_P)
+    eb, ef = fault_extra_cost(FULL_P, 0, 3)
+    for cd in (None, codes):
+        suffix = "-codes" if cd is not None else ""
+        for name, kname, check_fn, run_k, run_p, lib in (
+                (f"avg_disp/fault-g1{suffix}", "avg_disp",
+                 lambda n_: cc.check_avg_disp_fault(n_, x, dead1, 1, cd),
+                 lambda v: avg_disp(v, codes=cd, alive=dead1),
+                 lambda: ref.plane_average_ref(x, codes=cd, alive=dead1),
+                 None),
+                (f"mix_disp/fault-ring{suffix}", "mix_disp",
+                 lambda n_: cc.check_mix_disp_fault(n_, x, ring, dead1, cd),
+                 lambda v: mix_disp(v, ring, codes=cd, alive=dead1),
+                 lambda: ref.mix_disp_ref(x, ring, codes=cd, alive=dead1),
+                 lambda: torch.matmul(w_dead, x))):
+            fault_err[kname] = max(fault_err[kname],
+                                   check_fn(name.replace("/", "/full-")))
+            free()
+            xk = x.clone()
+            k_ms = cuda_time(lambda: run_k(xk), 5)
+            del xk
+            free()
+            p_ms = cuda_time(run_p, 2)
+            free()
+            record_fault(name, k_ms, p_ms,
+                         masked_event_cost(FULL_M, FULL_P, 3, cd is not None,
+                                           mix=kname == "mix_disp"),
+                         pr20_cost=(nb + eb, fl + ef))
+            if lib is not None:
+                ff[name]["library_ms"] = cuda_time(lib, 5)
+                free()
     fault_err["avg_disp"] = max(fault_err["avg_disp"], cc.check_avg_disp_fault(
         "avg_disp/full-fault-g2", x, dead1, 2))
-    del x
+    del x, codes, w_dead
     free()
 
     part_s["full_width"] = time.perf_counter() - tp
@@ -1347,7 +1400,8 @@ def main() -> None:
     fault_lm = {}
     for name, extra, expect, expect_no_plan, events in (
             ("periodic", ["--avg", "periodic", "--phase-len", "2"],
-             {"opt_step": 8}, {"opt_step": 8}, 4),
+             {"opt_step": 8, "avg_disp": 4}, {"opt_step": 8, "avg_disp": 4},
+             4),
             ("minibatch", ["--avg", "minibatch"],
              {"opt_step": 8}, {"opt_step": 8}, 8),
             ("periodic-ring-one_bit",
@@ -1440,10 +1494,10 @@ def main() -> None:
     ls = {}
     thr = None
     for name, sched, comm, expect, fp in (
-            ("periodic", periodic16, {}, "mix_disp", plan),
+            ("periodic", periodic16, {}, "avg_disp", plan),
             ("hierarchical", AveragingSchedule(
                 "hierarchical", inner_groups=2, inner_phase_len=8,
-                outer_phase_len=32), {}, "mix_disp", plan),
+                outer_phase_len=32), {}, "avg_disp", plan),
             ("ring", periodic16, dict(topology=Topology.ring(mw)),
              "mix_disp", plan),
             ("int8", periodic16, dict(compression=int8), "compressed_mix",
@@ -1453,8 +1507,8 @@ def main() -> None:
             ("minibatch-torus-int8", AveragingSchedule("minibatch"),
              dict(topology=Topology.torus(mw), compression=int8),
              "compressed_mix", plan),
-            ("adaptive_threshold", None, {}, "mix_disp", plan),
-            ("adaptive_threshold-aware", None, {}, "mix_disp", plan)):
+            ("adaptive_threshold", None, {}, "avg_disp", plan),
+            ("adaptive_threshold-aware", None, {}, "avg_disp", plan)):
         if sched is None:
             sched = AveragingSchedule("adaptive_threshold",
                                       disp_threshold=thr,
@@ -1540,8 +1594,7 @@ def main() -> None:
                            "cuda", faults=fp, steps=SUITE_STEPS, idx_=idx_c,
                            every=SUITE_EVERY,
                            eval_fn=lambda p_: objective(p_["w"]))
-        read_counts({"opt_step": SUITE_STEPS,
-                     ("mix_disp" if fp else "avg_disp"): SUITE_STEPS // 128},
+        read_counts({"opt_step": SUITE_STEPS, "avg_disp": SUITE_STEPS // 128},
                     f"curve {name}")
         curve[name] = [(t, (v - fstar) / (f0 - fstar)) for t, v in
                        hc_["eval"]]
@@ -1551,7 +1604,6 @@ def main() -> None:
     emit({"phase": "faults", "sweep_cases": n_fault,
           "sweep_s": fault_sweep_s, "part_s": part_s,
           "max_abs_err": fault_err,
-          "mean_ulps": cc.MEAN_ULPS,
           "full_width": {"M": FULL_M, "P": FULL_P, "alive": dead1.tolist(),
                          **ff},
           "smollm_360m": {"plan": " ".join(plan_argv), **fault_lm},
@@ -1582,9 +1634,9 @@ def main() -> None:
         line("opt_step", "opt_step", "src/repro/kernels/opt_step.py:185",
              full["opt_step/none"], ff["opt_step/fault-none-codes"]),
         line("avg_disp", "avg_disp", "src/repro/kernels/avg_disp.py:156",
-             full["avg_disp/g1"]),
+             full["avg_disp/g1"], ff["avg_disp/fault-g1"]),
         line("mix_disp", "mix_disp", "src/repro/kernels/avg_disp.py:203",
-             full["mix_disp/ring"]),
+             full["mix_disp/ring"], ff["mix_disp/fault-ring"]),
         line("avg_disp_outer", "avg_disp_outer",
              "src/repro/kernels/avg_disp.py:251",
              full["avg_disp_outer/nesterov"]),

@@ -20,10 +20,11 @@ The rare schedules update first and run the event pass on the steps the
 decision picks: ``avg_disp`` (mean / group mean), ``mix_disp`` (``W @``),
 ``avg_disp_outer``, or ``compressed_mix`` with a wire format. On the
 card those are the hand-written CUDA kernels; on the CPU their plain
-versions run. Where the reference itself takes its jnp twin on an
-accelerator — a mix or outer event on a plane whose columns carry
-bf16/f16 rounding codes, which ``mix_disp`` and ``avg_disp_outer`` do
-not take — the port takes the plain version on the card too.
+versions run. On a plane whose columns carry bf16/f16 rounding codes,
+``avg_disp`` and ``mix_disp`` take the codes in their kernels (the
+reference takes its jnp twins there: the same function); only the outer
+step, which ``avg_disp_outer`` takes without codes, runs its plain
+version on the card too.
 
 Randomness is the reference's: ``init`` makes ``key, dec_key =
 split(PRNGKey(seed))`` with :mod:`repro_torch.rng`, the data key splits
@@ -85,9 +86,8 @@ from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
                                           compressed_mix_plain, mix_disp)
 from repro_torch.kernels.opt_step import opt_step
 from repro_torch.kernels.ref import (_div, _row_sum, avg_disp_outer_ref,
-                                     avg_disp_ref, mix_disp_ref,
-                                     opt_step_ref, plane_average_ref,
-                                     round_to_codes)
+                                     mix_disp_ref, opt_step_ref,
+                                     plane_average_ref, round_to_codes)
 from repro_torch.topology import MIX_KINDS, Topology, comm_bytes
 
 KERNEL_IMPLS = ("auto", "ref", "cuda")
@@ -96,7 +96,7 @@ KERNEL_IMPLS = ("auto", "ref", "cuda")
 _KERNEL_OPS = {"opt_step": opt_step, "avg_disp": avg_disp,
                "mix_disp": mix_disp, "avg_disp_outer": avg_disp_outer,
                "compressed_mix": compressed_mix}
-_PLAIN_OPS = {"opt_step": opt_step_ref, "avg_disp": avg_disp_ref,
+_PLAIN_OPS = {"opt_step": opt_step_ref, "avg_disp": plane_average_ref,
               "mix_disp": mix_disp_ref, "avg_disp_outer": avg_disp_outer_ref,
               "compressed_mix": compressed_mix_plain}
 
@@ -354,46 +354,32 @@ class PhaseEngine:
         o = self.outer
         return dict(lr=o.lr, momentum=o.momentum, nesterov=o.nesterov)
 
-    def _flat_average(self, plane, outer_c, scope: str, W=None,
-                      alive=None):
-        """ONE fused event pass on an f32 plane: ``avg_disp`` (mean or
-        group mean), ``mix_disp`` with a mixing topology, or
-        ``avg_disp_outer`` for the all-scope with an outer optimizer
-        (never under faults); ``alive`` masks the event. Returns (plane,
-        outer state)."""
-        avg = self._op("avg_disp")
-        if scope == "inner":
-            return avg(plane, groups=max(self.schedule.inner_groups, 1),
-                       alive=alive)[0], outer_c
-        if W is not None:
-            return self._op("mix_disp")(plane, W, alive=alive)[0], outer_c
-        if self.outer is not None and outer_c != ():
-            plane, prev, vel, _ = self._op("avg_disp_outer")(
-                plane, *outer_c, **self._outer_kw())
-            return plane, (prev, vel)
-        return avg(plane, groups=self._all_groups(), alive=alive)[0], outer_c
-
     def _plane_avg_event(self, state: EngineState, plane, outer_c,
                          scope: str, W=None, alive=None):
-        """The averaging event alone on the plane (rare schedules),
-        masked over ``alive`` under faults. On planes with rounding codes
-        the mix and the outer step take their plain versions, which round
-        through the leaf dtypes, and the mean takes ``plane_average_ref``,
-        as in the reference. Returns (plane, outer state)."""
+        """The averaging event alone on the plane (rare schedules): ONE
+        fused pass, ``avg_disp`` (mean or group mean) or ``mix_disp``
+        with a mixing topology, rounded through the plane's codes and
+        masked over ``alive`` under faults; or, for the all-scope with an
+        outer optimizer (never under faults), ``avg_disp_outer``, whose
+        plain version takes the codes. Returns (plane, outer state)."""
         codes = state.codes
-        if codes is None:
-            return self._flat_average(plane, outer_c, scope, W, alive)
-        if scope == "all" and W is not None:
-            return mix_disp_ref(plane, W, codes=codes, alive=alive)[0], \
-                outer_c
-        if scope == "all" and self.outer is not None and outer_c != ():
-            plane, prev, vel, _ = avg_disp_outer_ref(
-                plane, *outer_c, codes=codes, **self._outer_kw())
+        if scope == "inner":
+            return self._op("avg_disp")(
+                plane, groups=max(self.schedule.inner_groups, 1),
+                codes=codes, alive=alive)[0], outer_c
+        if W is not None:
+            return self._op("mix_disp")(plane, W, codes=codes,
+                                        alive=alive)[0], outer_c
+        if self.outer is not None and outer_c != ():
+            if codes is None:
+                plane, prev, vel, _ = self._op("avg_disp_outer")(
+                    plane, *outer_c, **self._outer_kw())
+            else:
+                plane, prev, vel, _ = avg_disp_outer_ref(
+                    plane, *outer_c, codes=codes, **self._outer_kw())
             return plane, (prev, vel)
-        groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
-                  else self._all_groups())
-        return plane_average_ref(plane, groups=groups, codes=codes,
-                                 alive=alive)[0], outer_c
+        return self._op("avg_disp")(plane, groups=self._all_groups(),
+                                    codes=codes, alive=alive)[0], outer_c
 
     def _event_uniforms(self, m: int, p: int, step: int, dec_key):
         """The int8 stochastic-rounding uniforms of this event's rows, or

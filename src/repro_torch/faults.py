@@ -24,7 +24,11 @@ and (M,) 0/1 masks as numpy arrays or tensors. Means sum the alive rows
 in row order, as the reference's sums do, so they agree with it bit for
 bit; the dispersion is a float32 sum over the alive entries in column
 chunks, so it holds no (M, P) temporary (a full-width plane is 5.8 GB)
-and agrees with the reference's to rounding.
+and agrees with the reference's to rounding. They make the plain
+versions' masked events and the engine's warm start; on the card the
+plane kernels take the masks as 64-bit row words and mask their one
+pass themselves (of these primitives only :func:`degraded_matrix` goes
+to a kernel, as the mixing matrix).
 
 A trivial plan (no events, no straggles, no windows) is lowered away by
 the engine, so an all-alive plan is the no-fault engine bit for bit.
@@ -411,9 +415,9 @@ def masked_event_matrix(alive, groups: int = 1, device=None) -> torch.Tensor:
     """The masked (group) mean event as a doubly-stochastic (M, M)
     float32 matrix on ``device``: alive rows average the alive members
     of their group (``A[i, j] = a_i a_j / n_g``), dead rows are
-    identity — so the mix kernels run a masked mean as the one
-    ``A @ plane`` pass they run for gossip (equal to the exact-sum mean
-    up to rounding)."""
+    identity — the matrix through which the reference's wrappers run a
+    masked mean as one ``A @ plane`` pass (equal to the exact-sum mean
+    up to rounding; the port's kernels take the exact sum)."""
     a = torch.from_numpy(host_mask(alive))
     m = a.shape[0]
     gid = torch.arange(m) // (m // groups)

@@ -17,27 +17,30 @@ The counterparts of the TPU kernels of ``repro.kernels.avg_disp``:
 
 On CUDA tensors each launches its kernel; on CPU tensors it runs the
 plain version in ``repro_torch.kernels.ref``. A CUDA tensor a kernel
-cannot take raises. ``avg_disp``, ``mix_disp`` and ``avg_disp_outer``
-return new tensors; ``compressed_mix`` updates the plane and the
-residual in place on the card (a full-width plane is 5.8 GB).
+cannot take raises. ``avg_disp_outer``, and ``avg_disp`` / ``mix_disp``
+without ``alive``, return new tensors; ``compressed_mix`` and the
+masked events update the plane (and the residual) in place on the card
+(a full-width plane is 5.8 GB).
+
+``codes`` ((P,) f32 rounding codes, ``FlatSpec.rounding_codes``) round
+the event's output per column through the leaf dtype, as the plain
+versions do: ``avg_disp`` and ``mix_disp`` take them in their kernels'
+``CODES`` instantiations, bitwise ``plane_average_ref`` /
+``mix_disp_ref``; ``avg_disp_outer`` takes none (its plain version
+does).
 
 ``alive`` ((M,) 0/1, :mod:`repro_torch.faults`) degrades ``avg_disp``,
 ``mix_disp`` and ``compressed_mix`` over the alive rows, as the
-reference's wrappers do. ``compressed_mix`` masks the event in its
-kernel: ONE launch of ``compressed_mix.cu``'s masked instantiation, the
-mask a 64-bit row word; dead rows ship nothing (not read, encoded or
-written: they keep their params and residual), the dispersion is the
-pre-encode one over the alive rows, modes "mean" / "group" take the
-exact masked (group) mean of the alive rows' decoded plane and mode
-"mix" ``faults.degraded_matrix(W, alive)`` — bitwise the plain versions
-(one_bit: within one ulp of its row scale). ``avg_disp`` and
-``mix_disp`` still run their masked event as a wrapper over
-``mix_disp.cu``: a masked (group) mean is the mix ``A @ plane`` with ``A
-= faults.masked_event_matrix`` (identity rows for dead workers), a
-gossip ``W`` becomes the degraded one, dead rows are written back, and
-the dispersion is ``faults.masked_dispersion`` of the input plane; that
-matrix's mean agrees with the plain versions' exact masked sums to
-rounding.
+reference's wrappers do, each in ONE launch of its kernel's masked
+instantiation, the mask a 64-bit row word passed by value. Dead
+rows are neither read nor written (``compressed_mix``: not encoded
+either; they keep their params and residual), the dispersion is the
+pre-event one over the alive rows, a mean or group mean is the exact
+masked (group) mean of the alive rows (summed in order, divided once)
+written to the alive rows only, and a mix takes
+``faults.degraded_matrix(W, alive)`` over the alive columns — bitwise
+the plain versions (``compressed_mix``'s one_bit: within one ulp of its
+row scale).
 """
 from __future__ import annotations
 
@@ -46,8 +49,8 @@ import torch
 from repro_torch import faults
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (_WIRES, avg_disp_outer_ref,
-                                     avg_disp_ref, compressed_avg_ref,
-                                     compressed_mix_ref, mix_disp_ref)
+                                     compressed_avg_ref, compressed_mix_ref,
+                                     mix_disp_ref, plane_average_ref)
 
 _EVENT_MODES = ("mean", "group", "mix")
 #: columns per block of compressed_mix.cu's row-statistic pass
@@ -57,6 +60,10 @@ _STAT_COLS = 4096
 def _cuda_plane(what: str, plane) -> None:
     if plane.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {plane.device}")
+
+
+def _check_plane(what: str, plane) -> None:
+    """The (M, P) plane a plane kernel takes."""
     _build.check_workers(what, plane.shape[0])
     _build.check_plane(what, "plane", plane, plane)
 
@@ -73,65 +80,108 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def avg_disp(plane, *, groups: int = 1, alive=None):
+def _event_checks(what: str, plane, codes, alive):
+    """The codes row and the row word of an ``avg_disp`` / ``mix_disp``
+    launch: raises on codes it cannot take; returns the row word of
+    ``alive`` (None: unmasked)."""
+    if codes is not None:
+        _build.check_plane(what, "codes", codes, plane[0])
+    if alive is None:
+        return None
+    return _build.row_bits(what, alive, plane.shape[0])
+
+
+def avg_disp(plane, *, groups: int = 1, codes=None, alive=None):
     """plane: (M, P) float32 -> (averaged plane, Eq. 4 dispersion as a
     0-dim tensor). ``groups`` > 1 broadcasts per-group means; the
-    dispersion is always against the global mean. The output is a new
-    tensor; the input is not modified. With ``alive`` the masked event
-    runs through ``mix_disp`` (module note) and counts there."""
-    m, p = plane.shape
+    dispersion is always against the global mean. ``codes`` round the
+    means (module note). The output is a new tensor and the input is not
+    modified, but for ``alive`` on the card: the masked event in place
+    (module note)."""
+    m = plane.shape[0]
     if groups < 1 or m % groups:
         raise ValueError(f"groups={groups} must divide the {m} worker rows")
     if plane.device.type == "cpu":
-        return avg_disp_ref(plane, groups=groups, alive=alive)
-    if alive is not None:
-        A = faults.masked_event_matrix(alive, groups, device=plane.device)
-        return _masked_mix(plane, A, alive)
+        return plane_average_ref(plane, groups=groups, codes=codes,
+                                 alive=alive)
     _cuda_plane("avg_disp", plane)
-    out = torch.empty_like(plane)
+    return _card_avg(plane, groups=groups, codes=codes, alive=alive)
+
+
+def _card_avg(plane, *, groups, codes, alive):
+    """One ``avg_disp.cu`` launch on the card's tensors (module note);
+    counts it in ``avg_disp.launches``. Returns (plane, dispersion)."""
+    what = "avg_disp"
+    _check_plane(what, plane)
+    alive_bits = _event_checks(what, plane, codes, alive)
+    out = plane if alive_bits is not None else torch.empty_like(plane)
     dpart, disp = _scratch(plane)
-    lib = _build.library("avg_disp")
-    with torch.cuda.device(plane.device):
-        err = lib.avg_disp_launch(
-            plane.data_ptr(), out.data_ptr(), dpart.data_ptr(),
-            disp.data_ptr(), m, p, groups, _stream())
-    _build.check(err, "avg_disp")
+    err = _avg_launch(plane, out, codes, dpart, disp, groups=groups,
+                      alive_bits=alive_bits)
+    _build.check(err, what)
     avg_disp.launches += 1
     return out, disp
 
 
-def _masked_mix(plane, W, alive):
-    """The masked event of matrix ``W`` on the card: one ``mix_disp``
-    launch, the dead rows kept, the alive set's dispersion."""
-    disp = faults.masked_dispersion(plane, alive)
-    out = mix_disp(plane, W)[0]
-    return faults.keep_rows_(out, plane, alive), disp
+def _avg_launch(plane, out, codes, dpart, disp, *, groups,
+                alive_bits) -> int:
+    """``avg_disp_launch`` on the current stream (``alive_bits`` None:
+    unmasked). Returns its ``cudaError_t``."""
+    m, p = plane.shape
+    lib = _build.library("avg_disp")
+    with torch.cuda.device(plane.device):
+        return lib.avg_disp_launch(
+            plane.data_ptr(), out.data_ptr(),
+            codes.data_ptr() if codes is not None else None,
+            dpart.data_ptr(), disp.data_ptr(), m, p, groups,
+            int(alive_bits is not None), alive_bits or 0, _stream())
 
 
-def mix_disp(plane, W, *, alive=None):
+def mix_disp(plane, W, *, codes=None, alive=None):
     """plane: (M, P) float32, W: (M, M) float32 doubly stochastic ->
     (W @ plane, Eq. 4 dispersion of the input plane). Each worker keeps
-    its own mixed row. The output is a new tensor. ``alive`` mixes with
-    ``faults.degraded_matrix(W, alive)`` (module note)."""
-    m, p = plane.shape
+    its own mixed row; ``codes`` round it (module note). The output is a
+    new tensor, but for ``alive`` on the card: the mix with
+    ``faults.degraded_matrix(W, alive)``, in place (module note)."""
+    m = plane.shape[0]
     if tuple(W.shape) != (m, m):
         raise ValueError(f"W must be ({m}, {m}), got {tuple(W.shape)}")
     if plane.device.type == "cpu":
-        return mix_disp_ref(plane, W, alive=alive)
-    if alive is not None:
-        return _masked_mix(plane, faults.degraded_matrix(W, alive), alive)
+        return mix_disp_ref(plane, W, codes=codes, alive=alive)
     _cuda_plane("mix_disp", plane)
-    _build.check_matrix("mix_disp", W, plane)
-    out = torch.empty_like(plane)
+    return _card_mix(plane, W, codes=codes, alive=alive)
+
+
+def _card_mix(plane, W, *, codes, alive):
+    """One ``mix_disp.cu`` launch on the card's tensors (module note);
+    counts it in ``mix_disp.launches``. Returns (plane, dispersion)."""
+    what = "mix_disp"
+    _check_plane(what, plane)
+    alive_bits = _event_checks(what, plane, codes, alive)
+    if alive_bits is not None:
+        W = faults.degraded_matrix(W, alive)
+    _build.check_matrix(what, W, plane)
+    out = plane if alive_bits is not None else torch.empty_like(plane)
     dpart, disp = _scratch(plane)
-    lib = _build.library("mix_disp")
-    with torch.cuda.device(plane.device):
-        err = lib.mix_disp_launch(
-            plane.data_ptr(), W.data_ptr(), out.data_ptr(),
-            dpart.data_ptr(), disp.data_ptr(), m, p, _stream())
-    _build.check(err, "mix_disp")
+    err = _mix_launch(plane, W, out, codes, dpart, disp,
+                      alive_bits=alive_bits)
+    _build.check(err, what)
     mix_disp.launches += 1
     return out, disp
+
+
+def _mix_launch(plane, W, out, codes, dpart, disp, *, alive_bits) -> int:
+    """``mix_disp_launch`` on the current stream (``alive_bits`` None:
+    unmasked; else ``W`` is the degraded matrix). Returns its
+    ``cudaError_t``."""
+    m, p = plane.shape
+    lib = _build.library("mix_disp")
+    with torch.cuda.device(plane.device):
+        return lib.mix_disp_launch(
+            plane.data_ptr(), W.data_ptr(), out.data_ptr(),
+            codes.data_ptr() if codes is not None else None,
+            dpart.data_ptr(), disp.data_ptr(), m, p,
+            int(alive_bits is not None), alive_bits or 0, _stream())
 
 
 def avg_disp_outer(plane, prev_avg, vel, *, lr: float, momentum: float,
@@ -147,6 +197,7 @@ def avg_disp_outer(plane, prev_avg, vel, *, lr: float, momentum: float,
     if plane.device.type == "cpu":
         return avg_disp_outer_ref(plane, prev_avg, vel, **kw)
     _cuda_plane("avg_disp_outer", plane)
+    _check_plane("avg_disp_outer", plane)
     _build.check_plane("avg_disp_outer", "prev_avg", prev_avg, plane[0])
     _build.check_plane("avg_disp_outer", "vel", vel, plane[0])
     out = torch.empty_like(plane)
@@ -198,8 +249,7 @@ def _compressed_event(plane, resid, *, wire, mode, groups, W, u, codes,
     dispersion."""
     what = "compressed_mix"
     m, p = plane.shape
-    _build.check_workers(what, m)
-    _build.check_plane(what, "plane", plane, plane)
+    _check_plane(what, plane)
     _build.check_plane(what, "resid", resid, plane)
     if u is not None:
         _build.check_plane(what, "u", u, plane)
@@ -268,9 +318,7 @@ def compressed_mix(plane, resid, *, wire, mode="mean", groups: int = 1,
     if plane.device.type == "cpu":
         return compressed_mix_plain(plane, resid, mode=mode, groups=groups,
                                     W=W, alive=alive, **kw)
-    if plane.device.type != "cuda":
-        raise ValueError(f"compressed_mix runs on cpu or cuda, not "
-                         f"{plane.device}")
+    _cuda_plane("compressed_mix", plane)
     disp = _compressed_event(plane, resid, mode=mode, groups=groups, W=W,
                              alive=alive, **kw)
     return plane, resid, disp

@@ -4,9 +4,11 @@ the input builder and the comparison that ``chip_smoke.py`` and
 
 Criteria: mode "none" planes and every state plane bitwise equal to the
 plain version (the kernels build with -fmad=false, so each product and
-sum rounds as PyTorch's separate eager ops do); mean / group planes
-within rtol 1e-6 / atol 1e-7 on f32 columns and one dtype ulp on
-bf16/f16 columns; dispersion rtol 1e-5; two runs bitwise identical (no
+sum rounds as PyTorch's separate eager ops do); ``opt_step``'s mean /
+group planes within rtol 1e-6 / atol 1e-7 on f32 columns and one dtype
+ulp on bf16/f16 columns; ``avg_disp``'s planes bitwise, with and
+without rounding codes (f32, all-bf16 and mixed columns,
+``CODE_KINDS``); dispersion rtol 1e-5; two runs bitwise identical (no
 atomics). A failed check raises ``AssertionError``.
 
 The serving kernels: ``flash_attention`` is held to its plain version
@@ -32,7 +34,8 @@ away from the exact answer; its own error against the yardstick is
 reported beside the kernel's. All three run twice and must agree bitwise with
 themselves (no atomics).
 
-The communication kernels — ``mix_disp``, ``opt_step`` mode mix,
+The communication kernels — ``mix_disp`` (with and without codes),
+``opt_step`` mode mix,
 ``avg_disp_outer``, ``compressed_mix`` and the ``opt_step`` wire path —
 are held bitwise to their plain versions: the mix is the same j-ordered
 sum of separately rounded products, the int8 quantizer the same IEEE
@@ -49,18 +52,14 @@ The fault paths (``alive`` / ``umask``, :func:`fault_sweep`) run over
 (:func:`fault_masks`), each against its masked plain version. Dead rows
 (and, for ``opt_step``, every row outside the update mask in mode
 "none", and the state planes' frozen rows) must equal their inputs bit
-for bit. ``opt_step`` and ``compressed_mix`` mask in their kernels: the
-update, the degraded-``W`` mix and the masked (group) mean (the alive
-rows summed in order and divided once, as the plain versions do) are
-bitwise the plain versions — one_bit within its bound above — and each
-call is one launch of its kernel (with a wire, one of each) and none of
-``mix_disp``. ``avg_disp`` and ``mix_disp`` still run a masked event as
-the mix ``A @ x`` with ``A = 1/n`` on the cohort's columns, while the
-plain version sums the n rows and divides once: each side is within
-(n + 1) float32 units of rounding of sum_j |x_j| / n of the exact mean,
-so their alive rows are held within (2n + 2) * 2**-24 * sum_j |x_j| / n
-(``MEAN_ULPS``); their degraded-``W`` mixes are bitwise. Dispersions
-rtol 1e-5; two runs bitwise.
+for bit. Every kernel masks in its one pass: the update, the
+degraded-``W`` mix and the masked (group) mean (the alive rows summed
+in order and divided once, as the plain versions do; a group with no
+alive row left as it is) are bitwise the plain versions, with and
+without codes — one_bit within its bound above — and each call is one
+launch of its own kernel (``opt_step`` with a wire, one of it and one
+of ``compressed_mix``), so a masked mean launches no ``mix_disp``.
+Dispersions rtol 1e-5; two runs bitwise.
 """
 from __future__ import annotations
 
@@ -95,6 +94,9 @@ NARROW_SHAPES = [(1, 1024), (24, 32)]
 # avg_disp group counts, each dividing every M of SHAPES; 4 is the
 # hierarchical inner event of the f32 main path.
 AVG_GROUPS = (1, 2, 4)
+# the rounding codes of avg_disp and mix_disp (make_inputs): f32 columns
+# only, every column bf16 (the LM planes), and codes 0/1/2 at random
+CODE_KINDS = (None, "bf16", "mixed")
 OPTS = {"sgd": ("sgd", {}), "momentum": ("momentum", {"mu": 0.9}),
         "nesterov": ("momentum", {"mu": 0.9, "nesterov": True}),
         "adamw": ("adamw", {"b1": 0.9, "b2": 0.95, "eps": 1e-8,
@@ -278,16 +280,16 @@ def count_quantum_flips(got, want, *, rtol, atol, max_frac=0.01) -> int:
     return n
 
 
-def check_mix_disp(name, x, W) -> float:
+def check_mix_disp(name, x, W, codes=None) -> float:
     """Run ``mix_disp`` twice and hold it against ``mix_disp_ref``
-    bitwise. Returns the max abs error of the plane."""
-    want, want_d = ref.mix_disp_ref(x, W)
-    got, got_d = mix_disp(x, W)
+    bitwise. Returns the max abs error of the plane, 0."""
+    want, want_d = ref.mix_disp_ref(x, W, codes=codes)
+    got, got_d = mix_disp(x, W, codes=codes)
     err = max_err(name, got, want, exact=True)
     del want
     _require(math.isclose(float(got_d), float(want_d), rel_tol=1e-5),
              f"{name}: dispersion {float(got_d)} vs plain {float(want_d)}")
-    got2, d2 = mix_disp(x, W)
+    got2, d2 = mix_disp(x, W, codes=codes)
     _require(torch.equal(got2, got) and float(d2) == float(got_d),
              f"{name}: two runs differ")
     return err
@@ -388,24 +390,25 @@ def check_opt_step_wire(name, x, g, st, scal, codes, r, u, **kw) -> float:
     return err
 
 
-def check_avg_disp(name, x, groups) -> float:
-    """Run ``avg_disp`` twice and hold it against ``avg_disp_ref``.
-    Returns the max abs error of the plane."""
-    want, want_d = ref.avg_disp_ref(x, groups=groups)
-    got, got_d = avg_disp(x, groups=groups)
-    err = max_err(name, got, want)
+def check_avg_disp(name, x, groups, codes=None) -> float:
+    """Run ``avg_disp`` twice and hold it bitwise against
+    ``plane_average_ref``. Returns the max abs error of the plane, 0."""
+    want, want_d = ref.plane_average_ref(x, groups=groups, codes=codes)
+    got, got_d = avg_disp(x, groups=groups, codes=codes)
+    err = max_err(name, got, want, exact=True)
     del want
     _require(math.isclose(float(got_d), float(want_d), rel_tol=1e-5),
              f"{name}: dispersion {float(got_d)} vs plain {float(want_d)}")
-    got2, d2 = avg_disp(x, groups=groups)
+    got2, d2 = avg_disp(x, groups=groups, codes=codes)
     _require(torch.equal(got2, got) and float(d2) == float(got_d),
              f"{name}: two runs differ")
     return err
 
 
 def comm_sweep(dev) -> tuple[int, dict]:
-    """The communication kernels over ``COMM_SHAPES``: ``mix_disp`` and
-    ``opt_step`` mode mix under every W of ``MIXES``, ``avg_disp_outer``
+    """The communication kernels over ``COMM_SHAPES``: ``mix_disp`` (every
+    codes kind) and ``opt_step`` mode mix under every W of ``MIXES``,
+    ``avg_disp_outer``
     with Nesterov on and off, and ``compressed_mix`` and the ``opt_step``
     wire path over every wire x mean / group / mix x codes x error
     feedback. Returns (number of cases, max abs error per kernel)."""
@@ -416,10 +419,13 @@ def comm_sweep(dev) -> tuple[int, dict]:
     for m, p, groups in COMM_SHAPES:
         for k, wname in enumerate(MIXES):
             W = mixing_matrix(wname, m, dev)
-            x = make_inputs(dev, m, p, "sgd", seed=2000 + n)[0]
-            e = check_mix_disp(f"mix_disp/{wname}-M{m}P{p}", x, W)
-            err["mix_disp"] = max(err["mix_disp"], e)
-            n += 1
+            for codes_kind in CODE_KINDS:
+                x, _, _, _, codes = make_inputs(dev, m, p, "sgd", codes_kind,
+                                                seed=2000 + n)
+                e = check_mix_disp(f"mix_disp/{wname}-{codes_kind}-M{m}P{p}",
+                                   x, W, codes)
+                err["mix_disp"] = max(err["mix_disp"], e)
+                n += 1
             kind, hyp = OPTS[opts[k]]
             for codes_kind in (None, "mixed"):
                 x, g, st, scal, codes = make_inputs(dev, m, p, kind,
@@ -480,7 +486,7 @@ def check_narrow_opt_step(dev, m, p, opt, mode, codes_kind, seed=0) -> float:
 
 def sweep(dev) -> tuple[int, dict]:
     """Every (shape, optimizer, mode, codes) case of ``opt_step`` and
-    every (shape, groups) case of ``avg_disp`` over ``SHAPES`` and
+    every (shape, groups, codes) case of ``avg_disp`` over ``SHAPES`` and
     ``NARROW_SHAPES``, then :func:`comm_sweep`.
     Returns (number of cases, max abs error per kernel)."""
     err = {"opt_step": 0.0, "avg_disp": 0.0}
@@ -499,10 +505,13 @@ def sweep(dev) -> tuple[int, dict]:
                     err["opt_step"] = max(err["opt_step"], e)
                     n += 1
         for grp in AVG_GROUPS:
-            x = make_inputs(dev, m, p, "sgd", seed=1000 + grp)[0]
-            e = check_avg_disp(f"avg_disp/g{grp}-M{m}P{p}", x, grp)
-            err["avg_disp"] = max(err["avg_disp"], e)
-            n += 1
+            for codes_kind in CODE_KINDS:
+                x, _, _, _, codes = make_inputs(dev, m, p, "sgd", codes_kind,
+                                                seed=1000 + grp)
+                e = check_avg_disp(
+                    f"avg_disp/g{grp}-{codes_kind}-M{m}P{p}", x, grp, codes)
+                err["avg_disp"] = max(err["avg_disp"], e)
+                n += 1
     for m, p in NARROW_SHAPES:
         for opt in OPTS:
             for mode in ("none", "mean"):
@@ -514,9 +523,7 @@ def sweep(dev) -> tuple[int, dict]:
         for grp in AVG_GROUPS:
             if m % grp == 0:
                 x = make_inputs(dev, m, p, "sgd", seed=1000 + grp)[0]
-                name = f"avg_disp/g{grp}-M{m}P{p}"
-                _require(check_avg_disp(name, x, grp) == 0.0,
-                         f"{name}: not bitwise")
+                check_avg_disp(f"avg_disp/g{grp}-M{m}P{p}", x, grp)
                 n += 1
     n2, err2 = comm_sweep(dev)
     for k, v in err2.items():
@@ -525,13 +532,6 @@ def sweep(dev) -> tuple[int, dict]:
 
 
 # ---- the fault paths --------------------------------------------------------
-
-#: float32 units of rounding per cohort row allowed between a masked mean
-#: run as the mix ``A @ x`` (``avg_disp`` / ``mix_disp``) and the exact
-#: sum over n rows divided once: (MEAN_ULPS * n + MEAN_ULPS) * 2**-24 *
-#: sum_j |x_j| / n (module note)
-MEAN_ULPS = 2
-
 
 def fault_masks(m) -> dict:
     """The sweep's ``(alive, umask)`` pairs over M rows: "dead" (row 1,
@@ -548,31 +548,24 @@ def fault_masks(m) -> dict:
             "all-alive": (ones, ones)}
 
 
-def mean_bounds(q, alive, groups: int) -> list:
-    """Per group, the (P,) bound on |A @ q - exact masked mean| of the
-    module note."""
-    m = q.shape[0]
-    mg = m // groups
-    a = faults.host_mask(alive)
-    out = []
-    for g in range(groups):
-        rows = [i for i in range(g * mg, (g + 1) * mg) if a[i] > 0]
-        s = torch.zeros_like(q[0])
-        for j in rows:
-            s += q[j].abs()
-        n = max(len(rows), 1)
-        out.append(s * (MEAN_ULPS * (n + 1) * 2.0 ** -24 / n))
-    return out
+def empty_group_mask(m, groups) -> np.ndarray:
+    """An (M,) alive mask whose first group of M / groups rows is dead
+    (its masked group mean has no row, and the group is left as it is),
+    with row 1 of the next group dead too."""
+    alive = np.ones(m, np.float32)
+    gs = m // groups
+    alive[:gs] = 0.0
+    alive[gs + 1] = 0.0
+    return alive
 
 
-def hold_rows(name, got, want, kept, keep_mask, *, bounds=None, extra=0.0,
+def hold_rows(name, got, want, kept, keep_mask, *, extra=0.0,
               codes=None) -> float:
     """Rows with ``keep_mask <= 0`` bitwise ``kept``'s; the others
-    bitwise ``want``'s, or within ``bounds[group]`` (+ ``extra``, + one
-    dtype ulp on coded columns). Row by row. Returns max |got - want|."""
+    bitwise ``want``'s, or within ``extra`` (+ one dtype ulp on coded
+    columns) where it is not 0. Row by row. Returns max |got - want|."""
     m = got.shape[0]
     km = faults.host_mask(keep_mask)
-    mg = m // len(bounds) if bounds else m
     worst = 0.0
     for i in range(m):
         if km[i] <= 0:
@@ -581,11 +574,10 @@ def hold_rows(name, got, want, kept, keep_mask, *, bounds=None, extra=0.0,
             continue
         if torch.equal(got[i], want[i]):
             continue
-        _require(bounds is not None or extra > 0.0,
-                 f"{name}: row {i} not bitwise equal")
+        _require(extra > 0.0, f"{name}: row {i} not bitwise equal")
         d = (got[i] - want[i]).abs()
         worst = max(worst, float(d.max()))
-        lim = (bounds[i // mg] if bounds else torch.zeros_like(d)) + extra
+        lim = torch.full_like(d, extra)
         if codes is not None:
             lim = torch.where(codes == 0.0, lim, lim + dtype_ulp(
                 torch.maximum(got[i].abs(), want[i].abs()), codes))
@@ -601,50 +593,67 @@ def _same_disp(name, got_d, want_d) -> float:
     return d_k
 
 
-def check_avg_disp_fault(name, x, alive, groups) -> float:
-    """``avg_disp(alive=)`` (the mix kernel on the masked event matrix)
-    twice, against ``avg_disp_ref(alive=)``. Returns the max abs error."""
-    want, want_d = ref.avg_disp_ref(x, groups=groups, alive=alive)
-    got, got_d = avg_disp(x, groups=groups, alive=alive)
-    err = hold_rows(name, got, want, x, alive,
-                    bounds=mean_bounds(x, alive, groups))
-    del want
-    d = _same_disp(name, got_d, want_d)
-    got2, d2 = avg_disp(x, groups=groups, alive=alive)
-    _require(torch.equal(got2, got) and float(d2) == d,
-             f"{name}: two runs differ")
-    return err
-
-
-def check_mix_disp_fault(name, x, W, alive) -> float:
-    """``mix_disp(alive=)`` (the degraded W) twice, bitwise
-    ``mix_disp_ref(alive=)``. Returns the max abs error, 0."""
-    want, want_d = ref.mix_disp_ref(x, W, alive=alive)
-    got, got_d = mix_disp(x, W, alive=alive)
-    err = hold_rows(name, got, want, x, alive)
-    del want
-    d = _same_disp(name, got_d, want_d)
-    got2, d2 = mix_disp(x, W, alive=alive)
-    _require(torch.equal(got2, got) and float(d2) == d,
-             f"{name}: two runs differ")
-    return err
-
-
 def _launch_counts() -> tuple:
-    """(opt_step, compressed_mix, mix_disp) launches so far."""
+    """(opt_step, compressed_mix, mix_disp, avg_disp) launches so far."""
     return (_opt_mod.opt_step.launches, _avg_mod.compressed_mix.launches,
-            _avg_mod.mix_disp.launches)
+            _avg_mod.mix_disp.launches, _avg_mod.avg_disp.launches)
 
 
 def _held_launches(name, before, in_place, want) -> None:
     """On the card's path (the call updated in place), the launches of
-    (opt_step, compressed_mix, mix_disp) since ``before`` equal
-    ``want``."""
+    (opt_step, compressed_mix, mix_disp, avg_disp) since ``before``
+    equal ``want``."""
     if not in_place:
         return
     got = tuple(a - b for a, b in zip(_launch_counts(), before))
     _require(got == want, f"{name}: launches (opt_step, compressed_mix, "
-             f"mix_disp) {got}, want {want}")
+             f"mix_disp, avg_disp) {got}, want {want}")
+
+
+def _check_event_fault(name, x, alive, event, plain, launches) -> float:
+    """A masked ``avg_disp`` / ``mix_disp`` call, ``event(plane)``, twice
+    on fresh copies of ``x`` (in place on the card, one launch of its
+    kernel each: ``launches``), against ``plain(x)``: dead rows keep
+    their values, alive rows bitwise, the dispersion within rtol 1e-5.
+    Returns the max abs error, 0."""
+    want, want_d = plain(x)
+
+    def run():
+        xk = x.clone()
+        before = _launch_counts()
+        out = event(xk)
+        in_place = out[0] is xk
+        _require(in_place or not xk.is_cuda,
+                 f"{name}: plane not updated in place")
+        _held_launches(name, before, in_place, launches)
+        return out
+
+    got, got_d = run()
+    err = hold_rows(name, got, want, x, alive)
+    del want
+    d = _same_disp(name, got_d, want_d)
+    got2, d2 = run()
+    _require(torch.equal(got2, got) and float(d2) == d,
+             f"{name}: two runs differ")
+    return err
+
+
+def check_avg_disp_fault(name, x, alive, groups, codes=None) -> float:
+    """``avg_disp(alive=)`` (``avg_disp.cu``'s masked pass) against
+    ``plane_average_ref(alive=)`` (:func:`_check_event_fault`)."""
+    kw = dict(groups=groups, codes=codes, alive=alive)
+    return _check_event_fault(
+        name, x, alive, lambda v: avg_disp(v, **kw),
+        lambda v: ref.plane_average_ref(v, **kw), (0, 0, 0, 1))
+
+
+def check_mix_disp_fault(name, x, W, alive, codes=None) -> float:
+    """``mix_disp(alive=)`` (``mix_disp.cu``'s masked pass on the degraded
+    W) against ``mix_disp_ref(alive=)`` (:func:`_check_event_fault`)."""
+    kw = dict(codes=codes, alive=alive)
+    return _check_event_fault(
+        name, x, alive, lambda v: mix_disp(v, W, **kw),
+        lambda v: ref.mix_disp_ref(v, W, **kw), (0, 0, 1, 0))
 
 
 def check_compressed_fault(name, x, r, alive, *, wire, mode, groups=1,
@@ -666,7 +675,7 @@ def check_compressed_fault(name, x, r, alive, *, wire, mode, groups=1,
         in_place = out[0] is xk and out[1] is rk
         _require(in_place or not xk.is_cuda,
                  f"{name}: plane / residual not updated in place")
-        _held_launches(name, before, in_place, (0, 1, 0))
+        _held_launches(name, before, in_place, (0, 1, 0, 0))
         return out
 
     got_x, got_r, got_d = run()
@@ -718,7 +727,7 @@ def check_opt_step_fault(name, x, g, st, scal, codes, alive, umask, *,
         _require(in_place or not xk.is_cuda,
                  f"{name}: plane / state planes not updated in place")
         _held_launches(name, before, in_place,
-                       (1, int(wire is not None), 0))
+                       (1, int(wire is not None), 0, 0))
         return out
 
     got = run()
@@ -740,11 +749,13 @@ def check_opt_step_fault(name, x, g, st, scal, codes, alive, umask, *,
 
 def fault_sweep(dev) -> tuple[int, dict]:
     """The four fault paths over ``COMM_SHAPES`` x ``fault_masks``:
-    ``avg_disp`` (groups 1 and the shape's), ``mix_disp`` (ring),
-    ``compressed_mix`` (every wire x mean / group / mix, codes on the
-    bf16 wire) and ``opt_step`` (Momentum and AdamW, modes none / mean /
-    group / mix, f32 and coded columns; the wire path's three wires).
-    Returns (number of cases, max abs error per kernel)."""
+    ``avg_disp`` (groups 1 and the shape's) and ``mix_disp`` (ring), each
+    over ``CODE_KINDS``, ``compressed_mix`` (every wire x mean / group /
+    mix, codes on the bf16 wire) and ``opt_step`` (Momentum and AdamW,
+    modes none / mean / group / mix, f32 and coded columns; the wire
+    path's three wires); and per shape ``avg_disp``'s group mean with a
+    group of dead rows (:func:`empty_group_mask`). Returns (number of
+    cases, max abs error per kernel)."""
     err = dict.fromkeys(("opt_step", "avg_disp", "mix_disp",
                          "compressed_mix"), 0.0)
     n = 0
@@ -752,16 +763,20 @@ def fault_sweep(dev) -> tuple[int, dict]:
         W = mixing_matrix("ring", m, dev)
         for mname, (alive, umask) in fault_masks(m).items():
             tag = f"{mname}-M{m}P{p}"
-            x = make_inputs(dev, m, p, "sgd", seed=4000 + n)[0]
-            for grp in (1, groups):
-                e = check_avg_disp_fault(f"avg_disp/fault-g{grp}-{tag}", x,
-                                         alive, grp)
-                err["avg_disp"] = max(err["avg_disp"], e)
+            for codes_kind in CODE_KINDS:
+                x, _, _, _, codes = make_inputs(dev, m, p, "sgd", codes_kind,
+                                                seed=4000 + n)
+                for grp in (1, groups):
+                    e = check_avg_disp_fault(
+                        f"avg_disp/fault-g{grp}-{codes_kind}-{tag}", x,
+                        alive, grp, codes)
+                    err["avg_disp"] = max(err["avg_disp"], e)
+                    n += 1
+                e = check_mix_disp_fault(
+                    f"mix_disp/fault-ring-{codes_kind}-{tag}", x, W, alive,
+                    codes)
+                err["mix_disp"] = max(err["mix_disp"], e)
                 n += 1
-            e = check_mix_disp_fault(f"mix_disp/fault-ring-{tag}", x, W,
-                                     alive)
-            err["mix_disp"] = max(err["mix_disp"], e)
-            n += 1
             for wire in WIRES:
                 for mode in ("mean", "group", "mix"):
                     x, _, _, _, codes = make_inputs(
@@ -803,6 +818,12 @@ def fault_sweep(dev) -> tuple[int, dict]:
                     W=W if mode == "mix" else None)
                 err["opt_step"] = max(err["opt_step"], e)
                 n += 1
+        x, _, _, _, codes = make_inputs(dev, m, p, "sgd", "mixed",
+                                        seed=4000 + n)
+        e = check_avg_disp_fault(f"avg_disp/fault-empty-group-M{m}P{p}", x,
+                                 empty_group_mask(m, groups), groups, codes)
+        err["avg_disp"] = max(err["avg_disp"], e)
+        n += 1
     return n, err
 
 

@@ -2,15 +2,17 @@
 // a column loaded into registers with its mean and dispersion term, the
 // mixing matrix staged in shared memory and one row of its product, the
 // same over the rows of a 64-bit row mask (the fault-degraded passes) with
-// the masked (group) means, the register-array size dispatch, the
-// fixed-order block reduction of the dispersion partials, and the
-// fixed-order second pass that sums them.
+// the masked (group) means, the register-array size dispatch and that of
+// two template flags, the fixed-order block reduction of the dispersion
+// partials, and the fixed-order second pass that sums them.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // Threads per block of the column sweeps (one column per thread).
 constexpr int kPlaneThreads = 256;
@@ -26,14 +28,26 @@ __device__ __forceinline__ float round_code(float x, float code) {
   return x;
 }
 
-// Load column j of the m rows of the (m, p) plane x into registers.
+// Every row of a 64-bit row mask (see row_on): the unmasked passes.
+constexpr unsigned long long kAllRows = ~0ull;
+
+// Bit i of a 64-bit row mask: bit i is worker row i (the plane kernels
+// take at most 64 rows).
+__device__ __forceinline__ bool row_on(unsigned long long mask, int i) {
+  return (mask >> i) & 1ull;
+}
+
+// Load column j of the m rows of the (m, p) plane x into registers: only
+// the rows set in `rows` are read, the others' registers are left unset.
 template <int MAXM>
 __device__ __forceinline__ void load_column(const float* __restrict__ x,
                                             int m, int64_t p, int64_t j,
-                                            float (&u)[MAXM]) {
+                                            float (&u)[MAXM],
+                                            unsigned long long rows =
+                                                kAllRows) {
 #pragma unroll
   for (int i = 0; i < MAXM; ++i)
-    if (i < m) u[i] = x[static_cast<int64_t>(i) * p + j];
+    if (i < m && row_on(rows, i)) u[i] = x[static_cast<int64_t>(i) * p + j];
 }
 
 // The mean of a column held in registers, and its Eq. 4 dispersion term
@@ -58,12 +72,6 @@ __device__ __forceinline__ float column_mean_dsq(const float (&u)[MAXM],
   }
   *dsq = acc;
   return mean;
-}
-
-// Bit i of a 64-bit row mask: bit i is worker row i (the plane kernels
-// take at most 64 rows).
-__device__ __forceinline__ bool row_on(unsigned long long mask, int i) {
-  return (mask >> i) & 1ull;
 }
 
 // column_mean_dsq over the rows set in `alive` only: their sum in row
@@ -176,6 +184,23 @@ void dispatch_m(int m, F&& f) {
     f(MaxM<32>{});
   else
     f(MaxM<64>{});
+}
+
+// Call f(a, b) with the two run-time flags as std::bool_constant values,
+// so that f can take them as template flags (a kernel's MASKED and CODES
+// instantiations).
+template <class F>
+void dispatch_flags(bool a, bool b, F&& f) {
+  using T = std::true_type;
+  using N = std::false_type;
+  if (a && b)
+    f(T{}, T{});
+  else if (a)
+    f(T{}, N{});
+  else if (b)
+    f(N{}, T{});
+  else
+    f(N{}, N{});
 }
 
 // Sum one float per thread over the block in a fixed tree order and

@@ -260,13 +260,6 @@ def compressed_mix_ref(plane, resid, W, *, wire, u=None, codes=None,
     return out, r_new, disp
 
 
-def avg_disp_ref(plane, *, groups: int = 1, alive=None):
-    """Fused worker-average + dispersion on the flat (M, P) float32 plane
-    (no rounding codes); ``alive`` masks it as in
-    :func:`plane_average_ref`. Returns (averaged plane, dispersion)."""
-    return plane_average_ref(plane, groups=groups, alive=alive)
-
-
 def opt_step_ref(plane, grads, planes, scalars, *, kind, mode="none",
                  groups: int = 1, W=None, mu=0.9, nesterov=False, b1=0.9,
                  b2=0.95, eps=1e-8, weight_decay=0.0, codes=None,

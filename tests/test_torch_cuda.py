@@ -63,6 +63,18 @@ def test_avg_disp_kernel_matches_plain(dev, groups, shape):
     assert avg_disp.launches == n0 + 2
 
 
+@pytest.mark.parametrize("shape", cc.SHAPES, ids=lambda s: f"M{s[0]}P{s[1]}")
+@pytest.mark.parametrize("codes", ["bf16", "mixed"])
+@pytest.mark.parametrize("groups", cc.AVG_GROUPS)
+def test_avg_disp_kernel_with_codes_matches_plain(dev, groups, codes, shape):
+    """avg_disp.cu's CODES instantiation: bitwise plane_average_ref."""
+    m, p, _ = shape
+    x, _, _, _, cd = cc.make_inputs(dev, m, p, "sgd", codes, seed=groups)
+    n0 = avg_disp.launches
+    cc.check_avg_disp(f"g{groups}-{codes}", x, groups, cd)
+    assert avg_disp.launches == n0 + 2
+
+
 @pytest.mark.parametrize("shape", cc.NARROW_SHAPES,
                          ids=lambda s: f"M{s[0]}P{s[1]}")
 @pytest.mark.parametrize("codes", [None, "mixed"], ids=["f32", "codes"])
@@ -105,6 +117,19 @@ def test_mix_disp_kernel_matches_plain(dev, wname, shape):
     x = cc.make_inputs(dev, m, p, "sgd", seed=m)[0]
     n0 = mix_disp.launches
     cc.check_mix_disp(wname, x, cc.mixing_matrix(wname, m, dev))
+    assert mix_disp.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("codes", ["bf16", "mixed"])
+@pytest.mark.parametrize("wname", cc.MIXES)
+def test_mix_disp_kernel_with_codes_matches_plain(dev, wname, codes, shape):
+    """mix_disp.cu's CODES instantiation: bitwise mix_disp_ref."""
+    m, p, _ = shape
+    x, _, _, _, cd = cc.make_inputs(dev, m, p, "sgd", codes, seed=m)
+    n0 = mix_disp.launches
+    cc.check_mix_disp(f"{wname}-{codes}", x,
+                      cc.mixing_matrix(wname, m, dev), cd)
     assert mix_disp.launches == n0 + 2
 
 
@@ -321,16 +346,59 @@ FAULT_MASKS = ("dead", "straggle", "all-alive")
 @pytest.mark.parametrize("mask", FAULT_MASKS)
 def test_fault_events_match_plain(dev, mask, shape):
     """avg_disp(alive=) (groups 1 and the shape's) and mix_disp(alive=)
-    over a ring: one mix_disp launch per call, none of avg_disp."""
+    over a ring, each one launch of its own kernel's masked pass a call:
+    no mix_disp launch for a masked mean."""
     m, p, groups = shape
     alive, _ = cc.fault_masks(m)[mask]
     x = cc.make_inputs(dev, m, p, "sgd", seed=5)[0]
     n0, a0 = mix_disp.launches, avg_disp.launches
     for grp in (1, groups):
         cc.check_avg_disp_fault(f"g{grp}", x, alive, grp)
+    assert (mix_disp.launches - n0, avg_disp.launches - a0) == (0, 4)
     cc.check_mix_disp_fault("ring", x, cc.mixing_matrix("ring", m, dev),
                             alive)
-    assert (mix_disp.launches - n0, avg_disp.launches - a0) == (6, 0)
+    assert (mix_disp.launches - n0, avg_disp.launches - a0) == (2, 4)
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("mask", FAULT_MASKS)
+@pytest.mark.parametrize("codes", ["bf16", "mixed"])
+def test_fault_events_with_codes_match_plain(dev, codes, mask, shape):
+    """The MASKED and CODES instantiations together: bitwise the plain
+    versions on the alive rows, dead rows untouched."""
+    m, p, groups = shape
+    alive, _ = cc.fault_masks(m)[mask]
+    x, _, _, _, cd = cc.make_inputs(dev, m, p, "sgd", codes, seed=6)
+    for grp in (1, groups):
+        cc.check_avg_disp_fault(f"g{grp}-{codes}", x, alive, grp, cd)
+    cc.check_mix_disp_fault(f"ring-{codes}", x,
+                            cc.mixing_matrix("ring", m, dev), alive, cd)
+
+
+@pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+def test_avg_disp_fault_leaves_a_dead_group(dev, shape):
+    """A masked group mean whose first group has no alive row: that
+    group is neither read nor written."""
+    m, p, groups = shape
+    x, _, _, _, cd = cc.make_inputs(dev, m, p, "sgd", "mixed", seed=7)
+    cc.check_avg_disp_fault("empty-group", x, cc.empty_group_mask(m, groups),
+                            groups, cd)
+
+
+def test_event_kernels_refuse_what_they_cannot_take(dev):
+    x = torch.zeros(4, 64, device=dev)
+    W = torch.eye(4, device=dev)
+    for codes in (torch.zeros(64, device=dev, dtype=torch.float64),
+                  torch.zeros(63, device=dev), torch.zeros(64)):
+        with pytest.raises(ValueError, match="codes"):
+            avg_disp(x, codes=codes)
+        with pytest.raises(ValueError, match="codes"):
+            mix_disp(x, W, codes=codes)
+    for alive in ([1, 0.5, 1, 1], [1, 1, 1]):
+        with pytest.raises(ValueError, match="row mask"):
+            avg_disp(x, alive=alive)
+        with pytest.raises(ValueError, match="row mask"):
+            mix_disp(x, W, alive=alive)
 
 
 @pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)

@@ -28,9 +28,9 @@ Cases:
   ls16-*     — the ls recipe with a bfloat16 weight, so every column
               carries a rounding code: ring + one_bit (``compressed_mix``
               with codes), minibatch gossip (``opt_step`` mode mix with
-              codes), gossip alone and the outer optimizer (the plain
-              ``mix_disp_ref`` / ``avg_disp_outer_ref`` the reference
-              prescribes on coded planes). The mix-only cases use gossip
+              codes), gossip alone (``mix_disp`` with codes) and the
+              outer optimizer (its plain ``avg_disp_outer_ref``, as the
+              reference on coded planes). The mix-only cases use gossip
               matchings, whose W (entries 0, ½) makes every mixed value
               one rounded sum of two exact products in any order; a ring
               W's 1/3 entries summed in ``jnp.dot``'s order can move a

@@ -17,16 +17,22 @@ reference's engine, the same numpy draws fed to both.
   reference's wrapper: dead rows (and rows outside the update mask)
   bitwise their inputs; the rest within rtol 1e-6 / atol 1e-6 on f32
   columns (``jnp.dot`` sums a mix, and XLA contracts the update into
-  FMAs, in other orders; a masked mean run as a matrix mix is within
-  (2n + 2) float32 roundings of sum |x| / n of the exact one, under 1e-6
-  at these magnitudes and M <= 8) and one dtype ulp on coded columns;
-  dispersions rtol 1e-5.
+  FMAs, in other orders; the reference's wrapper runs a masked mean as
+  a matrix mix, within (2n + 2) float32 roundings of sum |x| / n of the
+  exact one, ``MEAN_ULPS``, under 1e-6 at these magnitudes and M <= 8)
+  and one dtype ulp on coded columns; dispersions rtol 1e-5.
 - The card paths' logic on CPU tensors (``TestCardPathsOnCpu``: the row
-  words, the degraded W and one launch per call, each ctypes caller
-  replaced by a torch emulation of its kernel's masked column pass; the
-  matrix mean of ``avg_disp`` / ``mix_disp``) held by
-  ``card_check.fault_sweep``'s criteria; rows in a solo window keep
-  their step; ``_build.row_bits``' bit order and refusals.
+  words, the degraded W and one launch per call, each ctypes caller —
+  ``opt_step.cu``, ``compressed_mix.cu``, ``avg_disp.cu`` and
+  ``mix_disp.cu`` — replaced by a torch emulation of its kernel's
+  column pass) held by ``card_check.fault_sweep``'s criteria; the
+  emulated ``avg_disp.cu`` / ``mix_disp.cu`` bitwise their plain
+  versions over row masks x groups x codes x M; rows in a solo window
+  keep their step; ``_build.row_bits``' bit order and refusals.
+- The engine's coded events through the emulated kernels
+  (``TestCodedEventsOnCpu``): periodic, hierarchical and ring events on
+  a bf16 + f32 plane, with and without a plan, one ``avg_disp`` /
+  ``mix_disp`` launch an event, bitwise ``kernel_impl="ref"``.
 - The engine under ``crash:m=1@t=6,rejoin:m=1@t=14`` with straggles
   (0.1) over all seven schedules, a ring, int8, rejoin curricula,
   straggle-aware schedules and a bf16 weight: decisions, ``averages``,
@@ -372,6 +378,30 @@ def _hold(name, got, want, kept, keep_mask, codes=None):
         assert torch.equal(got[i], kept[i]), (name, i)
 
 
+#: float32 units of rounding per cohort row between a masked mean run as
+#: the mix ``A @ x`` (the reference's wrapper, ``faults.masked_event_matrix``)
+#: and the exact sum over the n alive rows divided once: each side is
+#: within (n + 1) units of sum_j |x_j| / n of the exact mean, so the two
+#: within (MEAN_ULPS * n + MEAN_ULPS) * 2**-24 * sum_j |x_j| / n
+MEAN_ULPS = 2
+
+
+def _mean_bounds(q, alive, groups: int) -> list:
+    """Per group, the (P,) bound on |A @ q - exact masked mean|
+    (``MEAN_ULPS``)."""
+    m = q.shape[0]
+    mg = m // groups
+    out = []
+    for g in range(groups):
+        rows = [i for i in range(g * mg, (g + 1) * mg) if alive[i] > 0]
+        s = torch.zeros_like(q[0])
+        for j in rows:
+            s += q[j].abs()
+        n = max(len(rows), 1)
+        out.append(s * (MEAN_ULPS * (n + 1) * 2.0 ** -24 / n))
+    return out
+
+
 FAULT_MASKS = {"dead": (np.array([1, 0, 1, 1, 1, 1, 0, 1], np.float32),
                         np.array([1, 0, 1, 1, 1, 1, 0, 1], np.float32)),
                "straggle": (np.array([1, 0, 1, 1, 1, 1, 0, 1], np.float32),
@@ -434,10 +464,12 @@ class TestFaultWrappers:
         x, _, _, _, cd, _, _ = _plane_inputs(self.M, self.P, "sgd", codes,
                                              seed=5)
         W = ptopo.Topology.build(topo, self.M).mixing_matrix()
-        wants = [jref.mix_disp_ref(_j(x), _j(W), codes=_j(cd),
-                                   alive=jnp.asarray(alive))]
-        outs = [pref.mix_disp_ref(x, W, codes=cd, alive=alive)]
-        if cd is None:  # the kernels take no codes
+        twin = jref.mix_disp_ref(_j(x), _j(W), codes=_j(cd),
+                                 alive=jnp.asarray(alive))
+        wants = [twin, twin]
+        outs = [pref.mix_disp_ref(x, W, codes=cd, alive=alive),
+                mix_disp(x, W, codes=cd, alive=alive)]
+        if cd is None:  # the reference's kernel takes no codes
             wants.append(jad.mix_disp(_j(x), _j(W), alive=jnp.asarray(alive),
                                       interpret=True))
             outs.append(mix_disp(x, W, alive=alive))
@@ -476,18 +508,24 @@ class TestFaultWrappers:
                                        rtol=1e-5)
 
     def test_wrapper_bounds_hold_jax_matrix_means(self):
-        """card_check's masked-mean bound (the card's criterion) holds
-        the reference's matrix mean (its Pallas wrapper) against the
-        port's exact twin."""
+        """The masked-mean bound (``_mean_bounds``) holds the reference's
+        matrix mean (its Pallas wrapper) against the port's exact twin:
+        dead rows bitwise, alive rows within the bound of their group."""
         for seed, (alive, _) in enumerate(FAULT_MASKS.values()):
             x = _plane_inputs(self.M, 4097, "sgd", None, seed=seed)[0]
             for g in (1, 2, 4):
-                want = pref.avg_disp_ref(x, groups=g, alive=alive)[0]
+                want = pref.plane_average_ref(x, groups=g, alive=alive)[0]
                 got = torch.from_numpy(np.array(jad.avg_disp(
                     _j(x), groups=g, alive=jnp.asarray(alive),
                     interpret=True)[0]))
-                cc.hold_rows("bound", got, want, x, alive,
-                             bounds=cc.mean_bounds(x, alive, g))
+                bounds = _mean_bounds(x, alive, g)
+                for i in range(self.M):
+                    if alive[i] <= 0:
+                        assert torch.equal(got[i], x[i]), (g, i)
+                    else:
+                        d = (got[i] - want[i]).abs()
+                        assert bool((d <= bounds[i // (self.M // g)])
+                                    .all()), (g, i, float(d.max()))
 
     @pytest.mark.parametrize("mask", list(FAULT_MASKS))
     def test_card_check_fault_sweep_runs_on_cpu(self, mask):
@@ -612,6 +650,49 @@ def _emulated_compressed_mix_cu(plane, resid, u, codes, W, rowpart, scales,
     return 0
 
 
+def _emulated_avg_disp_cu(plane, out, codes, dpart, disp, *, groups,
+                          alive_bits):
+    """``avg_disp_launch`` in torch on CPU tensors: the rows of the row
+    word (all rows unmasked) read, the dispersion over them, the (group)
+    means of their rows into those rows of ``out`` (the plane itself
+    when masked); no other row read or written."""
+    m = plane.shape[0]
+    alive = _bit_rows((1 << m) - 1 if alive_bits is None else alive_bits, m)
+    u = {i: plane[i].clone() for i in alive}
+    disp.copy_(_masked_disp(u, alive))
+    _write_event(out, u, alive, "group", groups, None, codes)
+    return 0
+
+
+def _emulated_mix_disp_cu(plane, W, out, codes, dpart, disp, *,
+                          alive_bits):
+    """``mix_disp_launch`` in torch on CPU tensors: the rows of the row
+    word read, the pre-mix dispersion over them, their rows of ``W @``
+    (over their columns) into those rows of ``out``; no other row read
+    or written."""
+    m = plane.shape[0]
+    alive = _bit_rows((1 << m) - 1 if alive_bits is None else alive_bits, m)
+    u = {i: plane[i].clone() for i in alive}
+    disp.copy_(_masked_disp(u, alive))
+    _write_event(out, u, alive, "mix", 1, W, codes)
+    return 0
+
+
+def _card_events(monkeypatch):
+    """``avg_disp`` / ``mix_disp``'s card paths on CPU tensors, their
+    ctypes callers replaced by the emulations above. Returns the two
+    card-path functions, with the wrappers' signatures."""
+    monkeypatch.setattr(pad, "_avg_launch", _emulated_avg_disp_cu)
+    monkeypatch.setattr(pad, "_mix_launch", _emulated_mix_disp_cu)
+
+    def avg(plane, *, groups=1, codes=None, alive=None):
+        return pad._card_avg(plane, groups=groups, codes=codes, alive=alive)
+
+    def mix(plane, W, *, codes=None, alive=None):
+        return pad._card_mix(plane, W, codes=codes, alive=alive)
+    return avg, mix
+
+
 #: opt_step's keyword defaults, which the card step takes explicitly
 _OPT_DEFAULTS = {k: v.default for k, v in
                  inspect.signature(pos.opt_step).parameters.items()
@@ -619,28 +700,16 @@ _OPT_DEFAULTS = {k: v.default for k, v in
 
 
 class TestCardPathsOnCpu:
-    """The fault paths' card-side logic on CPU tensors: ``opt_step`` and
-    ``compressed_mix`` reach their kernels' ctypes callers through the
-    card path (row words, the degraded W, one launch each), each caller
-    replaced by a torch emulation of its masked column pass; ``avg_disp``
-    and ``mix_disp`` run their masked event as the mix ``A @ x`` (plain).
-    Held by ``card_check.fault_sweep``'s criteria (the card's) to the
-    exact masked plain versions."""
+    """The fault paths' card-side logic on CPU tensors: ``opt_step``,
+    ``compressed_mix``, ``avg_disp`` and ``mix_disp`` reach their
+    kernels' ctypes callers through the card path (row words, the
+    degraded W, codes, one launch each), each caller replaced by a torch
+    emulation of its column pass. Held by ``card_check.fault_sweep``'s
+    criteria (the card's) to the exact masked plain versions."""
 
     @pytest.fixture
     def card(self, monkeypatch):
-        def avg(plane, *, groups=1, alive=None):
-            if alive is None:
-                return pad.avg_disp(plane, groups=groups)
-            return pad._masked_mix(plane,
-                                   pf.masked_event_matrix(alive, groups),
-                                   alive)
-
-        def mix(plane, W, *, alive=None):
-            if alive is None:
-                return pad.mix_disp(plane, W)
-            return pad._masked_mix(plane, pf.degraded_matrix(W, alive),
-                                   alive)
+        avg, mix = _card_events(monkeypatch)
 
         def compressed(plane, resid, *, mode="mean", groups=1, W=None,
                        **kw):
@@ -666,17 +735,34 @@ class TestCardPathsOnCpu:
         monkeypatch.setattr(cc, "COMM_SHAPES", [shape])
         n0 = cc._launch_counts()
         n, err = cc.fault_sweep(torch.device("cpu"))
-        assert n == 3 * 31
-        # the matrix means differ from the exact ones by rounding; the
-        # kernels' masked passes are bitwise (their launches checked
-        # case by case: one each, none of mix_disp)
-        assert 0.0 < err["avg_disp"] < 1e-5
-        assert err["mix_disp"] == 0.0
-        assert err["opt_step"] == 0.0 and err["compressed_mix"] == 0.0
+        assert n == 3 * 37 + 1
+        # every masked pass is bitwise (its launches checked case by
+        # case: one of its own kernel each, so no mix_disp for a mean)
+        assert err == dict.fromkeys(err, 0.0)
         # two runs of each of 3 masks x (16 opt_step cases and 3 wire
-        # cases; 9 compressed events and those 3)
+        # cases; 9 compressed events and those 3; 3 codes x (ring mix,
+        # 2 group counts of avg_disp)), and of the empty-group avg_disp
         launched = [a - b for a, b in zip(cc._launch_counts(), n0)]
-        assert launched == [2 * 3 * 19, 2 * 3 * 12, 0]
+        assert launched == [2 * 3 * 19, 2 * 3 * 12, 2 * 3 * 3,
+                            2 * (3 * 6 + 1)]
+
+    def test_sweep_holds_the_card_logic(self, card, monkeypatch):
+        """card_check's unmasked sweep through the same card paths, at
+        one shape of each list: every kernel bitwise (``avg_disp`` and
+        ``mix_disp`` over every codes kind), one launch a call."""
+        monkeypatch.setattr(cc, "SHAPES", [(8, 300, 4)])
+        monkeypatch.setattr(cc, "NARROW_SHAPES", [(24, 32)])
+        monkeypatch.setattr(cc, "COMM_SHAPES", [(4, 257, 2)])
+        n0 = cc._launch_counts()
+        n, err = cc.sweep(torch.device("cpu"))
+        # SHAPES: 4 optimizers x 3 modes x 2 codes, 3 groups x 3 codes;
+        # NARROW_SHAPES: 4 x 2 x 2, 3 groups; COMM_SHAPES: 4 mixes x (3
+        # codes + 2 opt_step), 2 outer, 3 wires x 3 modes x 2 x 2 x 2
+        assert n == 24 + 9 + 16 + 3 + 20 + 2 + 72
+        assert err == dict.fromkeys(err, 0.0)
+        launched = [a - b for a, b in zip(cc._launch_counts(), n0)]
+        assert launched == [2 * (24 + 16 + 8 + 36), 2 * 72, 2 * 12,
+                            2 * (9 + 3)]
 
     @pytest.mark.parametrize("mode", ["none", "mean", "group", "mix",
                                       "wire"])
@@ -696,6 +782,121 @@ class TestCardPathsOnCpu:
             kw.update(wire="one_bit", resid=r)
         assert cc.check_opt_step_fault(mode, x, g, st, scal, cd, alive,
                                        umask, **kw) == 0.0
+
+
+def _event_masks(m) -> dict:
+    """Row masks of the event kernels over M rows: none (unmasked), dead
+    rows (card_check's), the first half's rows and one more dead (a
+    group mean with no alive row at groups 2 and 4), and all alive."""
+    return {"none": None, "dead": cc.fault_masks(m)["dead"][0],
+            "empty-group": cc.empty_group_mask(m, 2),
+            "all-alive": np.ones(m, np.float32)}
+
+
+def _held_event(got, want, x, alive):
+    """The card path's plane against the plain version's: bitwise, dead
+    rows bitwise their inputs; the dispersion within rtol 1e-5."""
+    assert torch.equal(got[0], want[0])
+    if alive is not None:
+        for i in np.flatnonzero(alive <= 0):
+            assert torch.equal(got[0][i], x[i])
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-5)
+
+
+class TestEventKernelsOnCpu:
+    """The emulated ``avg_disp.cu`` / ``mix_disp.cu`` passes through the
+    wrappers' card paths (row word, degraded W, codes row; one launch a
+    call, in place under a mask) bitwise the plain versions."""
+
+    @pytest.mark.parametrize("m", [4, 8, 24])
+    @pytest.mark.parametrize("codes", list(cc.CODE_KINDS),
+                             ids=["f32", "bf16", "mixed"])
+    @pytest.mark.parametrize("groups", [1, 2, 4])
+    @pytest.mark.parametrize("mask", ["none", "dead", "empty-group",
+                                      "all-alive"])
+    def test_avg_disp_card_path_is_the_plain_version(self, monkeypatch, mask,
+                                                     groups, codes, m):
+        avg, _ = _card_events(monkeypatch)
+        alive = _event_masks(m)[mask]
+        x, _, _, _, cd = cc.make_inputs(torch.device("cpu"), m, 257, "sgd",
+                                        codes, seed=m + groups)
+        want = pref.plane_average_ref(x, groups=groups, codes=cd,
+                                      alive=alive)
+        xk, n0 = x.clone(), pad.avg_disp.launches
+        got = avg(xk, groups=groups, codes=cd, alive=alive)
+        assert pad.avg_disp.launches == n0 + 1
+        assert (got[0] is xk) == (alive is not None)
+        _held_event(got, want, x, alive)
+
+    @pytest.mark.parametrize("m", [4, 8, 24])
+    @pytest.mark.parametrize("codes", list(cc.CODE_KINDS),
+                             ids=["f32", "bf16", "mixed"])
+    @pytest.mark.parametrize("wname", ["ring", "random"])
+    @pytest.mark.parametrize("mask", ["none", "dead", "empty-group",
+                                      "all-alive"])
+    def test_mix_disp_card_path_is_the_plain_version(self, monkeypatch, mask,
+                                                     wname, codes, m):
+        _, mix = _card_events(monkeypatch)
+        alive = _event_masks(m)[mask]
+        cpu = torch.device("cpu")
+        x, _, _, _, cd = cc.make_inputs(cpu, m, 257, "sgd", codes, seed=m)
+        W = cc.mixing_matrix(wname, m, cpu)
+        want = pref.mix_disp_ref(x, W, codes=cd, alive=alive)
+        xk, n0 = x.clone(), pad.mix_disp.launches
+        got = mix(xk, W, codes=cd, alive=alive)
+        assert pad.mix_disp.launches == n0 + 1
+        assert (got[0] is xk) == (alive is not None)
+        _held_event(got, want, x, alive)
+
+
+def _coded_loss(p, b, r):
+    """Least squares on a bf16 weight and an f32 bias: every column of
+    the plane but the bias's carries the bf16 rounding code."""
+    res = b["x"] @ p["w"].float() + p["b"][0] - b["y"]
+    return 0.5 * torch.mean(res * res), {}
+
+
+class TestCodedEventsOnCpu:
+    """The engine's rare events on a coded plane take ``avg_disp`` /
+    ``mix_disp`` with the codes — here their card paths over the
+    emulated kernels — one launch an event, bitwise the plain versions
+    (``kernel_impl="ref"``), with and without a fault plan."""
+
+    @pytest.mark.parametrize("plan", [None, _PLAN], ids=["no-plan", "plan"])
+    @pytest.mark.parametrize("sname", ["periodic", "hierarchical", "ring"])
+    def test_coded_events_launch_their_kernels(self, monkeypatch, sname,
+                                               plan):
+        from repro_torch.core import engine as engine_mod
+        avg, mix = _card_events(monkeypatch)
+        monkeypatch.setitem(engine_mod._KERNEL_OPS, "avg_disp", avg)
+        monkeypatch.setitem(engine_mod._KERNEL_OPS, "mix_disp", mix)
+        sched = SCHEDS["periodic" if sname == "ring" else sname]
+        topo = ptopo.Topology.ring(WORKERS) if sname == "ring" else None
+        out = {}
+        for impl in ("auto", "ref"):
+            faults = (None if plan is None else
+                      pf.FaultPlan.parse(plan, WORKERS, straggle_prob=0.1))
+            eng = PhaseEngine(_coded_loss, popt.Momentum(lr=0.01, mu=0.9),
+                              AveragingSchedule(**sched), device="cpu",
+                              faults=faults, topology=topo,
+                              kernel_impl=impl)
+            params = {"w": torch.zeros(DIM, dtype=torch.bfloat16),
+                      "b": torch.zeros(1)}
+            n0 = (pad.avg_disp.launches, pad.mix_disp.launches)
+            f, h, st = eng.run(params, iter(_batches()), num_workers=WORKERS,
+                               seed=3, record_every=1, return_state=True)
+            out[impl] = (f, h, st, (pad.avg_disp.launches - n0[0],
+                                    pad.mix_disp.launches - n0[1]))
+        (f, h, st, launched), (fr, hr, sr, none) = out["auto"], out["ref"]
+        assert st.codes is not None and bool((st.codes == 1.0).any())
+        events = h["averages"]
+        assert events > 0 and none == (0, 0)
+        assert launched == ((0, events) if sname == "ring" else (events, 0))
+        assert torch.equal(st.plane, sr.plane)
+        assert h["loss"] == hr["loss"] and h["dispersion"] == hr[
+            "dispersion"]
+        assert all(torch.equal(a, b) for a, b in zip(f.values(),
+                                                     fr.values()))
 
 
 class TestRowBits:

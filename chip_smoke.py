@@ -18,7 +18,8 @@ Phases, each printing one JSON line:
      sweep of ``repro_torch.kernels.card_check`` (``avg_disp`` and
      ``mix_disp`` also with bf16 and mixed rounding codes, bitwise) and
      at full width (M=4 workers x P=361,821,120, smollm-360m; the coded
-     ``avg_disp`` mean and ``mix_disp`` ring mix of the LM plane too),
+     ``avg_disp`` mean, ``mix_disp`` ring mix and ``avg_disp_outer``
+     outer step of the LM plane too),
      bitwise reproducible across two runs, timed with CUDA events beside
      their memory bound; then
      ``flash_attention``, ``rglru_scan`` and ``rwkv6_scan`` over
@@ -34,8 +35,10 @@ Phases, each printing one JSON line:
      mean in ``avg_disp``), periodic K=2 over a ring (the coded mix in
      ``mix_disp``), minibatch, minibatch over a ring (``opt_step`` mode
      mix), periodic K=2 over a ring with the one_bit wire
-     (``compressed_mix``), and minibatch with the bf16 wire (the
-     ``opt_step`` wire path);
+     (``compressed_mix``), minibatch with the bf16 wire (the
+     ``opt_step`` wire path), and periodic K=2 with the outer optimizer
+     (``--outer-momentum 0.5``: the coded outer step in
+     ``avg_disp_outer``, its plain version never called);
   4. the f32 path: the paper's least-squares ``synth-ls-sparse-highrho``
      (4096 x 1024, 24 workers, SGD on lr0 / (t - 1 + d)), its batches
      gathered on the card from a ``DeviceDataset`` index list, its loss
@@ -99,12 +102,24 @@ Phases, each printing one JSON line:
      reported beside the same int8 run without the plan), and
      ``run_host`` bitwise ``run`` on the card; one paired curve, periodic
      128 with and without the plan, the objective every 64 steps;
-  8. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+  8. elastic membership and checkpoints (``repro_torch.elastic``,
+     ``repro_torch.checkpoint``): smollm-360m at full width under the
+     CLI's ``--shrink-at 3:2 --grow-at 5:4 --rejoin-curriculum 1``
+     (periodic K=2, 8 steps, in five ``run_elastic`` calls: the resize
+     lines, step ms and peak memory of each call), a trivial plan
+     bitwise the plain run; the same run through the CLI checkpointed at
+     step 4 (``--checkpoint``, v5, M=2) into a temporary directory and
+     resumed (``--resume``), bitwise the run of (a), with the bytes
+     written and the seconds to save and load, the files deleted after;
+     the least squares of phase 4 (24 workers) shrunk to 16 before step
+     64 and grown back before 160 (curriculum 16) under a fault plan, on
+     the card against the CPU port;
+  9. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
      masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-7)
+Every launch count is set to 0 just before a main-path run (phases 3-8)
 and read just after; the ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
 also refuses to run without a CUDA device. All of its work happens under
@@ -213,10 +228,12 @@ def masked_event_cost(m, p, n_alive, has_codes, mix=False):
     return nbytes, (4 + (2 * n_alive if mix else 0)) * n_alive * p
 
 
-def avg_disp_outer_cost(m, p):
-    """The plane, prev and vel read once; the plane, new and vel' written
-    once; 4 flops per element and 7 per column for the momentum step."""
-    return 2 * m * p * 4 + 4 * p * 4, 4 * m * p + 7 * p
+def avg_disp_outer_cost(m, p, has_codes=False):
+    """The plane, prev, vel (and the codes row) read once; the plane, new
+    and vel' written once; 4 flops per element and 7 per column for the
+    momentum step."""
+    return (2 * m * p * 4 + 4 * p * 4 + (p * 4 if has_codes else 0),
+            4 * m * p + 7 * p)
 
 
 def compressed_cost(m, p, wire, has_codes, mix=False):
@@ -659,23 +676,29 @@ def main() -> None:
                    lambda: ref.mix_disp_ref(x, ring, codes=cd),
                    mix_disp_cost(FULL_M, FULL_P, cd is not None),
                    lib=lambda: torch.matmul(ring, x))
-    del codes
-    free()
 
+    # the outer step, f32 and with the LM plane's bf16 codes (the CODES
+    # instantiation: the coded outer event of the main path)
     gen = torch.Generator(device=dev).manual_seed(10)
     prev = torch.randn(FULL_P, device=dev, generator=gen)
     vel = torch.randn(FULL_P, device=dev, generator=gen) * 1e-2
-    okw = dict(lr=1.0, momentum=0.5, nesterov=True)
-    e = cc.check_avg_disp_outer("avg_disp_outer/full", x, prev, vel, **okw)
-    err["avg_disp_outer"] = max(err["avg_disp_outer"], e)
-    free()
-    k_ms = cuda_time(lambda: avg_disp_outer(x, prev, vel, **okw), 10)
-    free()
-    p_ms = cuda_time(lambda: ref.avg_disp_outer_ref(x, prev, vel, **okw), 3)
-    free()
-    record("avg_disp_outer/nesterov", k_ms, p_ms,
-           avg_disp_outer_cost(FULL_M, FULL_P))
-    del x, prev, vel
+    for cd in (None, codes):
+        tag = "nesterov" + ("-codes" if cd is not None else "")
+        pv = prev if cd is None else ref.round_to_codes(prev, cd)
+        okw = dict(lr=1.0, momentum=0.5, nesterov=True, codes=cd)
+        e = cc.check_avg_disp_outer(f"avg_disp_outer/full-{tag}", x, pv,
+                                    vel, **okw)
+        err["avg_disp_outer"] = max(err["avg_disp_outer"], e)
+        free()
+        k_ms = cuda_time(lambda: avg_disp_outer(x, pv, vel, **okw), 10)
+        free()
+        p_ms = cuda_time(lambda: ref.avg_disp_outer_ref(x, pv, vel, **okw),
+                         3)
+        free()
+        record(f"avg_disp_outer/{tag}", k_ms, p_ms,
+               avg_disp_outer_cost(FULL_M, FULL_P, cd is not None))
+        del pv
+    del x, prev, vel, codes
     free()
 
     # the serving kernels: card_check's sweep, then each timed at its
@@ -763,6 +786,17 @@ def main() -> None:
               "--seq", "64", "--optimizer", "momentum", "--lr", "0.01",
               "--device", "cuda"]
     runs = {}
+    # every way the engine could reach the outer step's plain version,
+    # counted: the coded outer event must launch avg_disp_outer instead
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.kernels import avg_disp as avg_mod
+    plain_outer = {"calls": 0}
+
+    def counted_outer_ref(*a, **k):
+        plain_outer["calls"] += 1
+        return ref.avg_disp_outer_ref(*a, **k)
+    avg_mod.avg_disp_outer_ref = counted_outer_ref
+    engine_mod._PLAIN_OPS["avg_disp_outer"] = counted_outer_ref
     for name, extra, phase_len, steps, events, expect in (
             ("periodic", ["--avg", "periodic", "--phase-len", "2"], None, 6,
              3, {"opt_step": 6, "avg_disp": 3}),
@@ -778,7 +812,10 @@ def main() -> None:
              {"opt_step": 4, "compressed_mix": 2}),
             ("minibatch-bf16-wire", ["--avg", "minibatch", "--comm-dtype",
                                      "bf16"], 1, 2, 2,
-             {"opt_step": 2, "compressed_mix": 2})):
+             {"opt_step": 2, "compressed_mix": 2}),
+            ("periodic-outer", ["--avg", "periodic", "--phase-len", "2",
+                                "--outer-momentum", "0.5"], None, 4, 2,
+             {"opt_step": 4, "avg_disp_outer": 2})):
         final, hist, state, wall = train_run(
             common + ["--steps", str(steps)] + extra, phase_len)
         got = read_counts(expect, name)
@@ -799,6 +836,14 @@ def main() -> None:
             check(all(bool(torch.isfinite(r).all()) for r in state.resid),
                   f"{name}: residual not finite")
             resid_abs_max = max(float(r.abs().max()) for r in state.resid)
+        check((state.outer_state != ()) == ("--outer-momentum" in extra),
+              f"{name}: outer state")
+        if state.outer_state != ():
+            prev = state.outer_state[0]
+            check(torch.equal(prev, prev.to(torch.bfloat16).float())
+                  and torch.equal(prev, plane[0]),
+                  f"{name}: the outer average off the grid or not "
+                  "broadcast")
         runs[name] = dict(steps=steps, averages=hist["averages"],
                           loss_first=losses[0], loss_last=losses[-1],
                           launches=got, step_ms=steady_step_ms(
@@ -808,6 +853,11 @@ def main() -> None:
                           / 1e9)
         del final, hist, state, plane
         free()
+    check(plain_outer["calls"] == 0,
+          f"the plain avg_disp_outer_ref ran {plain_outer['calls']} times")
+    avg_mod.avg_disp_outer_ref = ref.avg_disp_outer_ref
+    engine_mod._PLAIN_OPS["avg_disp_outer"] = ref.avg_disp_outer_ref
+    runs["periodic-outer"]["plain_outer_calls"] = plain_outer["calls"]
     emit({"phase": "main_path_bf16", "arch": "smollm-360m",
           "params": FULL_P, "workers": FULL_M, **runs, "card": smi})
 
@@ -1616,7 +1666,221 @@ def main() -> None:
                                  "f_star": fstar, **curve},
           "wall_s": time.perf_counter() - t_faults, "card": smi})
 
-    # ---- 8. summary --------------------------------------------------------
+    # ---- 8. elastic membership and checkpoints ------------------------------
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import elastic
+    from repro_torch.checkpoint import io as ckio
+    t_el = time.perf_counter()
+    part_s = {}
+    tp = time.perf_counter()
+    # (a) smollm-360m at full width through the CLI's setup and plan:
+    # shrink 4 -> 2 before step 3, grow back to 4 before step 5 (the grown
+    # rows one solo step), driven in five run_elastic calls so that each
+    # call's peak memory is read: the resize with its segment's first
+    # step, then the segment's other steps (training alone)
+    el_argv = common + ["--avg", "periodic", "--phase-len", "2",
+                        "--shrink-at", "3:2", "--grow-at", "5:4",
+                        "--rejoin-curriculum", "1"]
+    ap = train.make_parser()
+    args = ap.parse_args(el_argv + ["--steps", "8"])
+    _, engine, params, batches = train.setup(args, ap)
+    plan = train.elastic_plan(args, ap)
+    check(plan.resizes == ((3, 2), (5, 4)) and plan.curriculum == 1,
+          f"elastic plan {plan}")
+
+    def cli_data(m, t0, k, b=batches):
+        return b(m, k)
+    zero_counts()
+    # the state rides in a list that the call pops, so that this frame
+    # holds no reference to it during the call: a resize frees the old
+    # planes as one run_elastic call over all the steps does
+    carry, calls, losses, resizes, events = [None], [], [], [], 0
+    for stop in (2, 3, 4, 5, 8):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        out = elastic.run_elastic(
+            engine, params, cli_data, plan, steps=stop, seed=args.seed,
+            record_every=1, state=carry.pop(), return_state=True,
+            phase_len=1)
+        torch.cuda.synchronize(dev)
+        h, state = out[1], out[2]
+        del out
+        for t_, old_m, new_m in h["resizes"]:
+            kind = "shrink" if new_m < old_m else "grow"
+            print(f"[train] {kind} {old_m} -> {new_m} workers before step "
+                  f"{t_}", flush=True)
+        calls.append(dict(
+            steps=[h["phase_wall"][0][0], stop],
+            workers=state.plane.shape[0],
+            resizes=h["resizes"], wall_s=time.perf_counter() - t,
+            step_ms=[1e3 * w for *_, w in h["phase_wall"]],
+            peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            allocated_after_gb=torch.cuda.memory_allocated(dev) / 1e9))
+        losses += [v for _, v in h["loss"]]
+        resizes += h["resizes"]
+        events += h["averages"]
+        carry.append(state)
+        del state
+    state = carry.pop()
+    got = read_counts({"opt_step": 8, "avg_disp": 4}, "elastic smollm")
+    check(resizes == [(3, 4, 2), (5, 2, 4)], f"resizes {resizes}")
+    check(events == 4 and len(losses) == 8
+          and all(map(math.isfinite, losses)), f"elastic: {events} events, "
+          f"losses {losses}")
+    check(state.plane.shape == (FULL_M, FULL_P) and all(
+        torch.equal(r, r.to(torch.bfloat16).float()) for r in state.plane),
+        "elastic: the plane's shape or its bf16 grid")
+    el_a = state
+    el_lm = dict(plan=" ".join(el_argv[-6:]), steps=8, resizes=resizes,
+                 averages=events, launches=got, loss_first=losses[0],
+                 loss_last=losses[-1], calls=calls)
+    del h
+    # the trivial plan (a no-op resize at 3) against the plain run, 4 steps
+    # each from the same init and streams: bitwise on the card
+    triv = {}
+    for name in ("trivial", "plain"):
+        args4 = ap.parse_args(common + ["--avg", "periodic", "--phase-len",
+                                        "2", "--steps", "4"])
+        _, eng4, params4, batches4 = train.setup(args4, ap)
+        zero_counts()
+        if name == "trivial":
+            out = elastic.run_elastic(
+                eng4, params4, lambda m, t0, k, b=batches4: b(m, k),
+                elastic.ElasticPlan(FULL_M, ((3, FULL_M),)), steps=4,
+                seed=0, record_every=1, return_state=True)
+        else:
+            out = eng4.run(params4, batches4(), num_workers=FULL_M, seed=0,
+                           record_every=1, return_state=True)
+        read_counts({"opt_step": 4, "avg_disp": 2}, f"elastic {name}")
+        triv[name] = (out[1]["loss"], out[2])
+        del out, params4
+    check(triv["trivial"][0] == triv["plain"][0]
+          and torch.equal(triv["trivial"][1].plane, triv["plain"][1].plane)
+          and all(torch.equal(a_, b_) for a_, b_ in zip(
+              triv["trivial"][1].opt_planes, triv["plain"][1].opt_planes)),
+          "the trivial elastic plan is not the plain run on the card")
+    el_lm["trivial_plan_bitwise_plain"] = True
+    del triv, engine, params
+    free()
+    part_s["smollm_360m"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+
+    # (b) the same run through the CLI, checkpointed at step 4 (M=2) into
+    # a temporary directory and resumed for 4 more steps: bitwise (a)
+    timing = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            timing[name] = time.perf_counter() - t
+            return out
+        return run
+    saved = {n: getattr(train, n) for n in ("save_checkpoint",
+                                            "save_engine_state",
+                                            "load_engine_state")}
+    for n, fn in saved.items():
+        setattr(train, n, timed(f"{n}_s", fn))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        ck = os.path.join(tmp, "run")
+        zero_counts()
+        train.main(el_argv + ["--steps", "4", "--checkpoint", ck])
+        nbytes = {f: os.path.getsize(os.path.join(tmp, f))
+                  for f in sorted(os.listdir(tmp))}
+        meta = json.load(open(ck + ".state.json"))["extra"]
+        check(meta["engine_state_version"] == 5
+              and meta["num_workers"] == 2, f"checkpoint meta {meta}")
+        _, _, st_b = train.main(el_argv + ["--steps", "4", "--resume",
+                                           ck + ".state"])
+        got = read_counts({"opt_step": 8, "avg_disp": 4}, "checkpoint CLI")
+    finally:
+        for n, fn in saved.items():
+            setattr(train, n, fn)
+        shutil.rmtree(tmp)
+    check(not os.path.exists(tmp), "checkpoint files left behind")
+    bitwise = (torch.equal(st_b.plane, el_a.plane)
+               and all(torch.equal(a_, b_) for a_, b_ in
+                       zip(st_b.opt_planes, el_a.opt_planes))
+               and np.array_equal(st_b.fault.alive, el_a.fault.alive))
+    check(bitwise, "checkpoint at step 4 and resume: not bitwise the "
+          "uninterrupted run on the card (max |diff| "
+          f"{float((st_b.plane - el_a.plane).abs().max())})")
+    el_ck = dict(step=4, workers_at_save=2, version=5, bytes=nbytes,
+                 bytes_total=sum(nbytes.values()), **timing,
+                 launches=got, resumed_bitwise_uninterrupted=bitwise)
+    del st_b, el_a, state
+    free()
+    part_s["checkpoint"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+
+    # (c) the least squares at 24 workers under an elastic plan and a
+    # fault plan, on the card against the CPU port: shrink to 16 before
+    # step 64, grow back to 24 before step 160 (16 solo steps)
+    c = CONVEX_SUITE[0]
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    eplan = elastic.ElasticPlan(mw, ((64, 16), (160, mw)), curriculum=16)
+    base = FaultPlan.parse("crash:m=3@t=40,rejoin:m=3@t=120", mw,
+                           straggle_prob=0.1, rejoin_curriculum=16)
+    idx_e = np.random.default_rng(3).integers(0, c.num_samples, (256, mw))
+
+    def ls_elastic(device):
+        Xs, ys = Xd.to(device), yd.to(device)
+        eng = PhaseEngine(convex_loss("ls"), sgd_f,
+                          AveragingSchedule("periodic", phase_len=16),
+                          device=device, faults=base)
+
+        def data(m, t0, k):
+            return DeviceDataset({"x": Xs, "y": ys}, m,
+                                 indices=idx_e[t0 - 1:t0 - 1 + k, :m],
+                                 device=device)
+        return elastic.run_elastic(
+            eng, {"w": torch.zeros(c.num_dims, device=device)}, data,
+            eplan, steps=256, seed=0, record_every=1, return_state=True)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    fg, hg, sg = ls_elastic("cuda")
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t0
+    got = read_counts({"opt_step": 256, "avg_disp": hg["averages"]},
+                      "ls elastic")
+    t0 = time.perf_counter()
+    fc, hc, sc = ls_elastic("cpu")
+    cpu_s = time.perf_counter() - t0
+    check(hg["resizes"] == hc["resizes"] == [(64, 24, 16), (160, 16, 24)]
+          and [t_ for t_, _ in hg["dispersion"]]
+          == [t_ for t_, _ in hc["dispersion"]] and hg["averages"] == 16,
+          "ls elastic: resizes or event steps, card against CPU")
+    check(np.array_equal(sg.fault.alive, sc.fault.alive)
+          and np.array_equal(sg.fault.staleness, sc.fault.staleness),
+          "ls elastic: fault rows, card against CPU")
+    np.testing.assert_allclose([v for _, v in hg["loss"]],
+                               [v for _, v in hc["loss"]], rtol=1e-4,
+                               atol=1e-7, err_msg="ls elastic: losses")
+    np.testing.assert_allclose(fg["w"].cpu().numpy(), fc["w"].numpy(),
+                               rtol=1e-4, atol=1e-6, err_msg="ls elastic")
+    el_ls = dict(config=c.name, steps=256, plan="shrink 64:16, grow 160:24, "
+                 "curriculum 16", faults="crash:m=3@t=40,rejoin:m=3@t=120",
+                 straggle_prob=0.1, resizes=hg["resizes"],
+                 events=hg["averages"], launches=got, card_s=card_s,
+                 cpu_twin_s=cpu_s, objective_end=objective(fg["w"]),
+                 alive=sg.fault.alive.tolist(),
+                 cuda_vs_cpu="losses rtol 1e-4 / atol 1e-7, params rtol "
+                             "1e-4 / atol 1e-6")
+    del fg, hg, sg, fc, hc, sc, Xd, yd
+    free()
+    part_s["least_squares"] = time.perf_counter() - tp
+    emit({"phase": "elastic_checkpoint", "part_s": part_s,
+          "smollm_360m": el_lm, "checkpoint": el_ck, "least_squares": el_ls,
+          "wall_s": time.perf_counter() - t_el, "card": smi})
+
+    # ---- 9. summary --------------------------------------------------------
     def line(name, src, replaces, row, fault=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -1637,9 +1901,11 @@ def main() -> None:
              full["avg_disp/g1"], ff["avg_disp/fault-g1"]),
         line("mix_disp", "mix_disp", "src/repro/kernels/avg_disp.py:203",
              full["mix_disp/ring"], ff["mix_disp/fault-ring"]),
-        line("avg_disp_outer", "avg_disp_outer",
-             "src/repro/kernels/avg_disp.py:251",
-             full["avg_disp_outer/nesterov"]),
+        dict(line("avg_disp_outer", "avg_disp_outer",
+                  "src/repro/kernels/avg_disp.py:251",
+                  full["avg_disp_outer/nesterov-codes"]),
+             f32_ms=full["avg_disp_outer/nesterov"]["ms"],
+             f32_bound_ms=full["avg_disp_outer/nesterov"]["bound_ms"]),
         line("compressed_mix", "compressed_mix",
              "src/repro/kernels/avg_disp.py:295",
              full["compressed_mix/one_bit-mix-codes"],

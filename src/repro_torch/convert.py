@@ -4,7 +4,7 @@
 structure and every leaf's shape and dtype — an RG-LRU block's (H, bw,
 bw) gates ``wa`` / ``wi`` and its float32 ``lam``, and an RWKV block's
 float32 ``w0``, ``u`` and ``ln_out``, inside a bfloat16 tree included. ``np.asarray`` of a JAX bfloat16 array
-is an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects;
+has numpy's extension bfloat16 dtype, which ``torch.from_numpy`` rejects;
 such leaves go through float32 (which holds every bfloat16 value
 exactly) and then to ``torch.bfloat16``.
 """

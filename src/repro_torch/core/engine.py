@@ -21,10 +21,9 @@ decision picks: ``avg_disp`` (mean / group mean), ``mix_disp`` (``W @``),
 ``avg_disp_outer``, or ``compressed_mix`` with a wire format. On the
 card those are the hand-written CUDA kernels; on the CPU their plain
 versions run. On a plane whose columns carry bf16/f16 rounding codes,
-``avg_disp`` and ``mix_disp`` take the codes in their kernels (the
-reference takes its jnp twins there: the same function); only the outer
-step, which ``avg_disp_outer`` takes without codes, runs its plain
-version on the card too.
+``avg_disp``, ``mix_disp`` and ``avg_disp_outer`` take the codes in
+their kernels (the reference takes its jnp twins there: the same
+function), so no event runs a plain version on the card.
 
 Randomness is the reference's: ``init`` makes ``key, dec_key =
 split(PRNGKey(seed))`` with :mod:`repro_torch.rng`, the data key splits
@@ -360,8 +359,8 @@ class PhaseEngine:
         fused pass, ``avg_disp`` (mean or group mean) or ``mix_disp``
         with a mixing topology, rounded through the plane's codes and
         masked over ``alive`` under faults; or, for the all-scope with an
-        outer optimizer (never under faults), ``avg_disp_outer``, whose
-        plain version takes the codes. Returns (plane, outer state)."""
+        outer optimizer (never under faults), ``avg_disp_outer``, rounded
+        through the codes. Returns (plane, outer state)."""
         codes = state.codes
         if scope == "inner":
             return self._op("avg_disp")(
@@ -371,12 +370,8 @@ class PhaseEngine:
             return self._op("mix_disp")(plane, W, codes=codes,
                                         alive=alive)[0], outer_c
         if self.outer is not None and outer_c != ():
-            if codes is None:
-                plane, prev, vel, _ = self._op("avg_disp_outer")(
-                    plane, *outer_c, **self._outer_kw())
-            else:
-                plane, prev, vel, _ = avg_disp_outer_ref(
-                    plane, *outer_c, codes=codes, **self._outer_kw())
+            plane, prev, vel, _ = self._op("avg_disp_outer")(
+                plane, *outer_c, codes=codes, **self._outer_kw())
             return plane, (prev, vel)
         return self._op("avg_disp")(plane, groups=self._all_groups(),
                                     codes=codes, alive=alive)[0], outer_c
@@ -414,8 +409,8 @@ class PhaseEngine:
         """The local update and, per ``scope``, the averaging event in
         one ``opt_step`` pass: mode none / mean / group / mix, or the
         compressed event with a wire format. The all-scope with an outer
-        optimizer runs the update alone and then ``avg_disp_outer`` (its
-        plain version on planes with codes). ``fmask``: the step's
+        optimizer runs the update alone and then ``avg_disp_outer``.
+        ``fmask``: the step's
         ``(mix, umask)`` under faults. Returns (plane, state planes,
         outer state, residual, dispersion)."""
         codes = state.codes
@@ -448,12 +443,8 @@ class PhaseEngine:
         if self.outer is not None and outer_c != ():
             plane, planes, _ = self._op("opt_step")(
                 plane, gplane, planes, scalars, mode="none", **kw)
-            if codes is None:
-                plane, prev, vel, disp = self._op("avg_disp_outer")(
-                    plane, *outer_c, **self._outer_kw())
-            else:
-                plane, prev, vel, disp = avg_disp_outer_ref(
-                    plane, *outer_c, codes=codes, **self._outer_kw())
+            plane, prev, vel, disp = self._op("avg_disp_outer")(
+                plane, *outer_c, codes=codes, **self._outer_kw())
             return plane, planes, (prev, vel), resid, disp
         groups = self._all_groups()
         plane, planes, disp = self._op("opt_step")(

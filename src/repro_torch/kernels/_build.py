@@ -56,8 +56,8 @@ SIGNATURES = {
     "mix_disp": ("mix_disp_launch",
                  [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _ULL, _P]),
     "avg_disp_outer": ("avg_disp_outer_launch",
-                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _F, _F,
-                        _I, _P]),
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _F,
+                        _F, _I, _P]),
     "compressed_mix": ("compressed_mix_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
                         _I, _I, _I, _I, _ULL, _P]),

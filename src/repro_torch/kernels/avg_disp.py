@@ -24,10 +24,9 @@ masked events update the plane (and the residual) in place on the card
 
 ``codes`` ((P,) f32 rounding codes, ``FlatSpec.rounding_codes``) round
 the event's output per column through the leaf dtype, as the plain
-versions do: ``avg_disp`` and ``mix_disp`` take them in their kernels'
-``CODES`` instantiations, bitwise ``plane_average_ref`` /
-``mix_disp_ref``; ``avg_disp_outer`` takes none (its plain version
-does).
+versions do: each of ``avg_disp``, ``mix_disp`` and ``avg_disp_outer``
+takes them in its kernel's ``CODES`` instantiation, bitwise
+``plane_average_ref`` / ``mix_disp_ref`` / ``avg_disp_outer_ref``.
 
 ``alive`` ((M,) 0/1, :mod:`repro_torch.faults`) degrades ``avg_disp``,
 ``mix_disp`` and ``compressed_mix`` over the alive rows, as the
@@ -185,34 +184,57 @@ def _mix_launch(plane, W, out, codes, dpart, disp, *, alive_bits) -> int:
 
 
 def avg_disp_outer(plane, prev_avg, vel, *, lr: float, momentum: float,
-                   nesterov: bool = True):
+                   nesterov: bool = True, codes=None):
     """Fused all-average + dispersion + outer momentum step. plane:
-    (M, P) f32; prev_avg/vel: (P,) f32. Returns (averaged plane,
-    new_avg, new_vel, dispersion), all new tensors."""
-    m, p = plane.shape
+    (M, P) f32; prev_avg/vel: (P,) f32; ``codes`` round the mean before
+    the outer gradient and the new average (module note; the dispersion
+    is against the unrounded mean, the velocity stays f32). Returns
+    (averaged plane, new_avg, new_vel, dispersion), all new tensors."""
+    p = plane.shape[1]
     for name, t in (("prev_avg", prev_avg), ("vel", vel)):
         if tuple(t.shape) != (p,):
             raise ValueError(f"{name} must be ({p},), got {tuple(t.shape)}")
     kw = dict(lr=lr, momentum=momentum, nesterov=nesterov)
     if plane.device.type == "cpu":
-        return avg_disp_outer_ref(plane, prev_avg, vel, **kw)
+        return avg_disp_outer_ref(plane, prev_avg, vel, codes=codes, **kw)
     _cuda_plane("avg_disp_outer", plane)
-    _check_plane("avg_disp_outer", plane)
-    _build.check_plane("avg_disp_outer", "prev_avg", prev_avg, plane[0])
-    _build.check_plane("avg_disp_outer", "vel", vel, plane[0])
+    return _card_outer(plane, prev_avg, vel, codes=codes, **kw)
+
+
+def _card_outer(plane, prev_avg, vel, *, codes, lr, momentum, nesterov):
+    """One ``avg_disp_outer.cu`` launch on the card's tensors; counts it
+    in ``avg_disp_outer.launches``. Returns (plane, new_avg, new_vel,
+    dispersion)."""
+    what = "avg_disp_outer"
+    _check_plane(what, plane)
+    _build.check_plane(what, "prev_avg", prev_avg, plane[0])
+    _build.check_plane(what, "vel", vel, plane[0])
+    if codes is not None:
+        _build.check_plane(what, "codes", codes, plane[0])
     out = torch.empty_like(plane)
     new_avg, new_vel = torch.empty_like(prev_avg), torch.empty_like(vel)
     dpart, disp = _scratch(plane)
+    err = _outer_launch(plane, prev_avg, vel, codes, out, new_avg, new_vel,
+                        dpart, disp, lr=lr, momentum=momentum,
+                        nesterov=nesterov)
+    _build.check(err, what)
+    avg_disp_outer.launches += 1
+    return out, new_avg, new_vel, disp
+
+
+def _outer_launch(plane, prev_avg, vel, codes, out, new_avg, new_vel, dpart,
+                  disp, *, lr, momentum, nesterov) -> int:
+    """``avg_disp_outer_launch`` on the current stream (``codes`` None:
+    the f32 instantiation). Returns its ``cudaError_t``."""
+    m, p = plane.shape
     lib = _build.library("avg_disp_outer")
     with torch.cuda.device(plane.device):
-        err = lib.avg_disp_outer_launch(
+        return lib.avg_disp_outer_launch(
             plane.data_ptr(), prev_avg.data_ptr(), vel.data_ptr(),
+            codes.data_ptr() if codes is not None else None,
             out.data_ptr(), new_avg.data_ptr(), new_vel.data_ptr(),
             dpart.data_ptr(), disp.data_ptr(), m, p, lr, momentum,
             int(nesterov), _stream())
-    _build.check(err, "avg_disp_outer")
-    avg_disp_outer.launches += 1
-    return out, new_avg, new_vel, disp
 
 
 def _check_mix(mode: str, W, m: int) -> None:

@@ -34,9 +34,9 @@ away from the exact answer; its own error against the yardstick is
 reported beside the kernel's. All three run twice and must agree bitwise with
 themselves (no atomics).
 
-The communication kernels — ``mix_disp`` (with and without codes),
-``opt_step`` mode mix,
-``avg_disp_outer``, ``compressed_mix`` and the ``opt_step`` wire path —
+The communication kernels — ``mix_disp`` and ``avg_disp_outer`` (with
+and without codes), ``opt_step`` mode mix, ``compressed_mix`` and the
+``opt_step`` wire path —
 are held bitwise to their plain versions: the mix is the same j-ordered
 sum of separately rounded products, the int8 quantizer the same IEEE
 division, floor and clamp. one_bit's row scale is a float64 sum in
@@ -295,10 +295,24 @@ def check_mix_disp(name, x, W, codes=None) -> float:
     return err
 
 
-def check_avg_disp_outer(name, x, prev, vel, **kw) -> float:
+def outer_inputs(dev, m, p, codes_kind=None, seed=0):
+    """(x, prev, vel, codes) of an ``avg_disp_outer`` call drawn on
+    ``dev`` from ``seed``: x and codes as :func:`make_inputs` draws them,
+    prev on the codes' grid (as the engine's outer state is), vel f32."""
+    x, _, _, _, codes = make_inputs(dev, m, p, "sgd", codes_kind, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prev = torch.randn(p, device=dev, generator=g)
+    vel = torch.randn(p, device=dev, generator=g) * 1e-2
+    if codes is not None:
+        prev = ref.round_to_codes(prev, codes)
+    return x, prev, vel, codes
+
+
+def check_avg_disp_outer(name, x, prev, vel, codes=None, **kw) -> float:
     """Run ``avg_disp_outer`` twice and hold the plane and the outer
-    state bitwise against ``avg_disp_outer_ref``. Returns the max abs
-    error."""
+    state bitwise against ``avg_disp_outer_ref`` (with and without
+    rounding codes). Returns the max abs error."""
+    kw["codes"] = codes
     want = ref.avg_disp_outer_ref(x, prev, vel, **kw)
     got = avg_disp_outer(x, prev, vel, **kw)
     err = max_err(name, got[0], want[0], exact=True)
@@ -408,8 +422,8 @@ def check_avg_disp(name, x, groups, codes=None) -> float:
 def comm_sweep(dev) -> tuple[int, dict]:
     """The communication kernels over ``COMM_SHAPES``: ``mix_disp`` (every
     codes kind) and ``opt_step`` mode mix under every W of ``MIXES``,
-    ``avg_disp_outer``
-    with Nesterov on and off, and ``compressed_mix`` and the ``opt_step``
+    ``avg_disp_outer`` with Nesterov on and off over every codes kind,
+    and ``compressed_mix`` and the ``opt_step``
     wire path over every wire x mean / group / mix x codes x error
     feedback. Returns (number of cases, max abs error per kernel)."""
     err = {"opt_step": 0.0, "mix_disp": 0.0, "avg_disp_outer": 0.0,
@@ -437,14 +451,14 @@ def comm_sweep(dev) -> tuple[int, dict]:
                 err["opt_step"] = max(err["opt_step"], e)
                 n += 1
         for nesterov in (True, False):
-            gen = torch.Generator(device=dev).manual_seed(3000 + n)
-            x, prev, vel = (torch.randn(s, device=dev, generator=gen)
-                            for s in ((m, p), (p,), (p,)))
-            e = check_avg_disp_outer(
-                f"avg_disp_outer/nesterov={nesterov}-M{m}P{p}", x, prev,
-                vel, lr=0.7, momentum=0.5, nesterov=nesterov)
-            err["avg_disp_outer"] = max(err["avg_disp_outer"], e)
-            n += 1
+            for codes_kind in CODE_KINDS:
+                e = check_avg_disp_outer(
+                    f"avg_disp_outer/nesterov={nesterov}-{codes_kind}-"
+                    f"M{m}P{p}", *outer_inputs(dev, m, p, codes_kind,
+                                               seed=3000 + n),
+                    lr=0.7, momentum=0.5, nesterov=nesterov)
+                err["avg_disp_outer"] = max(err["avg_disp_outer"], e)
+                n += 1
         W = mixing_matrix("ring", m, dev)
         for wire in WIRES:
             for mode in ("mean", "group", "mix"):

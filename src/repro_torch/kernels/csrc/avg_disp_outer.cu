@@ -7,14 +7,20 @@
 //   out_i = new for every row i.
 //
 // Replaces the TPU kernel repro/kernels/avg_disp.py::avg_disp_outer
-// (_avg_disp_outer_kernel, avg_disp.py:62; pallas_call at :270). Like it,
-// it takes no rounding codes: planes with codes take the plain version in
-// the engine, as the reference prescribes.
+// (_avg_disp_outer_kernel, avg_disp.py:62; pallas_call at :270). The TPU
+// kernel takes no rounding codes: the reference's engine sends planes
+// with codes to its jnp twin (engine.py:595-600, 628-633). Here a CODES
+// template flag takes that twin's function, avg_disp_outer_ref(codes=):
+// a (P,) f32 row of rounding codes (0 f32, 1 bf16, 2 f16); the mean goes
+// through round_code before g = prev - avg, the dispersion stays against
+// the unrounded mean, and new goes through round_code before it is
+// written and broadcast; vel' stays f32.
 //
 // Bound on an H100 (3.35 TB/s): memory. The pass reads the plane, prev and
 // vel once and writes the output plane, new and vel' once:
 // 2 * M * P * 4 + 4 * P * 4 bytes = 17.37 GB at M = 4, P = 361,821,120
-// (5.18 ms), at about 10 flops per column — far below the ridge.
+// (5.18 ms); the codes row adds P * 4 (18.82 GB, 5.62 ms). About 10 flops
+// per column — far below the ridge.
 //
 // Design: the column sweep of avg_disp.cu — one thread per column, the M
 // values in registers (compile-time bound MAXM) for the mean and the
@@ -27,11 +33,12 @@
 
 namespace {
 
-template <int MAXM>
+template <int MAXM, bool CODES>
 __global__ void __launch_bounds__(kPlaneThreads)
 avg_disp_outer_cols(const float* __restrict__ x,
                     const float* __restrict__ prev,
-                    const float* __restrict__ vel, float* __restrict__ out,
+                    const float* __restrict__ vel,
+                    const float* __restrict__ codes, float* __restrict__ out,
                     float* __restrict__ new_avg, float* __restrict__ new_vel,
                     float* __restrict__ dpart, int m, int64_t p, float lr,
                     float momentum, int nesterov) {
@@ -39,14 +46,16 @@ avg_disp_outer_cols(const float* __restrict__ x,
                     threadIdx.x;
   float dsq = 0.0f;
   if (j < p) {
+    const float code = CODES ? codes[j] : 0.0f;
     float u[MAXM];
     load_column(x, m, p, j, u);
-    const float mean = column_mean_dsq(u, m, &dsq);
+    // the dispersion is against the unrounded mean; g against the rounded
+    const float avg = round_code(column_mean_dsq(u, m, &dsq), code);
     const float pa = prev[j];
-    const float g = pa - mean;
+    const float g = pa - avg;
     const float v = momentum * vel[j] + g;
     const float step = nesterov ? momentum * v + g : v;
-    const float upd = pa - lr * step;
+    const float upd = round_code(pa - lr * step, code);
     new_avg[j] = upd;
     new_vel[j] = v;
 #pragma unroll
@@ -59,11 +68,13 @@ avg_disp_outer_cols(const float* __restrict__ x,
 }  // namespace
 
 // C entry point, bound with ctypes: out = broadcast outer-updated mean,
-// new_avg / new_vel = the (P,) outer state after the step, disp = Eq. 4
-// dispersion of x; dpart is ceil(P / 256) floats of scratch. Returns
-// cudaGetLastError() after both launches (0 = success).
+// new_avg / new_vel = the (P,) outer state after the step, the mean and
+// new rounded through `codes` (null: none), disp = Eq. 4 dispersion of x;
+// dpart is ceil(P / 256) floats of scratch. Returns cudaGetLastError()
+// after both launches (0 = success).
 extern "C" int avg_disp_outer_launch(const float* x, const float* prev,
-                                     const float* vel, float* out,
+                                     const float* vel, const float* codes,
+                                     float* out,
                                      float* new_avg, float* new_vel,
                                      float* dpart, float* disp, int m,
                                      long long p, float lr, float momentum,
@@ -72,9 +83,15 @@ extern "C" int avg_disp_outer_launch(const float* x, const float* prev,
   const int64_t nblocks = (p + kPlaneThreads - 1) / kPlaneThreads;
   const dim3 grid(static_cast<unsigned>(nblocks));
   dispatch_m(m, [&](auto t) {
-    avg_disp_outer_cols<decltype(t)::value><<<grid, kPlaneThreads, 0, st>>>(
-        x, prev, vel, out, new_avg, new_vel, dpart, m, p, lr, momentum,
-        nesterov);
+    constexpr int kM = decltype(t)::value;
+    if (codes != nullptr)
+      avg_disp_outer_cols<kM, true><<<grid, kPlaneThreads, 0, st>>>(
+          x, prev, vel, codes, out, new_avg, new_vel, dpart, m, p, lr,
+          momentum, nesterov);
+    else
+      avg_disp_outer_cols<kM, false><<<grid, kPlaneThreads, 0, st>>>(
+          x, prev, vel, codes, out, new_avg, new_vel, dpart, m, p, lr,
+          momentum, nesterov);
   });
   sum_partials<<<1, kSumThreads, 0, st>>>(dpart, nblocks,
                                            static_cast<float>(m), disp);

@@ -8,9 +8,16 @@ chosen schedule, over the chosen topology (``--topology``) and wire
 format (``--comm-dtype``), optionally with the outer optimizer
 (``--outer-momentum``), and under scripted worker faults (``--faults``,
 ``--straggle-prob``, ``--rejoin``, ``--rejoin-curriculum``,
-``--straggle-aware``). Runs on CUDA unless ``--device cpu``;
-``--kernel-impl ref`` takes the kernels' plain versions on the card and
-``--no-prefetch`` stages the batches in line, for comparison.
+``--straggle-aware``), with elastic membership (``--shrink-at`` /
+``--grow-at STEP:M'``, :mod:`repro_torch.elastic`). ``--checkpoint PATH``
+writes the consensus model to ``PATH`` and the full engine state to
+``PATH.state`` (:mod:`repro_torch.checkpoint`, the reference's format);
+``--resume PATH.state`` continues such a run for ``--steps`` more steps,
+bitwise as if it had not stopped: unlike the reference CLI, whose
+streams restart at their first batch on a resume, each row's stream
+skips the batches that row has taken. Runs on CUDA unless ``--device
+cpu``; ``--kernel-impl ref`` takes the kernels' plain versions on the
+card and ``--no-prefetch`` stages the batches in line, for comparison.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
@@ -20,16 +27,20 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
 
+from repro_torch.checkpoint import (load_engine_state, save_checkpoint,
+                                    save_engine_state)
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import AveragingSchedule, PhaseEngine
 from repro_torch.core.averaging import OuterOptimizer
 from repro_torch.core.compress import WIRE_FORMATS, Compression
 from repro_torch.data import token_stream
 from repro_torch.device import resolve_device
+from repro_torch.elastic import ElasticPlan, run_elastic, segment_engine
 from repro_torch.faults import FaultPlan
 from repro_torch.models import init_params, lm_loss
 from repro_torch.optim import AdamW, Momentum
@@ -116,10 +127,23 @@ def make_parser() -> argparse.ArgumentParser:
                     help="auto-rejoin every scripted crash N steps later "
                          "(crashes with a later scripted event for the "
                          "same worker are left alone)")
+    ap.add_argument("--shrink-at", action="append", default=[],
+                    metavar="STEP:M'",
+                    help="elastic membership: shrink the worker plane to "
+                         "M' rows before STEP runs — the dropped rows' "
+                         "memory and compute are freed (repeatable; "
+                         "composes with --grow-at)")
+    ap.add_argument("--grow-at", action="append", default=[],
+                    metavar="STEP:M'",
+                    help="elastic membership: grow the worker plane to "
+                         "M' rows before STEP runs; new rows warm-start "
+                         "from the mixing-cohort consensus with their "
+                         "optimizer planes zeroed (repeatable)")
     ap.add_argument("--rejoin-curriculum", type=int, default=0,
-                    help="solo steps a rejoined worker trains before its "
-                         "iterate re-enters averaging (masked out of "
-                         "every event, the loss and the dispersion)")
+                    help="solo steps a rejoined or grown worker trains "
+                         "before its iterate re-enters averaging (masked "
+                         "out of every event, the loss and the "
+                         "dispersion)")
     ap.add_argument("--straggle-aware", action="store_true",
                     help="adaptive schedules only: discount the measured "
                          "dispersion by the fraction of the mixing cohort "
@@ -144,7 +168,48 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefetch", action="store_true",
                     help="stage phase blocks in line instead of via the "
                          "double-buffered prefetch thread")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="after the run, write the consensus model to "
+                         "PATH and the full engine state to PATH.state")
+    ap.add_argument("--resume", default=None, metavar="PATH",
+                    help="path of a full engine-state checkpoint "
+                         "(--checkpoint writes <path>.state) to resume "
+                         "from; --steps counts additional steps")
     return ap
+
+
+def elastic_plan(args, ap) -> ElasticPlan | None:
+    """The run's resize plan from ``--shrink-at`` / ``--grow-at`` (None
+    without them), validated against the other flags (``ap.error``)."""
+    if not (args.shrink_at or args.grow_at):
+        return None
+    try:
+        plan = ElasticPlan.parse(args.workers, shrink_at=args.shrink_at,
+                                 grow_at=args.grow_at,
+                                 curriculum=args.rejoin_curriculum)
+    except ValueError as e:
+        ap.error(f"--shrink-at/--grow-at: {e}")
+    if args.outer_momentum > 0:
+        ap.error("--outer-momentum steps on a fixed-membership "
+                 "consensus mean, which an elastic run never keeps "
+                 "— drop --shrink-at/--grow-at or the outer "
+                 "optimizer")
+    for m in plan.sizes():
+        # every membership the run passes through must satisfy the
+        # constraints of the initial one
+        if args.avg == "hierarchical" and m % args.inner_groups:
+            ap.error(f"resize target M'={m} is not divisible by "
+                     f"--inner-groups ({args.inner_groups}) — "
+                     "hierarchical averaging needs every membership "
+                     "the run passes through to split evenly")
+        if args.topology and m != args.workers:
+            try:
+                Topology.build(args.topology, m,
+                               groups=args.topology_groups)
+            except ValueError as e:
+                ap.error(f"resize target M'={m} is incompatible "
+                         f"with --topology {args.topology}: {e}")
+    return plan
 
 
 def setup(args, ap):
@@ -222,9 +287,10 @@ def setup(args, ap):
         if args.straggle_prob <= 0.0:
             ap.error("--straggle-aware needs --straggle-prob > 0 — "
                      "with no stragglers there is nothing to discount")
-    if args.rejoin_curriculum and not (faults and faults.has_rejoin):
-        ap.error("--rejoin-curriculum without a rejoin fault event has "
-                 "no worker to run a curriculum for")
+    if elastic_plan(args, ap) is None and args.rejoin_curriculum and not (
+            faults and faults.has_rejoin):
+        ap.error("--rejoin-curriculum without --grow-at or a rejoin "
+                 "fault event has no worker to run a curriculum for")
     if args.non_iid_alpha < 0:
         ap.error(f"--non-iid-alpha must be >= 0, got "
                  f"{args.non_iid_alpha}")
@@ -303,16 +369,62 @@ def setup(args, ap):
         print(f"[train] wire={compression.wire} "
               f"(error_feedback={compression.error_feedback})")
 
-    # per-worker independent data streams (the reference's seeds)
-    streams = [token_stream(cfg.vocab_size, args.batch, args.seq,
-                            seed=args.seed * 131 + i)
-               for i in range(args.workers)]
+    # per-worker independent data streams (the reference's seeds), keyed
+    # by row: under an elastic plan a row keeps its stream across
+    # resizes, so a re-grown worker continues where it left off
+    streams = {}
 
-    def batches():
-        for _ in range(args.steps):
-            yield {"tokens": np.stack([next(s) for s in streams])}
+    def stream(i):
+        if i not in streams:
+            streams[i] = token_stream(cfg.vocab_size, args.batch, args.seq,
+                                      seed=args.seed * 131 + i)
+        return streams[i]
+
+    def batches(m=args.workers, k=args.steps, skip=None):
+        """``k`` steps of batches for rows 0..m-1; ``skip`` (row ->
+        count) first drops the batches those rows have taken."""
+        for i, n in (skip or {}).items():
+            for _ in range(n):
+                next(stream(i))
+        for _ in range(k):
+            yield {"tokens": np.stack([next(stream(i)) for i in range(m)])}
 
     return cfg, engine, params, batches
+
+
+def _taken(plan: ElasticPlan | None, workers: int, at: int) -> dict:
+    """Row -> batches that row took in steps 1..``at``: ``at`` each at a
+    fixed membership, the steps of the segments it was in under a
+    plan."""
+    if at < 1:
+        return {}
+    if plan is None:
+        return dict.fromkeys(range(workers), at)
+    out: dict = {}
+    for seg in plan.segments(at):
+        for i in range(seg.num_workers):
+            out[i] = out.get(i, 0) + seg.stop - seg.start
+    return out
+
+
+def _resume(args, engine, params, plan):
+    """(state, step) of ``--resume`` in the like-state of the run — under
+    a plan, that of the segment whose row count the save recorded."""
+    if plan is None:
+        like = engine.init(params, args.workers, args.seed)
+    else:
+        with open(args.resume + ".json") as f:
+            meta = json.load(f)
+        at = int(meta["step"])
+        saved_m = (meta.get("extra") or {}).get("num_workers")
+        # a save at an exact resize boundary may hold either the pre- or
+        # the post-resize plane; the recorded row count picks
+        seg_eng, m = segment_engine(engine, plan, at, at + args.steps)
+        if saved_m is not None and int(saved_m) != m:
+            seg_eng, m = segment_engine(engine, plan, at + 1,
+                                        at + args.steps)
+        like = seg_eng.init(params, m, args.seed)
+    return load_engine_state(args.resume, like)
 
 
 def main(argv=None):
@@ -321,10 +433,31 @@ def main(argv=None):
     ap = make_parser()
     args = ap.parse_args(argv)
     _, engine, params, batches = setup(args, ap)
+    plan = elastic_plan(args, ap)
+    state, at = None, 0
+    if args.resume:
+        state, at = _resume(args, engine, params, plan)
+        print(f"[train] resuming from {args.resume} at step {at}")
+    skip = _taken(plan, args.workers, at)
     t0 = time.time()
-    final, hist, state = engine.run(
-        params, batches(), num_workers=args.workers, seed=args.seed,
-        record_every=10, prefetch=not args.no_prefetch, return_state=True)
+    if plan is not None:
+        first = [skip]
+
+        def data(m, t_start, k):
+            return batches(m, k, skip=first.pop() if first else None)
+        final, hist, state = run_elastic(
+            engine, params, data, plan, steps=at + args.steps,
+            seed=args.seed, record_every=10, state=state,
+            return_state=True, prefetch=not args.no_prefetch)
+        for t, old_m, new_m in hist["resizes"]:
+            kind = "shrink" if new_m < old_m else "grow"
+            print(f"[train] {kind} {old_m} -> {new_m} workers "
+                  f"before step {t}")
+    else:
+        final, hist, state = engine.run(
+            params, batches(args.workers, args.steps, skip=skip),
+            num_workers=args.workers, seed=args.seed, record_every=10,
+            prefetch=not args.no_prefetch, state=state, return_state=True)
     dt = time.time() - t0
     losses = hist["loss"]
     print(f"[train] {args.steps} steps in {dt:.1f}s "
@@ -335,6 +468,12 @@ def main(argv=None):
     if hist["dispersion"]:
         print(f"[train] final pre-average worker dispersion: "
               f"{hist['dispersion'][-1][1]:.3e}")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, final, step=state.step)
+        save_engine_state(args.checkpoint + ".state", state,
+                          elastic=plan is not None)
+        print(f"[train] saved consensus model to {args.checkpoint} "
+              f"(+ resumable EngineState at {args.checkpoint}.state)")
     return final, hist, state
 
 

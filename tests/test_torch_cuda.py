@@ -148,14 +148,16 @@ def test_opt_step_mix_kernel_matches_plain(dev, opt, wname, codes, shape):
 
 
 @pytest.mark.parametrize("shape", cc.COMM_SHAPES, ids=COMM_IDS)
+@pytest.mark.parametrize("codes", list(cc.CODE_KINDS),
+                         ids=["f32", "bf16", "mixed"])
 @pytest.mark.parametrize("nesterov", [True, False])
-def test_avg_disp_outer_kernel_matches_plain(dev, nesterov, shape):
+def test_avg_disp_outer_kernel_matches_plain(dev, nesterov, codes, shape):
+    """The outer step bitwise its plain version, the coded one (the
+    ``CODES`` instantiation) too: one launch a call."""
     m, p, _ = shape
-    gen = torch.Generator(device=dev).manual_seed(m)
-    x, prev, vel = (torch.randn(s, device=dev, generator=gen)
-                    for s in ((m, p), (p,), (p,)))
+    x, prev, vel, cd = cc.outer_inputs(dev, m, p, codes, seed=m)
     n0 = avg_disp_outer.launches
-    cc.check_avg_disp_outer("outer", x, prev, vel, lr=0.7, momentum=0.5,
+    cc.check_avg_disp_outer("outer", x, prev, vel, cd, lr=0.7, momentum=0.5,
                             nesterov=nesterov)
     assert avg_disp_outer.launches == n0 + 2
 

@@ -32,7 +32,12 @@ reference's engine, the same numpy draws fed to both.
 - The engine's coded events through the emulated kernels
   (``TestCodedEventsOnCpu``): periodic, hierarchical and ring events on
   a bf16 + f32 plane, with and without a plan, one ``avg_disp`` /
-  ``mix_disp`` launch an event, bitwise ``kernel_impl="ref"``.
+  ``mix_disp`` launch an event, bitwise ``kernel_impl="ref"``; and the
+  coded outer step (``TestCodedOuterOnCpu``): ``avg_disp_outer``'s card
+  path over an emulated ``avg_disp_outer.cu`` bitwise
+  ``avg_disp_outer_ref(codes=)`` for bf16, f16 and mixed codes, and the
+  engine's periodic and minibatch outer events on a coded plane one
+  launch each, never the plain version.
 - The engine under ``crash:m=1@t=6,rejoin:m=1@t=14`` with straggles
   (0.1) over all seven schedules, a ring, int8, rejoin curricula,
   straggle-aware schedules and a bf16 weight: decisions, ``averages``,
@@ -757,8 +762,9 @@ class TestCardPathsOnCpu:
         n, err = cc.sweep(torch.device("cpu"))
         # SHAPES: 4 optimizers x 3 modes x 2 codes, 3 groups x 3 codes;
         # NARROW_SHAPES: 4 x 2 x 2, 3 groups; COMM_SHAPES: 4 mixes x (3
-        # codes + 2 opt_step), 2 outer, 3 wires x 3 modes x 2 x 2 x 2
-        assert n == 24 + 9 + 16 + 3 + 20 + 2 + 72
+        # codes + 2 opt_step), 2 outer x 3 codes, 3 wires x 3 modes x 2 x
+        # 2 x 2
+        assert n == 24 + 9 + 16 + 3 + 20 + 6 + 72
         assert err == dict.fromkeys(err, 0.0)
         launched = [a - b for a, b in zip(cc._launch_counts(), n0)]
         assert launched == [2 * (24 + 16 + 8 + 36), 2 * 72, 2 * 12,
@@ -895,6 +901,122 @@ class TestCodedEventsOnCpu:
         assert torch.equal(st.plane, sr.plane)
         assert h["loss"] == hr["loss"] and h["dispersion"] == hr[
             "dispersion"]
+        assert all(torch.equal(a, b) for a, b in zip(f.values(),
+                                                     fr.values()))
+
+
+def _emulated_avg_disp_outer_cu(plane, prev, vel, codes, out, new_avg,
+                                new_vel, dpart, disp, *, lr, momentum,
+                                nesterov):
+    """``avg_disp_outer_launch`` in torch on CPU tensors, column by
+    column as the kernel computes: the rows summed in order and divided
+    once, the dispersion against that unrounded mean, the mean rounded
+    through the code before g = prev - avg, the momentum step, the new
+    average rounded before it is written and broadcast, vel' f32."""
+    m = plane.shape[0]
+    u = {i: plane[i].clone() for i in range(m)}
+    disp.copy_(_masked_disp(u, list(range(m))))
+    s = torch.zeros_like(plane[0])
+    for i in range(m):
+        s += u[i]
+    avg = s / torch.tensor(float(m))
+    if codes is not None:
+        avg = pref.round_to_codes(avg, codes)
+    g = prev - avg
+    v = momentum * vel + g
+    upd = prev - lr * (momentum * v + g if nesterov else v)
+    if codes is not None:
+        upd = pref.round_to_codes(upd, codes)
+    new_avg.copy_(upd)
+    new_vel.copy_(v)
+    out.copy_(upd[None].expand(m, -1))
+    return 0
+
+
+def _card_outer(monkeypatch):
+    """``avg_disp_outer``'s card path on CPU tensors, its ctypes caller
+    replaced by the emulation above (the wrapper's signature)."""
+    monkeypatch.setattr(pad, "_outer_launch", _emulated_avg_disp_outer_cu)
+
+    def outer(plane, prev, vel, *, lr, momentum, nesterov=True, codes=None):
+        return pad._card_outer(plane, prev, vel, codes=codes, lr=lr,
+                               momentum=momentum, nesterov=nesterov)
+    return outer
+
+
+class TestCodedOuterOnCpu:
+    """The coded outer step through ``avg_disp_outer``'s card path (the
+    codes row checked and passed, one launch a call), the kernel's column
+    pass emulated: bitwise ``avg_disp_outer_ref(codes=)``; and the
+    engine's coded outer event reaches that path, never the plain
+    version."""
+
+    @pytest.mark.parametrize("m", [4, 8, 24])
+    @pytest.mark.parametrize("codes", ["bf16", "f16", "mixed"])
+    @pytest.mark.parametrize("nesterov", [True, False])
+    def test_card_path_is_the_plain_version(self, monkeypatch, nesterov,
+                                            codes, m):
+        outer = _card_outer(monkeypatch)
+        cpu = torch.device("cpu")
+        x, prev, vel, cd = cc.outer_inputs(
+            cpu, m, 257, None if codes == "f16" else codes, seed=m)
+        if codes == "f16":
+            cd = torch.full((257,), 2.0)
+            x, prev = x.half().float(), prev.half().float()
+        kw = dict(lr=0.7, momentum=0.5, nesterov=nesterov, codes=cd)
+        want = pref.avg_disp_outer_ref(x, prev, vel, **kw)
+        n0 = pad.avg_disp_outer.launches
+        got = outer(x, prev, vel, **kw)
+        assert pad.avg_disp_outer.launches == n0 + 1
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        np.testing.assert_allclose(float(got[3]), float(want[3]),
+                                   rtol=1e-5)
+        # the rounding is there: the new average sits on the codes' grid
+        assert torch.equal(got[1], pref.round_to_codes(got[1], cd))
+        assert not torch.equal(got[2], pref.round_to_codes(got[2], cd))
+
+    @pytest.mark.parametrize("sname", ["periodic", "minibatch"])
+    def test_engine_outer_event_launches_the_kernel(self, monkeypatch,
+                                                    sname):
+        from repro_torch.core import engine as engine_mod
+
+        def run(impl):
+            eng = PhaseEngine(_coded_loss, popt.Momentum(lr=0.01, mu=0.9),
+                              AveragingSchedule(**SCHEDS[sname]),
+                              device="cpu", kernel_impl=impl,
+                              outer=OuterOptimizer(lr=1.0, momentum=0.5))
+            params = {"w": torch.zeros(DIM, dtype=torch.bfloat16),
+                      "b": torch.zeros(1)}
+            return eng.run(params, iter(_batches()), num_workers=WORKERS,
+                           seed=3, record_every=1, return_state=True)
+
+        fr, hr, sr = run("ref")
+
+        def refused(*a, **k):
+            raise AssertionError("the plain avg_disp_outer_ref ran")
+
+        monkeypatch.setitem(engine_mod._KERNEL_OPS, "avg_disp_outer",
+                            _card_outer(monkeypatch))
+        monkeypatch.setitem(engine_mod._PLAIN_OPS, "avg_disp_outer",
+                            refused)
+        monkeypatch.setattr(engine_mod, "avg_disp_outer_ref", refused)
+        n0 = pad.avg_disp_outer.launches
+        f, h, st = run("auto")
+        assert st.codes is not None and bool((st.codes == 1.0).any())
+        assert h["averages"] > 0
+        assert pad.avg_disp_outer.launches - n0 == h["averages"]
+        assert torch.equal(st.plane, sr.plane)
+        assert all(torch.equal(a, b) for a, b in zip(st.outer_state,
+                                                     sr.outer_state))
+        assert h["loss"] == hr["loss"]
+        # minibatch reports the outer pass's dispersion: the kernel's
+        # partial sums, held as card_check holds them (rtol 1e-5)
+        assert [t for t, _ in h["dispersion"]] == [t for t, _ in
+                                                   hr["dispersion"]]
+        np.testing.assert_allclose([d for _, d in h["dispersion"]],
+                                   [d for _, d in hr["dispersion"]],
+                                   rtol=1e-5)
         assert all(torch.equal(a, b) for a, b in zip(f.values(),
                                                      fr.values()))
 

@@ -1,6 +1,6 @@
-"""The port's training CLI on the CPU (its fault flags against the
-reference's CLI), the port's import isolation from JAX, and
-``chip_smoke.py``'s refusal to run without a card."""
+"""The port's training CLI on the CPU (its fault, elastic and checkpoint
+flags against the reference's CLI), the port's import isolation from
+JAX, and ``chip_smoke.py``'s refusal to run without a card."""
 import json
 import os
 import shutil
@@ -171,6 +171,114 @@ def test_cli_refuses_bad_fault_flags_as_the_reference(argv, why, capsys):
         train.main(["--device", "cpu"] + base + argv)
     assert e.value.code == 2
     assert why in capsys.readouterr().err
+
+
+ELASTIC_ARGV = ["--reduced", "--workers", "4", "--avg", "periodic",
+                "--phase-len", "2", "--batch", "1", "--seq", "8",
+                "--shrink-at", "3:2", "--grow-at", "5:4",
+                "--rejoin-curriculum", "1"]
+
+
+def test_cli_elastic_prints_the_reference_resize_lines(capsys):
+    """``--shrink-at`` / ``--grow-at``: both CLIs print the same resize
+    lines and averaging count; the port's plane is back at 4 rows."""
+    from repro.launch import train as jtrain
+
+    def lines(out):
+        return [ln for ln in out.splitlines() if " workers before step "
+                in ln or "averaging ops" in ln]
+    jtrain.main(ELASTIC_ARGV + ["--steps", "8"])
+    want = lines(capsys.readouterr().out)
+    _, hist, state = train.main(["--device", "cpu", "--steps", "8"]
+                                + ELASTIC_ARGV)
+    got = lines(capsys.readouterr().out)
+    assert got[:2] == want[:2] == [
+        "[train] shrink 4 -> 2 workers before step 3",
+        "[train] grow 2 -> 4 workers before step 5"]
+    assert got[2].split("), ")[1] == want[2].split("), ")[1]
+    assert hist["resizes"] == [(3, 4, 2), (5, 2, 4)]
+    assert state.plane.shape[0] == 4
+
+
+@pytest.mark.parametrize("extra", [[], ELASTIC_ARGV[-6:]],
+                         ids=["fixed", "elastic"])
+@pytest.mark.parametrize("cut", [2, 4])
+def test_cli_checkpoint_then_resume_equals_one_run(tmp_path, capsys, cut,
+                                                   extra):
+    """``--checkpoint`` then ``--resume`` for the remaining steps: the
+    same plane, state planes, consensus, events and losses as one run of
+    all the steps (each row's stream skips the batches it took)."""
+    base = ["--device", "cpu", "--reduced", "--workers", "4", "--avg",
+            "periodic", "--phase-len", "2", "--batch", "1", "--seq", "8",
+            "--comm-dtype", "bf16"] + extra
+    f_full, h_full, s_full = train.main(base + ["--steps", "8"])
+    ck = str(tmp_path / "run")
+    f1, h1, _ = train.main(base + ["--steps", str(cut), "--checkpoint", ck])
+    out = capsys.readouterr().out
+    assert f"saved consensus model to {ck}" in out
+    meta = json.load(open(ck + ".state.json"))["extra"]
+    assert meta["engine_state_version"] == (5 if extra else 3)
+    f2, h2, s2 = train.main(base + ["--steps", str(8 - cut), "--resume",
+                                    ck + ".state"])
+    assert f"resuming from {ck}.state at step {cut}" in \
+        capsys.readouterr().out
+    assert torch.equal(s2.plane, s_full.plane)
+    assert torch.equal(s2.resid, s_full.resid)
+    assert all(torch.equal(a, b) for a, b in zip(s2.opt_planes,
+                                                 s_full.opt_planes))
+    for a, b in zip(torch.utils._pytree.tree_leaves(f2),
+                    torch.utils._pytree.tree_leaves(f_full)):
+        assert torch.equal(a, b)
+    assert h1["averages"] + h2["averages"] == h_full["averages"]
+    assert h1["dispersion"] + h2["dispersion"] == h_full["dispersion"]
+    # the consensus model file holds the first run's final consensus
+    from repro_torch.checkpoint import load_checkpoint
+    back, step = load_checkpoint(ck, f1)
+    assert step == cut
+    for a, b in zip(torch.utils._pytree.tree_leaves(back),
+                    torch.utils._pytree.tree_leaves(f1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["--shrink-at", "bogus"], "cannot parse"),
+    (["--workers", "4", "--shrink-at", "8:6"], "would grow"),
+    (["--workers", "4", "--grow-at", "8:2"], "would shrink"),
+    (["--workers", "4", "--shrink-at", "8:3", "--grow-at", "8:4"],
+     "strictly increasing"),
+    (["--workers", "4", "--shrink-at", "8:3", "--outer-momentum", "0.5"],
+     "fixed-membership"),
+    (["--workers", "4", "--shrink-at", "8:3", "--avg", "hierarchical",
+      "--phase-len", "4", "--outer-phase-len", "8", "--inner-groups", "2"],
+     "not divisible"),
+    (["--workers", "4", "--shrink-at", "8:2", "--topology", "ring"],
+     "incompatible with --topology ring"),
+    (["--workers", "4", "--rejoin-curriculum", "3"],
+     "without --grow-at or a rejoin"),
+], ids=["syntax", "shrink-grows", "grow-shrinks", "same-step", "outer",
+        "hierarchical", "ring", "curriculum"])
+def test_cli_refuses_bad_elastic_flags_as_the_reference(argv, why, capsys):
+    from repro.launch import train as jtrain
+    base = ["--reduced", "--steps", "2"]
+    with pytest.raises(SystemExit) as ej:
+        jtrain.main(base + argv)
+    assert ej.value.code == 2
+    assert why in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu"] + base + argv)
+    assert e.value.code == 2
+    assert why in capsys.readouterr().err
+
+
+def test_cli_rejoin_curriculum_accepts_a_grow(capsys):
+    _, hist, _ = train.main(["--device", "cpu", "--reduced", "--steps", "4",
+                             "--workers", "2", "--avg", "periodic",
+                             "--phase-len", "2", "--batch", "1", "--seq",
+                             "8", "--grow-at", "3:3",
+                             "--rejoin-curriculum", "1"])
+    assert hist["resizes"] == [(3, 2, 3)]
+    assert "[train] grow 2 -> 3 workers before step 3" in \
+        capsys.readouterr().out
 
 
 def test_cli_kernel_impl_and_prefetch_leave_the_run_unchanged():

@@ -114,12 +114,44 @@ Phases, each printing one JSON line:
      the least squares of phase 4 (24 workers) shrunk to 16 before step
      64 and grown back before 160 (curriculum 16) under a fault plan, on
      the card against the CPU port;
-  9. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+  9. telemetry (``repro_torch.telemetry``): smollm-360m at full width
+     (periodic K=2, 6 steps) through the CLI three times, plain, with
+     ``--telemetry`` and with ``--telemetry --profile-dir`` into a
+     temporary directory (deleted after): the consensus bitwise the
+     plain run's, the JSONL read back by ``RunLog`` into the returned
+     history, one ``averaging_event`` per event, each phase's
+     ``comm_bytes`` its events' priced bytes folded in float32, the
+     report rendered, the trace holding ``opt_step_cols`` and
+     ``avg_disp_cols`` device events, each run's step ms; the least
+     squares of phase 8 (c) through ``run_elastic(sink=MemorySink())``
+     on the card and on the CPU: the same records, integer fields exact,
+     floats within rtol 1e-4, the occupancy the segment plans' streams;
+ 10. the paper's §3.2 CNN (Fig. 3) at ``CNNConfig``'s widths (LeNet5,
+     32/64 channels, fc 512; P = 1,663,370, 4 workers, batch 8,
+     Momentum 0.9, lr 0.01 x0.95 an epoch) on ``mnist_like`` (4096
+     train, 512 test, noise 0.6) through a ``DeviceDataset`` in permute
+     mode: periodic-10 and oneshot, 256 steps each, evaluated every 25
+     (``opt_step`` launches = steps, ``avg_disp`` = events, no plain
+     version called on the card); a profile of 20 steps (device busy,
+     idle share); the first 50 steps on the card against the CPU, each
+     from the CPU's state (``CNN_LOSS_RTOL``, ``CNN_PLANE_TOL``,
+     ``CNN_FLIP_FRAC``), a free-running card run beside them reported;
+     ``opt_step`` and ``avg_disp`` held against their plain versions
+     and timed at the CNN's plane beside their bounds; one batch's
+     gradients against float64 (``conv_gradients``: the port's im2col
+     convolution gated, ``F.conv2d`` with and without cuDNN reported);
+     the final train loss and test error per schedule and the paper's
+     two Fig. 3 statements (printed, not gated); then
+     ``core.theory.simulate_quadratic`` on the card over bench_lemma1's
+     zetas and 3000 steps (2000 reps) against
+     ``lemma1_asymptotic_variance`` and against the CPU's run of the
+     same draws (64 reps);
+ 11. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
      masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-8)
+Every launch count is set to 0 just before a main-path run (phases 3-10)
 and read just after; the ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
 also refuses to run without a CUDA device. All of its work happens under
@@ -134,6 +166,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -426,6 +459,606 @@ def sdpa_time(q, k, v, cuda_time, *, causal, window):
         return ms, backend.name, diff
     raise RuntimeError("no scaled_dot_product_attention backend took the "
                        "inputs")
+
+
+# ---- phases 9 and 10 ------------------------------------------------------
+# the paper's §3.2 CNN run of phase 10 (bench_fig3_cnn's recipe): steps per
+# schedule, eval every CNN_EVERY steps, the images of bench_fig3_cnn.py:28-29,
+# and the steps held card against CPU
+CNN_STEPS, CNN_EVERY, CNN_TRAIN, CNN_TEST, CNN_NOISE = 256, 25, 4096, 512, 0.6
+CNN_PARITY_STEPS = 50
+#: card against CPU, each of the CNN's first steps from a common state
+#: (TF32 off): the loss within rtol CNN_LOSS_RTOL; of the params and
+#: velocity planes after the step, at most CNN_FLIP_FRAC of the elements
+#: beyond CNN_PLANE_TOL of the plane's largest magnitude. Float32 sums in
+#: other orders (the unfolded convolutions' products, sums of up to 3,136
+#: terms) part by ~4e-7 of a gradient's scale; a ReLU or max-pool decision
+#: an ulp from its edge, flipped, moves the few hundred to some ten
+#: thousand gradient elements behind that unit by far more (an H100 run saw
+#: 4.1e-4 of the params' scale at step 38), and cuDNN's convolution
+#: gradients, which part by some 1e-3 (``conv_gradients``), move every
+#: convolution weight's: 3% of a row
+CNN_LOSS_RTOL, CNN_PLANE_TOL, CNN_FLIP_FRAC = 1e-5, 1e-5, 1e-2
+#: phase 10's Lemma 1 runs: bench_lemma1.py's zetas and steps; the reps of
+#: the card runs, and of the CPU twins they are held against (rtol 1e-4:
+#: the same threefry draws, normals an ulp apart where the card's log1p is)
+LEMMA1_ZETAS, LEMMA1_STEPS = (0.0, 0.001, 0.005, 0.02, 0.1, 0.3, 1.0), 3000
+LEMMA1_REPS, LEMMA1_CPU_REPS = 2000, 64
+#: the zetas of the reference's own Lemma 1 test, gated at its rel 0.15
+LEMMA1_GATED = (0.0, 0.02, 0.1, 1.0)
+
+
+def _close(a, b, rtol, atol=0.0) -> bool:
+    return abs(a - b) <= atol + rtol * abs(b)
+
+
+def phase_telemetry(cx) -> dict:
+    """Phase 9: (a) smollm-360m through the CLI, plain, with
+    ``--telemetry``, and with ``--telemetry --profile-dir`` (bitwise
+    consensus, the log against the history, the events' priced bytes,
+    the report, the trace's device events); (b) the least squares of
+    phase 8 (c) through ``run_elastic(sink=MemorySink())``, card against
+    CPU."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import elastic, rng
+    from repro_torch.configs.paper import CONVEX_SUITE
+    from repro_torch.core import AveragingSchedule, PhaseEngine
+    from repro_torch.data import DeviceDataset, convex_dataset
+    from repro_torch.faults import FaultPlan
+    from repro_torch.launch import train
+    from repro_torch.models.convex import make_problem
+    from repro_torch.optim import SGD
+    from repro_torch.telemetry import MemorySink, RunLog
+    from repro_torch.telemetry.report import render
+    from repro_torch.topology import Topology, comm_bytes
+
+    t_ph = time.perf_counter()
+    argv = cx.common + ["--avg", "periodic", "--phase-len", "2", "--steps",
+                        str(cx.tele_steps)]
+    events = cx.tele_steps // 2
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tele_")
+    runs, cli = {}, {}
+    try:
+        logs = {n: os.path.join(tmp, f"{n}.jsonl")
+                for n in ("telemetry", "profiled")}
+        prof = os.path.join(tmp, "prof")
+        for name, extra in (
+                ("plain", []),
+                ("telemetry", ["--telemetry", logs["telemetry"]]),
+                ("profiled", ["--telemetry", logs["profiled"],
+                              "--profile-dir", prof])):
+            cx.zero_counts()
+            t = time.perf_counter()
+            final, hist, state = train.main(argv + extra)
+            cx.sync()
+            wall = time.perf_counter() - t
+            got = cx.read_counts({"opt_step": cx.tele_steps,
+                                  "avg_disp": events}, f"telemetry {name}")
+            width = state.plane.shape[1]
+            runs[name] = (final, hist)
+            cli[name] = dict(wall_s=wall, launches=got,
+                             step_ms=steady_step_ms(hist["phase_wall"]),
+                             averages=hist["averages"])
+            del state
+            cx.free()
+        base = runs["plain"][0]
+        for name in ("telemetry", "profiled"):
+            final, hist = runs[name]
+            check(all(torch.equal(a, b) for a, b in zip(
+                _leaves(final), _leaves(base))),
+                f"telemetry {name}: consensus not bitwise the plain run's")
+            log = RunLog.load(logs[name])
+            check(log.history() == hist,
+                  f"telemetry {name}: RunLog.history() != the history")
+            evs = log.of_type("averaging_event")
+            check(len(evs) == hist["averages"] == events,
+                  f"telemetry {name}: {len(evs)} averaging events, "
+                  f"{hist['averages']} averages")
+            eb = np.float32(comm_bytes(Topology.full(cx.workers), 1, width,
+                                       "f32"))
+            for ph in log.phases:
+                want = np.float32(0.0)
+                for _ in range(ph["events"]):
+                    want = np.float32(want + eb)
+                check(ph["comm_bytes"] == float(want),
+                      f"telemetry {name}: phase {ph['t0']}-{ph['t1']} "
+                      f"comm_bytes {ph['comm_bytes']}, want {want}")
+            check(sum(ph["events"] for ph in log.phases) == events,
+                  f"telemetry {name}: events in phase_metrics")
+            meta = log.meta
+            check(meta["backend"] == cx.dev.type
+                  and meta["config"]["workers"] == cx.workers,
+                  f"telemetry {name}: run_meta {meta}")
+            text = render(log)
+            check(f"total: {cx.tele_steps} steps, {events} events" in text,
+                  f"telemetry {name}: report\n{text}")
+            cli[name].update(records=len(log.records),
+                             comm_bytes=sum(ph["comm_bytes"]
+                                            for ph in log.phases),
+                             bytes_per_event=float(eb))
+        print(text, flush=True)
+        # the trace: the update and the event kernels ran on the card
+        traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+        check(len(traces) == 1, f"profile dir holds {traces}")
+        path = os.path.join(prof, traces[0])
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in trace
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        kern = {k: sum(k in n for n in names)
+                for k in ("opt_step_cols", "avg_disp_cols")}
+        if cx.dev.type == "cuda":
+            check(all(v > 0 for v in kern.values()),
+                  f"trace device events {kern} of {len(names)}")
+        cli["profiled"].update(trace_bytes=os.path.getsize(path),
+                               trace_device_events=len(names),
+                               trace_kernels=kern)
+    finally:
+        shutil.rmtree(tmp)
+    check(not os.path.exists(tmp), "telemetry files left behind")
+    del runs, base
+    cx.free()
+
+    # (b) phase 8 (c)'s least squares, through run_elastic with a sink, on
+    # the card and on the CPU
+    c = CONVEX_SUITE[0]
+    mw = c.num_workers
+    X, y, _ = convex_dataset(c.model, c.num_samples, c.num_dims,
+                             sparsity=c.sparsity, noise=c.noise, seed=0)
+    lr0 = 0.8 * 200.0 / float(np.mean(np.sum(X * X, axis=1)))
+    sgd = SGD(lr=lambda t: lr0 / (t - 1.0 + 200.0))
+    obj = make_problem("ls")[0]
+
+    def loss(p, b, r):
+        w = p["w"]
+        return obj(w, b["x"].reshape(-1, w.shape[0]), b["y"].reshape(-1)), {}
+
+    eplan = elastic.ElasticPlan(mw, ((64, 16), (160, mw)), curriculum=16)
+    base_plan = FaultPlan.parse("crash:m=3@t=40,rejoin:m=3@t=120", mw,
+                                straggle_prob=0.1, rejoin_curriculum=16)
+    idx = np.random.default_rng(3).integers(0, c.num_samples, (256, mw))
+
+    def ls_run(device):
+        Xs, ys = torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
+        eng = PhaseEngine(loss, sgd, AveragingSchedule("periodic",
+                                                       phase_len=16),
+                          device=device, faults=base_plan, telemetry=True)
+
+        def data(m, t0, k):
+            return DeviceDataset({"x": Xs, "y": ys}, m,
+                                 indices=idx[t0 - 1:t0 - 1 + k, :m],
+                                 device=device)
+        sink = MemorySink()
+        out = elastic.run_elastic(
+            eng, {"w": torch.zeros(c.num_dims, device=device)}, data, eplan,
+            steps=256, seed=0, record_every=1, sink=sink)
+        return out, sink.records
+
+    cx.zero_counts()
+    t = time.perf_counter()
+    (fg, hg), rg = ls_run(cx.dev)
+    cx.sync()
+    card_s = time.perf_counter() - t
+    got = cx.read_counts({"opt_step": 256, "avg_disp": hg["averages"]},
+                         "telemetry ls elastic")
+    (fc, hc), rc = ls_run("cpu")
+    check([r["type"] for r in rg] == [r["type"] for r in rc],
+          "ls elastic records: types or order, card against CPU")
+    exact = ("t0", "t1", "steps", "events", "events_inner", "events_all",
+             "comm_bytes", "alive_min", "alive_mean", "straggle_rate")
+    floats = ("loss_mean", "loss_max", "disp_mean", "disp_max")
+    worst = 0.0
+    for g, w in zip(rg, rc):
+        if g["type"] == "phase_metrics":
+            check({k: g[k] for k in exact} == {k: w[k] for k in exact},
+                  f"ls elastic phase {g['t0']}-{g['t1']}: integer fields")
+            pairs = [(g[k], w[k]) for k in floats] + [
+                (a[1], b[1]) for key in ("loss_trace", "disp_trace")
+                for a, b in zip(g[key], w[key])]
+            check([a[0] for a in g["loss_trace"]]
+                  == [b[0] for b in w["loss_trace"]],
+                  "ls elastic: recorded steps")
+        elif g["type"] == "averaging_event":
+            check((g["step"], g["scope"]) == (w["step"], w["scope"]),
+                  "ls elastic: averaging events")
+            pairs = [(g["dispersion"], w["dispersion"])]
+        else:
+            check(g == w, f"ls elastic: {g} against {w}")
+            pairs = []
+        for a, b in pairs:
+            check(_close(a, b, 1e-4, 1e-7),
+                  f"ls elastic {g['type']}: {a} against {b}")
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    # the occupancy is the segment plans' streams'
+    dec_key = rng.split(rng.PRNGKey(0))[1]
+    occ = {}
+    for seg in eplan.segments(256):
+        fp = eplan.segment_faults(base_plan, seg.num_workers, seg.start,
+                                  seg.stop)
+        for t in range(seg.start, seg.stop):
+            a = fp.alive_at(t)
+            s = fp.straggle_mask(dec_key, t, np.arange(seg.num_workers))
+            occ[t] = (float(a.sum()), float(np.sum(a * s)))
+    phases = [r for r in rg if r["type"] == "phase_metrics"]
+    for ph in phases:
+        ts = range(ph["t0"], ph["t1"] + 1)
+        a_sum = sum(occ[t][0] for t in ts)
+        check(ph["alive_mean"] == a_sum / ph["steps"]
+              and ph["alive_min"] == min(occ[t][0] for t in ts)
+              and ph["straggle_rate"] == sum(occ[t][1] for t in ts) / a_sum,
+              f"ls elastic phase {ph['t0']}-{ph['t1']}: occupancy")
+    kinds = [r["type"] for r in rg]
+    ls = dict(config=c.name, steps=256, records=len(rg),
+              phase_metrics=kinds.count("phase_metrics"),
+              averaging_events=kinds.count("averaging_event"),
+              fault_events=kinds.count("fault_event"),
+              resize_events=kinds.count("resize_event"),
+              alive_min=min(p["alive_min"] for p in phases),
+              straggle_rate_max=max(p["straggle_rate"] for p in phases),
+              launches=got, card_s=card_s, max_rel_err=worst,
+              cuda_vs_cpu="integer fields exact; losses, dispersions "
+                          "rtol 1e-4 / atol 1e-7")
+    check(ls["resize_events"] == 2 and ls["fault_events"] == 2,
+          f"ls elastic events {ls}")
+    del fg, hg, fc, hc
+    cx.free()
+    return {"phase": "telemetry", "cli": cli, "least_squares": ls,
+            "wall_s": time.perf_counter() - t_ph}
+
+
+def conv_gradients(cx, cfg, params, images, labels) -> dict | None:
+    """The CNN's gradients on the card for one worker's batch at the init,
+    against the float64 gradients on the CPU: the largest error of a
+    leaf over its largest magnitude, and ms a forward / backward, for
+    the port's convolution (``models/cnn.py``: an im2col product; gated
+    at ``CNN_PLANE_TOL``) and for ``F.conv2d`` with cuDNN and without it
+    (reported: cuDNN's parts by far more, which is why the port does not
+    call it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import cnn as cnn_mod
+    if cx.dev.type != "cuda":
+        return None
+
+    def lib_conv(x, p):
+        return F.conv2d(x, p["w"].permute(3, 2, 0, 1), p["b"],
+                        padding="same")
+
+    def setup(device, dtype):
+        p = {k: {n: v.to(device, dtype).clone().requires_grad_()
+                 for n, v in d.items()} for k, d in params.items()}
+        b = {"images": torch.from_numpy(images).to(device, dtype),
+             "labels": torch.from_numpy(labels).to(device)}
+        return p, b
+
+    def grads(device, dtype):
+        p, b = setup(device, dtype)
+        cnn_mod.cnn_loss(cfg, p, b).backward()
+        return {f"{k}.{n}": v.grad.detach().double().cpu()
+                for k, d in p.items() for n, v in d.items()}
+
+    want = grads("cpu", torch.float64)
+    own = cnn_mod._conv
+    out = {}
+    try:
+        for name, conv, cudnn in (("im2col", own, True),
+                                  ("conv2d_cudnn", lib_conv, True),
+                                  ("conv2d_no_cudnn", lib_conv, False)):
+            cnn_mod._conv = conv
+            with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                got = grads(cx.dev, torch.float32)
+                p, b = setup(cx.dev, torch.float32)
+                ms = cx.cuda_time(
+                    lambda: cnn_mod.cnn_loss(cfg, p, b).backward(), 50)
+            out[name] = dict(max_scaled_err=max(
+                float((got[k] - want[k]).abs().max() / want[k].abs().max())
+                for k in want), fwd_bwd_ms=ms)
+    finally:
+        cnn_mod._conv = own
+    check(out["im2col"]["max_scaled_err"] <= CNN_PLANE_TOL,
+          f"the CNN's gradients on the card against float64: {out}")
+    return out
+
+
+def _leaves(tree) -> list:
+    from repro_torch.core.flat import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+def phase_paper_cnn(cx) -> dict:
+    """Phase 10: the paper's §3.2 CNN (Fig. 3) at ``CNNConfig``'s widths
+    through the engine, periodic-10 and oneshot, card against CPU over
+    the first steps, the kernels at its shape; then the theory module's
+    Lemma 1 simulation on the card against the closed form and the
+    CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import rng
+    from repro_torch.configs.paper import CNNConfig, QuadraticConfig
+    from repro_torch.core import AveragingSchedule, PhaseEngine, theory
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.data import DeviceDataset, mnist_like
+    from repro_torch.kernels import avg_disp as avg_mod
+    from repro_torch.kernels import opt_step as opt_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import card_check as cc
+    from repro_torch.launch.profile import _breakdown, _profiler
+    from repro_torch.models import cnn_error, cnn_loss, init_cnn
+    from repro_torch.optim import Momentum, schedules
+
+    t_ph = time.perf_counter()
+    cfg = CNNConfig()
+    m, steps = cfg.num_workers, cx.cnn_steps
+    images, labels = mnist_like(CNN_TRAIN, seed=0, noise=CNN_NOISE)
+    test_images, test_labels = mnist_like(CNN_TEST, seed=1, noise=CNN_NOISE)
+    arrays = {"images": images, "labels": labels}
+    params0 = init_cnn(cfg, rng.PRNGKey(0), device="cpu")
+    spe = CNN_TRAIN // (m * cfg.batch_size)
+    epoch_lr = schedules.exponential_epoch(cfg.lr, cfg.lr_decay_per_epoch,
+                                           spe)
+
+    def engine(sched, device):
+        return PhaseEngine(lambda p, b, r: (cnn_loss(cfg, p, b), {}),
+                           Momentum(lr=lambda t: epoch_lr(t - 1),
+                                    mu=cfg.momentum),
+                           sched, device=device)
+
+    def sched_of(k):
+        return (AveragingSchedule("periodic", phase_len=k) if k
+                else AveragingSchedule("oneshot"))
+
+    dev = cx.dev
+    tr = {"images": torch.from_numpy(images[:CNN_TEST]).to(dev),
+          "labels": torch.from_numpy(labels[:CNN_TEST]).to(dev)}
+    te = {"images": torch.from_numpy(test_images).to(dev),
+          "labels": torch.from_numpy(test_labels).to(dev)}
+
+    def metrics(p):
+        return float(cnn_loss(cfg, p, tr)), float(cnn_error(cfg, p, te))
+
+    def worker_metrics(wp):
+        trs = [float(cnn_loss(cfg, {k: {n: v[i] for n, v in d.items()}
+                                    for k, d in wp.items()}, tr))
+               for i in range(m)]
+        return min(trs), max(trs)
+
+    # every way the card path could reach a plain version, counted where it
+    # is handed a tensor on the card
+    plain = {"calls": 0}
+
+    def counted(fn):
+        def run(*a, **k):
+            if any(isinstance(v, torch.Tensor) and v.is_cuda for v in a):
+                plain["calls"] += 1
+            return fn(*a, **k)
+        return run
+    patched = [(opt_mod, "opt_step_ref"), (avg_mod, "plane_average_ref")]
+    saved = [getattr(mod, n) for mod, n in patched]
+    saved_ops = dict(engine_mod._PLAIN_OPS)
+    for mod, n in patched:
+        setattr(mod, n, counted(getattr(mod, n)))
+    for k in engine_mod._PLAIN_OPS:
+        engine_mod._PLAIN_OPS[k] = counted(saved_ops[k])
+    runs, state = {}, None
+    try:
+        # one dataset for both schedules: the second run continues the
+        # permutation cursors, as bench_fig3_cnn.py's does
+        data = DeviceDataset(arrays, m, batch_size=cfg.batch_size, seed=0,
+                             mode="permute", device=dev)
+        for name, k in (("periodic", cfg.phase_len), ("oneshot", 0)):
+            cx.zero_counts()
+            t = time.perf_counter()
+            final, hist, st = engine(sched_of(k), dev).run(
+                params0, data, num_workers=m, seed=0,
+                record_every=CNN_EVERY, eval_fn=metrics,
+                worker_eval_fn=worker_metrics, phase_len=CNN_EVERY,
+                steps=steps, return_state=True)
+            cx.sync()
+            wall = time.perf_counter() - t
+            ev = steps // k if k else 0
+            got = cx.read_counts({"opt_step": steps, "avg_disp": ev},
+                                 f"cnn {name}")
+            check(hist["averages"] == ev, f"cnn {name}: {hist['averages']}")
+            loss_f, err_f = hist["eval"][-1][1]
+            check(math.isfinite(loss_f) and 0.0 <= err_f <= 1.0,
+                  f"cnn {name}: final eval {hist['eval'][-1]}")
+            runs[name] = dict(
+                averages=ev, launches=got, wall_s=wall,
+                step_ms=steady_step_ms(hist["phase_wall"]),
+                train_loss=loss_f, test_error=err_f,
+                best_worker_loss=hist["worker_eval"][-1][1][0],
+                worst_worker_loss=hist["worker_eval"][-1][1][1],
+                eval=[(t_, a, b) for t_, (a, b) in hist["eval"]])
+            if name == "periodic":
+                state = st
+            del final, hist, st
+        # where a step's time goes: 20 steps unprofiled, 20 profiled
+        eng = engine(sched_of(cfg.phase_len), dev)
+        cx.zero_counts()
+        cx.sync()
+        t = time.perf_counter()
+        _, _, state = eng.run(None, data, num_workers=m, steps=20,
+                              state=state, phase_len=10, return_state=True)
+        cx.sync()
+        step_us = (time.perf_counter() - t) * 1e6 / 20
+        prof_bd = None
+        if dev.type == "cuda":
+            with _profiler() as prof:
+                eng.run(None, data, num_workers=m, steps=20, state=state,
+                        phase_len=10)
+                cx.sync()
+            prof_bd = {k: v for k, v in _breakdown(prof, 20, step_us).items()
+                       if k in ("device_busy_ms", "idle_share",
+                                "kernels_per_step", "by_group_ms")}
+        cx.read_counts({"opt_step": 40, "avg_disp": 4}, "cnn profile")
+        # the first steps on the card against the CPU, each step from the
+        # CPU's state: the recipe's first steps are violent (the loss
+        # climbs from 2.8 to 12 at step 2), and training amplifies the
+        # last bits in which two runs part, so a common state each step
+        # holds the card's step itself; a free-running card run beside the
+        # CPU's is reported
+        idx = DeviceDataset(arrays, m, batch_size=cfg.batch_size, seed=0,
+                            mode="permute",
+                            device="cpu").index_block(CNN_PARITY_STEPS)
+        eng_g, eng_c = (engine(sched_of(cfg.phase_len), d)
+                        for d in (dev, "cpu"))
+        ds_g, ds_c = (DeviceDataset(arrays, m, indices=idx, device=d)
+                      for d in (dev, "cpu"))
+        st_c = eng_c.init(params0, m, 0)
+        cx.zero_counts()
+        loss_err, plane_err, plane_far, flip_steps = 0.0, [0.0, 0.0], \
+            [0.0, 0.0], 0
+        ev_g, ev_c, loss_c = [], [], []
+        t = time.perf_counter()
+        for _ in range(CNN_PARITY_STEPS):
+            st_g = st_c._replace(plane=st_c.plane.to(dev), opt_planes=tuple(
+                p.to(dev) for p in st_c.opt_planes))
+            _, hg, st_g = eng_g.run(None, ds_g, num_workers=m, steps=1,
+                                    state=st_g, record_every=1,
+                                    return_state=True)
+            _, hc, st_c = eng_c.run(None, ds_c, num_workers=m, steps=1,
+                                    state=st_c, record_every=1,
+                                    return_state=True)
+            ev_g += hg["dispersion"]
+            ev_c += hc["dispersion"]
+            (tg, lg), (tc, lc) = hg["loss"][0], hc["loss"][0]
+            check(tg == tc and _close(lg, lc, CNN_LOSS_RTOL),
+                  f"cnn step {tc}: loss on the card {lg}, on the CPU {lc}")
+            loss_err = max(loss_err, abs(lg - lc) / abs(lc))
+            loss_c.append(lc)
+            for j, (a, b) in enumerate(zip((st_g.plane,) + st_g.opt_planes,
+                                           (st_c.plane,) + st_c.opt_planes)):
+                d = (a.cpu() - b).abs() / b.abs().max()
+                far = float((d > CNN_PLANE_TOL).float().mean())
+                check(far <= CNN_FLIP_FRAC,
+                      f"cnn step {tc}: {('params', 'velocity')[j]} plane, "
+                      f"card against CPU: {far} of it beyond "
+                      f"{CNN_PLANE_TOL} of its scale")
+                plane_err[j] = max(plane_err[j], float(d.max()))
+                plane_far[j] = max(plane_far[j], far)
+                flip_steps += far > 0
+        parity_s = time.perf_counter() - t
+        _, h_free = eng_g.run(
+            params0, DeviceDataset(arrays, m, indices=idx, device=dev),
+            num_workers=m, seed=0, record_every=1, phase_len=CNN_EVERY)
+        free = [abs(v - c) / abs(c) for (_, v), c in zip(h_free["loss"],
+                                                        loss_c)]
+        cx.read_counts({"opt_step": 2 * CNN_PARITY_STEPS,
+                        "avg_disp": 2 * CNN_PARITY_STEPS // cfg.phase_len},
+                       "cnn parity")
+        check([t_ for t_, _ in ev_g] == [t_ for t_, _ in ev_c]
+              and all(_close(a, b, CNN_LOSS_RTOL) for (_, a), (_, b)
+                      in zip(ev_g, ev_c)),
+              f"cnn: events, card {ev_g} against CPU {ev_c}")
+        card_plain = plain["calls"]
+    finally:
+        for (mod, n), fn in zip(patched, saved):
+            setattr(mod, n, fn)
+        engine_mod._PLAIN_OPS.update(saved_ops)
+    if dev.type == "cuda":
+        check(card_plain == 0,
+              f"the CNN's card runs called a plain version {card_plain}x")
+    parity = dict(steps=CNN_PARITY_STEPS, wall_s=parity_s,
+                  events=[t_ for t_, _ in ev_g], loss_max_rel_err=loss_err,
+                  params_max_scaled_err=plane_err[0],
+                  params_max_far_share=plane_far[0],
+                  velocity_max_far_share=plane_far[1],
+                  planes_with_far_elements=flip_steps,
+                  free_running_loss_rel_err=free,
+                  velocity_max_scaled_err=plane_err[1],
+                  tolerance=f"each step from the CPU's state: losses rtol "
+                            f"{CNN_LOSS_RTOL}; at most {CNN_FLIP_FRAC} of a "
+                            f"plane beyond {CNN_PLANE_TOL} of its largest "
+                            "magnitude; TF32 off")
+    del st_g, st_c, data, state, ds_g, ds_c
+    cx.free()
+
+    # opt_step and avg_disp at the CNN's plane: M=4 x P, Momentum, f32
+    p_width = sum(x.numel() for x in _leaves(params0))
+    x, g, st, scal, _ = cc.make_inputs(dev, m, p_width, "momentum", seed=11,
+                                       scale=1e-3)
+    kernels = {}
+    if dev.type == "cuda":
+        from repro_torch.kernels.avg_disp import avg_disp
+        from repro_torch.kernels.opt_step import opt_step
+        # each held against its plain version at this shape first
+        err_opt = cc.check_opt_step("opt_step/cnn-momentum-none", x, g, st,
+                                    scal, None, kind="momentum", mu=0.9,
+                                    mode="none")[0]
+        xk, sk = x.clone(), tuple(s.clone() for s in st)
+        k_ms = cx.cuda_time(lambda: opt_step(xk, g, sk, scal, kind="momentum",
+                                             mu=0.9, mode="none"), 200)
+        p_ms = cx.cuda_time(lambda: ref.opt_step_ref(
+            x, g, st, scal, kind="momentum", mu=0.9, mode="none"), 20)
+        b_ms, b_by = bound_ms(*opt_step_cost(m, p_width, "momentum", False))
+        kernels["opt_step"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=err_opt)
+        err_avg = cc.check_avg_disp("avg_disp/cnn", xk.clone(), 1)
+        k_ms = cx.cuda_time(lambda: avg_disp(xk, groups=1), 200)
+        p_ms = cx.cuda_time(lambda: ref.plane_average_ref(x, groups=1), 20)
+        b_ms, b_by = bound_ms(*avg_disp_cost(m, p_width))
+        kernels["avg_disp"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=err_avg)
+        del xk, sk
+    del x, g, st
+    cx.free()
+    conv_grads = conv_gradients(cx, cfg, params0, images[:cfg.batch_size],
+                                labels[:cfg.batch_size])
+    pr, on = runs["periodic"], runs["oneshot"]
+    fig3 = dict(
+        oneshot_worse_than_worst_worker=on["train_loss"]
+        > on["worst_worker_loss"],
+        periodic_beats_best_worker=pr["train_loss"]
+        <= pr["best_worker_loss"] + 1e-6)
+
+    # the theory module: Lemma 1 on the card against its closed form and
+    # against the CPU's run of the same draws
+    q = QuadraticConfig()
+    lemma = []
+    for z in LEMMA1_ZETAS:
+        args = (q.alpha, q.c, q.beta2, q.sigma2, q.num_workers, z,
+                LEMMA1_STEPS)
+        pred = theory.lemma1_asymptotic_variance(*args[:6])
+        t = time.perf_counter()
+        sim = theory.simulate_quadratic(*args, reps=cx.lemma_reps,
+                                        device=dev)
+        card_s = time.perf_counter() - t
+        small = theory.simulate_quadratic(*args, reps=LEMMA1_CPU_REPS,
+                                          seed=1, device=dev)
+        t = time.perf_counter()
+        small_cpu = theory.simulate_quadratic(*args, reps=LEMMA1_CPU_REPS,
+                                              seed=1, device="cpu")
+        cpu_s = time.perf_counter() - t
+        check(_close(small, small_cpu, 1e-4),
+              f"simulate_quadratic zeta={z}: card {small} against CPU "
+              f"{small_cpu}")
+        rel = abs(sim - pred) / pred
+        if z in LEMMA1_GATED:
+            check(rel < 0.15, f"Lemma 1 zeta={z}: simulated {sim}, "
+                              f"closed form {pred}")
+        lemma.append(dict(zeta=z, lemma1=pred, simulated=sim, rel_err=rel,
+                          card_s=card_s, cpu_twin=small_cpu,
+                          card_twin=small, cpu_twin_s=cpu_s))
+    return {"phase": "paper_cnn", "config": dataclasses.asdict(cfg),
+            "params": p_width, "steps": steps, "eval_every": CNN_EVERY,
+            "data": dict(train=CNN_TRAIN, test=CNN_TEST, noise=CNN_NOISE,
+                         mode="permute"),
+            **runs, "profile": prof_bd, "step_us_unprofiled": step_us,
+            "cuda_vs_cpu": parity, "kernels_at_cnn_shape": kernels,
+            "plain_calls_on_card": card_plain, "conv_gradients": conv_grads,
+            "fig3": fig3,
+            "theory": dict(config=dataclasses.asdict(q), steps=LEMMA1_STEPS,
+                           reps=cx.lemma_reps, cpu_twin_reps=LEMMA1_CPU_REPS,
+                           cuda_vs_cpu="rtol 1e-4", gated_zetas=LEMMA1_GATED,
+                           gate="rel 0.15", rows=lemma),
+            "wall_s": time.perf_counter() - t_ph}
 
 
 def main() -> None:
@@ -1880,7 +2513,18 @@ def main() -> None:
           "smollm_360m": el_lm, "checkpoint": el_ck, "least_squares": el_ls,
           "wall_s": time.perf_counter() - t_el, "card": smi})
 
-    # ---- 9. summary --------------------------------------------------------
+    # ---- 9. telemetry -------------------------------------------------------
+    cx = SimpleNamespace(
+        dev=dev, zero_counts=zero_counts, read_counts=read_counts, free=free,
+        cuda_time=cuda_time, sync=lambda: torch.cuda.synchronize(dev),
+        common=common, workers=FULL_M, tele_steps=6, cnn_steps=CNN_STEPS,
+        lemma_reps=LEMMA1_REPS)
+    emit(dict(phase_telemetry(cx), card=smi))
+
+    # ---- 10. the paper's §3.2 CNN, and the theory ---------------------------
+    emit(dict(phase_paper_cnn(cx), card=smi))
+
+    # ---- 11. summary -------------------------------------------------------
     def line(name, src, replaces, row, fault=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}.cu",

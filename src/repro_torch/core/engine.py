@@ -59,6 +59,16 @@ from the previous step's cohort mean with its state planes and residual
 zeroed, ``straggle_aware`` schedules decide on the discounted
 dispersion, and the loss and the consensus are the cohort's. A trivial
 plan is lowered away: the no-fault engine, bit for bit.
+
+``telemetry`` adds the metrics plane (:mod:`repro_torch.telemetry`): per
+phase, a float32 accumulator folded on the host from the losses,
+dispersions and decisions the phase already reads, the events priced in
+``topology.comm_bytes`` wire bytes, and the fault plan's alive and
+straggling counts from the rows its transition already drew. It reads
+no device tensor the phase does not read anyway, and the trained state
+never consumes it, so telemetry on vs off is bitwise.
+:meth:`PhaseEngine.run` flushes it into structured records when handed
+a ``sink``.
 """
 from __future__ import annotations
 
@@ -74,7 +84,8 @@ from repro_torch import faults as faults_mod
 from repro_torch import rng
 from repro_torch.core.averaging import (AveragingSchedule, OuterOptimizer,
                                         SchedState)
-from repro_torch.core.compress import Compression, row_uniforms
+from repro_torch.core.compress import (Compression, row_uniforms,
+                                       wire_row_bytes)
 from repro_torch.core.flat import (FlatSpec, tree_flatten, tree_map,
                                    tree_unflatten)
 from repro_torch.device import resolve_device
@@ -87,6 +98,8 @@ from repro_torch.kernels.opt_step import opt_step
 from repro_torch.kernels.ref import (_div, _row_sum, avg_disp_outer_ref,
                                      mix_disp_ref, opt_step_ref,
                                      plane_average_ref, round_to_codes)
+from repro_torch.telemetry import metrics as tele_metrics
+from repro_torch.telemetry.events import init_history, make_record
 from repro_torch.topology import MIX_KINDS, Topology, comm_bytes
 
 KERNEL_IMPLS = ("auto", "ref", "cuda")
@@ -98,15 +111,6 @@ _KERNEL_OPS = {"opt_step": opt_step, "avg_disp": avg_disp,
 _PLAIN_OPS = {"opt_step": opt_step_ref, "avg_disp": plane_average_ref,
               "mix_disp": mix_disp_ref, "avg_disp_outer": avg_disp_outer_ref,
               "compressed_mix": compressed_mix_plain}
-
-
-def init_history() -> dict:
-    """The run history dict, keyed as the reference's
-    ``repro.telemetry.events.init_history``, plus ``phase_wall``: (first
-    step, last step, host seconds) per phase (per step in ``run_host``),
-    from the request for the phase's batches to a device synchronize."""
-    return {"loss": [], "dispersion": [], "disp_trace": [],
-            "averages": 0, "eval": [], "worker_eval": [], "phase_wall": []}
 
 
 def make_plane_step(loss_fn: Callable, spec: FlatSpec) -> Callable:
@@ -178,7 +182,8 @@ class PhaseEngine:
     CUDA kernels on a CUDA device, their plain versions on the CPU),
     ``"ref"`` (the plain versions) or ``"cuda"`` (the kernels; a CPU
     engine is refused); ``faults``: worker crashes, rejoins and
-    stragglers (:mod:`repro_torch.faults`, module note)."""
+    stragglers (:mod:`repro_torch.faults`, module note); ``telemetry``:
+    the metrics plane (module note)."""
     loss_fn: Callable
     optimizer: Any
     schedule: AveragingSchedule
@@ -188,6 +193,7 @@ class PhaseEngine:
     compression: Compression | None = None
     kernel_impl: str = "auto"
     faults: FaultPlan | None = None
+    telemetry: bool = False
 
     def __post_init__(self):
         dev = resolve_device(self.device)
@@ -319,6 +325,19 @@ class PhaseEngine:
         topo = self.topology or Topology.full(num_workers)
         wire = self.compression.wire if self.compression else "f32"
         return float(comm_bytes(topo, 1, p, wire))
+
+    def _event_bytes(self, p: int, num_workers: int):
+        """Telemetry pricing of one averaging event: the (all-scope,
+        inner) nominal wire bytes ONE worker ships, in the currency of
+        the ``adaptive_bytes`` budget; an inner (group-mean) event ships
+        within its group."""
+        topo = self.topology or Topology.full(num_workers)
+        wire = self.compression.wire if self.compression else "f32"
+        eb_all = float(comm_bytes(topo, 1, p, wire))
+        g = max(self.schedule.inner_groups, 1)
+        eb_inner = float(
+            max(num_workers // g - 1, 0) * wire_row_bytes(p, wire))
+        return eb_all, eb_inner
 
     def init(self, params, num_workers: int, seed: int = 0) -> EngineState:
         """All workers start at ``params`` (as the paper prescribes);
@@ -454,11 +473,13 @@ class PhaseEngine:
 
     # ---- one step ----------------------------------------------------------
     def _fault_transition(self, state: EngineState, step: int):
-        """The fault plan's step: the new fault state, ``(mix, umask)``
-        and the straggle-aware discount (or None); a rejoining row is
-        warm-started in place, before the step's gradient, from the
-        previous step's mixing cohort (rounded to the codes), its state
-        planes and residual zeroed."""
+        """The fault plan's step: the new fault state, ``(mix, umask)``,
+        the straggle-aware discount (or None) and the telemetry's
+        ``(n_alive, n_straggle)`` of the full plane, counted from the
+        rows the transition drew; a rejoining row is warm-started in
+        place, before the step's gradient, from the previous step's
+        mixing cohort (rounded to the codes), its state planes and
+        residual zeroed."""
         fp = self._faults()
         fst = (state.fault if isinstance(state.fault, FaultState)
                else faults_mod.init_fault_state(fp.num_workers))
@@ -479,19 +500,25 @@ class PhaseEngine:
                     state.resid[i].zero_()
         dscale = (fp.disp_scale(mix, state.dec_key, step)
                   if self.schedule.straggle_aware else None)
-        return fst, (mix, umask), dscale
+        # the scripted liveness and, of it, the rows that straggle: the
+        # alive rows outside the update mask (0/1 values: exact in f32)
+        n_alive = np.sum(fst.alive, dtype=np.float32)
+        occ = (n_alive, n_alive - np.sum(umask, dtype=np.float32))
+        return fst, (mix, umask), dscale, occ
 
     def _step(self, state: EngineState, batch, grads_fn, gbuf):
         """One step, dispatched as the reference's flat-native step;
-        returns (state, mean loss tensor, dispersion, decision code)."""
+        returns (state, mean loss tensor, dispersion, decision code,
+        (n_alive, n_straggle))."""
         sched = self.schedule
         step = state.step + 1
         # the reference splits the data key every step; the losses here
         # take no randomness, but the key advances the same way
         key = rng.split(state.key)[0]
         fst, fmask, dscale = state.fault, None, None
+        occ = (state.plane.shape[0], 0.0)
         if self._faults() is not None:
-            fst, fmask, dscale = self._fault_transition(state, step)
+            fst, fmask, dscale, occ = self._fault_transition(state, step)
         alive = None if fmask is None else fmask[0]
         losses, _, gplane = grads_fn(state.plane, batch, out=gbuf)
         scal = self.optimizer.plane_scalars(step)
@@ -526,10 +553,10 @@ class PhaseEngine:
                                step=step, sched=sst, outer_state=outer_c,
                                resid=resid, fault=fst)
         if alive is None:
-            return state, torch.mean(losses), disp, code
+            return state, torch.mean(losses), disp, code, occ
         # the loss over the mixing cohort
         a = torch.from_numpy(alive).to(losses.device)
-        return state, torch.sum(losses * a) / torch.sum(a), disp, code
+        return state, torch.sum(losses * a) / torch.sum(a), disp, code, occ
 
     def _stage(self, batch):
         return tree_map(lambda x: torch.as_tensor(x, device=self._dev),
@@ -538,19 +565,33 @@ class PhaseEngine:
     def _phase(self, state: EngineState, batches):
         """Run the device-resident per-step batches of one phase. Returns
         the new state and the per-step traces {loss, dispersion,
-        avg_code} as host lists (one device fetch for the losses)."""
+        avg_code} as host lists (one device fetch for the losses), with
+        telemetry the phase's ``metrics`` accumulator too, folded from
+        those host values."""
         grads_fn = make_plane_step(self.loss_fn, state.spec)
         gbuf = torch.empty_like(state.plane)
-        losses, disps, codes = [], [], []
+        m, p = state.plane.shape
+        losses, disps, codes, occs = [], [], [], []
         for batch in batches:
-            state, loss, disp, code = self._step(state, batch, grads_fn,
-                                                 gbuf)
+            state, loss, disp, code, occ = self._step(state, batch,
+                                                      grads_fn, gbuf)
             losses.append(loss)
             disps.append(disp)
             codes.append(code)
+            occs.append(occ)
         loss_h = torch.stack(losses).tolist() if losses else []
-        return state, {"loss": loss_h, "dispersion": disps,
-                       "avg_code": codes}
+        trace = {"loss": loss_h, "dispersion": disps, "avg_code": codes}
+        if self.telemetry:
+            eb_all, eb_inner = self._event_bytes(p, m)
+            acc = tele_metrics.init_metrics()
+            for loss, disp, code, (n_alive, n_straggle) in zip(
+                    loss_h, disps, codes, occs):
+                acc = tele_metrics.accumulate(
+                    acc, loss=loss, disp=disp, code=code,
+                    event_bytes_all=eb_all, event_bytes_inner=eb_inner,
+                    n_alive=n_alive, n_straggle=n_straggle)
+            trace["metrics"] = acc
+        return state, trace
 
     def run_phase(self, state: EngineState, batches):
         """One phase over per-step batches (numpy arrays or tensors),
@@ -624,7 +665,7 @@ class PhaseEngine:
             record_every: int = 0, eval_fn=None, worker_eval_fn=None,
             phase_len: int | None = None, steps: int | None = None,
             prefetch: bool = True, state: EngineState | None = None,
-            return_state: bool = False):
+            return_state: bool = False, sink=None):
         """Training loop: one phase per block of steps.
 
         data: an iterable of per-step worker batches (leaves with the
@@ -648,11 +689,23 @@ class PhaseEngine:
         every ``record_every`` steps, ``dispersion`` at every averaging
         event, the event count ``averages``, and ``phase_wall``.
         ``state`` resumes an :class:`EngineState`; ``steps`` bounds the
-        steps run in this call."""
+        steps run in this call.
+
+        ``sink`` (a :class:`repro_torch.telemetry.TelemetrySink`; needs
+        ``PhaseEngine(telemetry=True)``) receives per phase an
+        ``averaging_event`` per event step, a ``fault_event`` per
+        scripted crash or rejoin in the phase, and one ``phase_metrics``
+        record: the flushed accumulator, the phase's traces and its
+        ``phase_wall`` seconds."""
         # imported here: the data plane's module imports core.flat, which
         # loads this package
         from repro_torch.data.pipeline import DeviceDataset, Prefetcher
         self._check_workers(num_workers)
+        if sink is not None and not self.telemetry:
+            raise ValueError(
+                "run(sink=...) flushes the metrics accumulator, which "
+                "this engine does not carry — construct it with "
+                "PhaseEngine(..., telemetry=True)")
         if state is None:
             state = self.init(params, num_workers, seed)
         t0 = state.step
@@ -671,19 +724,40 @@ class PhaseEngine:
 
         def consume(t, k, trace, tw0):
             self._sync()
-            hist["phase_wall"].append((t + 1, t + k,
-                                       time.perf_counter() - tw0))
+            wall = time.perf_counter() - tw0
+            hist["phase_wall"].append((t + 1, t + k, wall))
+            t_first = t
+            n_loss, n_disp = len(hist["loss"]), len(hist["disp_trace"])
+            events = []
             for i in range(k):
                 t += 1
                 code = trace["avg_code"][i]
                 if code:
                     hist["dispersion"].append((t, trace["dispersion"][i]))
                     hist["averages"] += 1
+                    events.append((t, trace["dispersion"][i], code))
                 if record_every and t % record_every == 0:
                     hist["loss"].append((t, trace["loss"][i]))
                     hist["disp_trace"].append((t, trace["dispersion"][i]))
             if needs_eval and t % record_every == 0:
                 self._record_evals(hist, t, state, eval_fn, worker_eval_fn)
+            if sink is not None:
+                for t_ev, d_ev, c_ev in events:
+                    sink.emit(make_record(
+                        "averaging_event", step=t_ev, dispersion=d_ev,
+                        scope="inner" if c_ev == 1 else "all"))
+                fp = self._faults()
+                if fp is not None:
+                    for ev in fp.events_in(t_first, t):
+                        sink.emit(make_record(
+                            "fault_event", step=ev.step, kind=ev.kind,
+                            worker=ev.worker))
+                flushed = tele_metrics.flush_metrics(trace["metrics"])
+                sink.emit(make_record(
+                    "phase_metrics", t0=t_first + 1, t1=t, wall_s=wall,
+                    steps_per_s=(k / wall if wall > 0 else None),
+                    loss_trace=hist["loss"][n_loss:],
+                    disp_trace=hist["disp_trace"][n_disp:], **flushed))
             return t
 
         if isinstance(data, DeviceDataset):

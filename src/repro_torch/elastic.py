@@ -38,9 +38,9 @@ import numpy as np
 import torch
 
 from repro_torch import faults as faults_mod
-from repro_torch.core.engine import init_history
 from repro_torch.faults import FaultPlan, FaultState
 from repro_torch.kernels.ref import round_to_codes
+from repro_torch.telemetry.events import init_history, make_record
 from repro_torch.topology import Topology
 
 
@@ -340,7 +340,7 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
                 steps: int, seed: int = 0, record_every: int = 0,
                 eval_fn=None, worker_eval_fn=None, state=None,
                 return_state: bool = False, phase_len: int | None = None,
-                prefetch: bool = True):
+                prefetch: bool = True, sink=None):
     """Drive ``engine`` through ``plan`` for ``steps`` local steps.
 
     ``data_factory(m, t0, k)`` gives the data of ``k`` steps from local
@@ -353,15 +353,18 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
 
     Returns ``(final consensus params, history)`` as ``PhaseEngine.run``
     does, the history with ``resizes`` as ``(step, old_m, new_m)`` too;
-    ``return_state`` appends the final state."""
+    ``return_state`` appends the final state.
+
+    ``sink`` (needs ``PhaseEngine(telemetry=True)``) goes to every
+    segment's run; each applied resize also emits one ``resize_event``
+    record."""
     _validate(engine, plan)
     segs = plan.segments(steps)
     done = 0 if state is None else int(state.step)
     if done >= steps:
         raise ValueError(
             f"state has already completed {done} of {steps} steps")
-    hist = init_history()
-    hist["resizes"] = []
+    hist = init_history(resizes=True)
     prev_faults = None
     params_final = None
     for seg in segs:
@@ -384,6 +387,10 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
                                      faults=prev_faults)
                 hist["resizes"].append((seg.start, old_m,
                                         seg.num_workers))
+                if sink is not None:
+                    sink.emit(make_record(
+                        "resize_event", step=seg.start, old_m=old_m,
+                        new_m=seg.num_workers))
         t0 = max(done + 1, seg.start)
         k = seg.stop - t0
         params_final, h, state = eng.run(
@@ -391,7 +398,7 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
             num_workers=seg.num_workers, seed=seed,
             record_every=record_every, eval_fn=eval_fn,
             worker_eval_fn=worker_eval_fn, phase_len=phase_len, steps=k,
-            prefetch=prefetch, state=state, return_state=True)
+            prefetch=prefetch, state=state, return_state=True, sink=sink)
         for key in ("loss", "dispersion", "disp_trace", "eval",
                     "worker_eval", "phase_wall"):
             hist[key].extend(h[key])

@@ -15,9 +15,13 @@ writes the consensus model to ``PATH`` and the full engine state to
 ``--resume PATH.state`` continues such a run for ``--steps`` more steps,
 bitwise as if it had not stopped: unlike the reference CLI, whose
 streams restart at their first batch on a resume, each row's stream
-skips the batches that row has taken. Runs on CUDA unless ``--device
-cpu``; ``--kernel-impl ref`` takes the kernels' plain versions on the
-card and ``--no-prefetch`` stages the batches in line, for comparison.
+skips the batches that row has taken. ``--telemetry PATH`` writes the
+run's structured records (:mod:`repro_torch.telemetry`) to a JSONL file,
+rendered by ``python -m repro_torch.telemetry.report PATH``;
+``--profile-dir DIR`` traces the run with ``torch.profiler``. Runs on
+CUDA unless ``--device cpu``; ``--kernel-impl ref`` takes the kernels'
+plain versions on the card and ``--no-prefetch`` stages the batches in
+line, for comparison.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
@@ -32,8 +36,8 @@ import time
 
 import numpy as np
 
-from repro_torch.checkpoint import (load_engine_state, save_checkpoint,
-                                    save_engine_state)
+from repro_torch.checkpoint import (ENGINE_STATE_VERSION, load_engine_state,
+                                    save_checkpoint, save_engine_state)
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import AveragingSchedule, PhaseEngine
 from repro_torch.core.averaging import OuterOptimizer
@@ -44,6 +48,8 @@ from repro_torch.elastic import ElasticPlan, run_elastic, segment_engine
 from repro_torch.faults import FaultPlan
 from repro_torch.models import init_params, lm_loss
 from repro_torch.optim import AdamW, Momentum
+from repro_torch.telemetry import (JsonlSink, make_record, profile_trace,
+                                   run_meta_record)
 from repro_torch.topology import KINDS as TOPOLOGY_KINDS
 from repro_torch.topology import Topology, comm_bytes
 
@@ -168,6 +174,18 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefetch", action="store_true",
                     help="stage phase blocks in line instead of via the "
                          "double-buffered prefetch thread")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="write structured run telemetry to this JSONL "
+                         "file (repro_torch.telemetry): a run_meta header, "
+                         "one phase_metrics record per phase (the metrics "
+                         "accumulator, folded from the values the phase "
+                         "already reads), plus averaging/fault/resize/"
+                         "checkpoint events — render with python -m "
+                         "repro_torch.telemetry.report")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="trace the run with torch.profiler (CPU, and CUDA "
+                         "on the card) into this directory "
+                         "(TensorBoard-loadable)")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="after the run, write the consensus model to "
                          "PATH and the full engine state to PATH.state")
@@ -355,7 +373,8 @@ def setup(args, ap):
              if args.outer_momentum > 0 else None)
     engine = PhaseEngine(loss_fn, opt, sch, device=str(device), outer=outer,
                          topology=topology, compression=compression,
-                         kernel_impl=args.kernel_impl, faults=faults)
+                         kernel_impl=args.kernel_impl, faults=faults,
+                         telemetry=bool(args.telemetry))
     if faults is not None and not faults.is_trivial:
         crashes = sum(ev.kind == "crash" for ev in faults.events)
         rejoins = sum(ev.kind == "rejoin" for ev in faults.events)
@@ -427,6 +446,26 @@ def _resume(args, engine, params, plan):
     return load_engine_state(args.resume, like)
 
 
+def _open_sink(args, engine) -> JsonlSink | None:
+    """``--telemetry``'s sink, its ``run_meta`` record written (the
+    reference CLI's config keys)."""
+    if not args.telemetry:
+        return None
+    sink = JsonlSink(args.telemetry)
+    topo = engine.topology
+    sink.emit(run_meta_record(config={
+        "arch": args.arch, "workers": args.workers, "steps": args.steps,
+        "avg": args.avg, "phase_len": args.phase_len, "lr": args.lr,
+        "optimizer": args.optimizer,
+        "momentum": 0.9 if args.optimizer == "momentum" else 0.0,
+        "topology": args.topology,
+        "spectral_gap": topo.spectral_gap if topo is not None else None,
+        "comm_dtype": args.comm_dtype, "seed": args.seed},
+        device=engine.device))
+    print(f"[train] telemetry -> {args.telemetry}")
+    return sink
+
+
 def main(argv=None):
     """Parse ``argv``, train, print the ``[train]`` summary. Returns
     (final consensus params, history, final EngineState)."""
@@ -439,26 +478,44 @@ def main(argv=None):
         state, at = _resume(args, engine, params, plan)
         print(f"[train] resuming from {args.resume} at step {at}")
     skip = _taken(plan, args.workers, at)
-    t0 = time.time()
-    if plan is not None:
-        first = [skip]
+    sink = _open_sink(args, engine)
+    try:
+        final, hist, state = _train(args, engine, params, batches, plan,
+                                    state, at, skip, sink)
+    finally:
+        if sink is not None:
+            sink.close()
+    return final, hist, state
 
-        def data(m, t_start, k):
-            return batches(m, k, skip=first.pop() if first else None)
-        final, hist, state = run_elastic(
-            engine, params, data, plan, steps=at + args.steps,
-            seed=args.seed, record_every=10, state=state,
-            return_state=True, prefetch=not args.no_prefetch)
-        for t, old_m, new_m in hist["resizes"]:
-            kind = "shrink" if new_m < old_m else "grow"
-            print(f"[train] {kind} {old_m} -> {new_m} workers "
-                  f"before step {t}")
-    else:
-        final, hist, state = engine.run(
-            params, batches(args.workers, args.steps, skip=skip),
-            num_workers=args.workers, seed=args.seed, record_every=10,
-            prefetch=not args.no_prefetch, state=state, return_state=True)
+
+def _train(args, engine, params, batches, plan, state, at, skip, sink):
+    """The run of :func:`main` (under ``--profile-dir``'s profiler), its
+    summary lines and ``--checkpoint``'s files and record."""
+    t0 = time.time()
+    with profile_trace(args.profile_dir):
+        if plan is not None:
+            first = [skip]
+
+            def data(m, t_start, k):
+                return batches(m, k, skip=first.pop() if first else None)
+            final, hist, state = run_elastic(
+                engine, params, data, plan, steps=at + args.steps,
+                seed=args.seed, record_every=10, state=state,
+                return_state=True, prefetch=not args.no_prefetch,
+                sink=sink)
+            for t, old_m, new_m in hist["resizes"]:
+                kind = "shrink" if new_m < old_m else "grow"
+                print(f"[train] {kind} {old_m} -> {new_m} workers "
+                      f"before step {t}")
+        else:
+            final, hist, state = engine.run(
+                params, batches(args.workers, args.steps, skip=skip),
+                num_workers=args.workers, seed=args.seed, record_every=10,
+                prefetch=not args.no_prefetch, state=state,
+                return_state=True, sink=sink)
     dt = time.time() - t0
+    if args.profile_dir:
+        print(f"[train] profiler trace -> {args.profile_dir}")
     losses = hist["loss"]
     print(f"[train] {args.steps} steps in {dt:.1f}s "
           f"({dt / args.steps * 1e3:.0f} ms/step), "
@@ -474,6 +531,11 @@ def main(argv=None):
                           elastic=plan is not None)
         print(f"[train] saved consensus model to {args.checkpoint} "
               f"(+ resumable EngineState at {args.checkpoint}.state)")
+        if sink is not None:
+            sink.emit(make_record(
+                "checkpoint_event", step=int(state.step),
+                path=args.checkpoint + ".state",
+                layout_version=ENGINE_STATE_VERSION))
     return final, hist, state
 
 

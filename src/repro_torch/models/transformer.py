@@ -166,7 +166,7 @@ def lm_loss(cfg: ModelConfig, params, batch):
 # Decode (single token, per-layer caches)
 # --------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cpu"):
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
     """The per-layer decode cache: {"pos": 0, "layers": [...]}, attention
     K/V of ``seq_len`` positions, RG-LRU state and conv history, RWKV wkv
     state and token-shift inputs (one dict for a layer's mixer and

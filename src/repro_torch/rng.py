@@ -16,6 +16,11 @@ it needs the same bits, so this module re-implements the pieces of
                           on [lo, hi): that * (hi - lo) + lo, then
                           max(lo, .)
   bernoulli(key, p, s) -> uniform(key, s) < float32(p)
+  randint(key, s, lo, hi)
+                       -> int32 lo + (hb mod n * m + lb mod n) mod n,
+                          n = hi - lo, m = (2**16 mod n)**2 mod n, hb
+                          and lb the bits of the two halves of
+                          split(key), in wrapping uint32 arithmetic
   normal(key, s)       -> sqrt(2) * erfinv(u), u the uniform mapped onto
                           [nextafter(-1, 0), 1) as ``jax.random.uniform``
                           maps it, erfinv XLA's float32 polynomial
@@ -143,10 +148,12 @@ def _on_range(u: torch.Tensor, minval, maxval) -> torch.Tensor:
     return torch.clamp_min(v, float(lo))
 
 
-def uniform(key, shape=(), *, minval=0.0, maxval=1.0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``."""
-    u = bits_to_uniform(random_bits(key, shape, device=device))
+def uniform(key, shape=(), *, minval=0.0, maxval=1.0, device=None,
+            start: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``;
+    ``start`` as :func:`random_bits` takes it (a block of a larger
+    draw)."""
+    u = bits_to_uniform(random_bits(key, shape, device=device, start=start))
     if (minval, maxval) == (0.0, 1.0):
         return u  # u * 1 + 0, then max(0, .), is u itself
     return _on_range(u, minval, maxval)
@@ -187,18 +194,50 @@ def _erfinv32(x: torch.Tensor) -> torch.Tensor:
                        p * x)
 
 
-def normal(key, shape=(), *, device=None) -> torch.Tensor:
+def normal(key, shape=(), *, device=None, start: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` in float32: the same threefry
     bits, mapped onto [nextafter(-1, 0), 1) as ``jax.random.uniform``
     maps them (bit for bit), then ``sqrt(2) * erfinv``. The erfinv is
     XLA's polynomial; against ``jax.random.normal`` on the CPU about one
     draw in a hundred lands 1-3 ulps apart (the log1p), the rest are
-    equal."""
+    equal. ``start`` as :func:`random_bits` takes it."""
     lo = np.nextafter(np.float32(-1), np.float32(0))
     span = np.float32(1) - lo  # 2.0 in float32, as the reference rounds it
-    u = uniform(key, shape, device=device) * float(span) + float(lo)
+    u = uniform(key, shape, device=device, start=start) * float(span) \
+        + float(lo)
     u = torch.clamp_min(u, float(lo))
     return _erfinv32(u) * float(np.float32(np.sqrt(2)))
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a * b`` mod 2**32 for uint32 words (``a`` int64 words, ``b`` a
+    Python int), in 16-bit halves of ``b`` so no product leaves int64."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def randint(key, shape, minval: int, maxval: int, *,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, bounds
+    that fit an int32, as jax takes Python ints): the span ``maxval -
+    minval`` as a uint32 (1 when ``maxval <= minval``), two streams of
+    32 bits from ``split(key)``, and the offset ``(hb % span * m + lb %
+    span) % span``, ``m = (2**16 % span)**2 % span``, in uint32
+    arithmetic: every product and sum wraps mod 2**32."""
+    lo, hi = int(minval), int(maxval)
+    if not (-2**31 <= lo < 2**31 and -2**31 <= hi < 2**31):
+        raise ValueError(f"randint bounds [{lo}, {hi}) do not fit the "
+                         "int32 that 32-bit JAX draws them in")
+    span = (hi - lo) & _MASK if hi > lo else 1
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device=device)
+    lower = random_bits(k2, shape, device=device)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = ((_mul32(higher % span, mult) + lower % span) & _MASK) % span
+    out = (off + lo + 2**31) & _MASK
+    return (out - 2**31).to(torch.int32)
 
 
 #: float32 erf(-2 / sqrt(2)) and erf(2 / sqrt(2)) as

@@ -732,3 +732,59 @@ def test_serve_on_card_matches_cpu(dev, arch):
     np.testing.assert_allclose(gs.cpu().numpy(),
                                step(params, {"tokens": prompt}).numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+def test_cnn_engine_on_card_matches_cpu(dev):
+    """The paper's §3.2 CNN at ``CNNConfig``'s widths, periodic-10 over a
+    ``DeviceDataset``: 20 steps, each on the card (``opt_step`` every
+    step, ``avg_disp`` at each event) and on the CPU from the CPU's
+    state, TF32 off; the same event steps, the loss within rtol 1e-5,
+    and at most 1% of the params and velocity planes after each step
+    beyond 1e-5 of each plane's largest magnitude
+    (``chip_smoke.CNN_LOSS_RTOL`` / ``CNN_PLANE_TOL`` /
+    ``CNN_FLIP_FRAC``: float32 sums in other orders, and the gradients
+    behind a ReLU or max-pool decision an ulp flips). A common
+    state each step: the recipe's first steps are violent enough (the
+    loss climbs from 2.8 to 12) that two free-running runs part as
+    their last bits are amplified."""
+    from repro_torch import rng
+    from repro_torch.configs.paper import CNNConfig
+    from repro_torch.core import AveragingSchedule, PhaseEngine
+    from repro_torch.data import DeviceDataset, mnist_like
+    from repro_torch.models import cnn_loss, init_cnn
+    from repro_torch.optim import Momentum
+
+    cfg = CNNConfig()
+    images, labels = mnist_like(1024, seed=0, noise=0.6)
+    arrays = {"images": images, "labels": labels}
+    idx = DeviceDataset(arrays, 4, batch_size=8, seed=0, mode="permute",
+                        device="cpu").index_block(20)
+    eng_g, eng_c = (PhaseEngine(lambda p, b, r: (cnn_loss(cfg, p, b), {}),
+                                Momentum(lr=cfg.lr, mu=cfg.momentum),
+                                AveragingSchedule("periodic", phase_len=10),
+                                device=d) for d in (dev, "cpu"))
+    ds_g, ds_c = (DeviceDataset(arrays, 4, indices=idx, device=d)
+                  for d in (dev, "cpu"))
+    st_c = eng_c.init(init_cnn(cfg, rng.PRNGKey(0), device="cpu"), 4, 0)
+    n_opt, n_avg = opt_step.launches, avg_disp.launches
+    events = []
+    for _ in range(20):
+        st_g = st_c._replace(plane=st_c.plane.to(dev), opt_planes=tuple(
+            p.to(dev) for p in st_c.opt_planes))
+        _, hg, st_g = eng_g.run(None, ds_g, num_workers=4, steps=1,
+                                state=st_g, record_every=1,
+                                return_state=True)
+        _, hc, st_c = eng_c.run(None, ds_c, num_workers=4, steps=1,
+                                state=st_c, record_every=1,
+                                return_state=True)
+        assert [t for t, _ in hg["dispersion"]] == \
+            [t for t, _ in hc["dispersion"]]
+        events += [t for t, _ in hg["dispersion"]]
+        np.testing.assert_allclose(hg["loss"][0][1], hc["loss"][0][1],
+                                   rtol=1e-5)
+        for a, b in zip((st_g.plane,) + st_g.opt_planes,
+                        (st_c.plane,) + st_c.opt_planes):
+            d = (a.cpu() - b).abs() / b.abs().max()
+            assert float((d > 1e-5).float().mean()) <= 1e-2
+    assert events == [10, 20]
+    assert (opt_step.launches - n_opt, avg_disp.launches - n_avg) == (20, 2)

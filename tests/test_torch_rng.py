@@ -107,3 +107,42 @@ def test_gossip_matrix_bitwise(m):
             got = ptopo.gossip_matrix(kp, step, m).numpy()
             np.testing.assert_array_equal(got, want)
             assert got.dtype == np.float32
+
+
+@pytest.mark.parametrize("seed", [0, 7, 12345])
+@pytest.mark.parametrize("lo,hi", [(0, 40), (0, 7), (0, 256), (0, 65536),
+                                   (0, 65537), (-5, 1_000_003),
+                                   (7, 3_000_017), (0, 2**31 - 1),
+                                   (-2**31, 2**31 - 1), (3, 3), (5, 2)],
+                         ids=lambda v: str(v))
+def test_randint_bitwise(seed, lo, hi):
+    """``rng.randint`` is ``jax.random.randint`` bit for bit: spans that
+    are powers of two and spans that are not (the modulo of the two bit
+    streams), spans past 2**16 (the wrapping multiplier), the full int32
+    range and empty spans, over several shapes."""
+    for shape in [(7,), (13, 5), (2, 3, 4), (200, 8)]:
+        want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed),
+                                             shape, lo, hi))
+        got = rng.randint(rng.PRNGKey(seed), shape, lo, hi)
+        assert got.dtype == torch.int32 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_randint_refuses_bounds_past_int32():
+    with pytest.raises(ValueError, match="int32"):
+        rng.randint(rng.PRNGKey(0), (3,), 0, 2**31)
+
+
+@pytest.mark.parametrize("start_steps", [0, 3, 17])
+def test_normal_and_uniform_blocks_are_the_whole_draw(start_steps):
+    """``start=``: a block of steps of a (steps, reps, M) draw is that
+    slice of the whole draw, bit for bit (the theory simulator draws its
+    noise so)."""
+    key = rng.PRNGKey(5)
+    whole_n = rng.normal(key, (20, 6, 4))
+    whole_u = rng.uniform(key, (20, 6))
+    n = 3
+    blk_n = rng.normal(key, (n, 6, 4), start=start_steps * 24)
+    blk_u = rng.uniform(key, (n, 6), start=start_steps * 6)
+    assert torch.equal(blk_n, whole_n[start_steps:start_steps + n])
+    assert torch.equal(blk_u, whole_u[start_steps:start_steps + n])

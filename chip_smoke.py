@@ -146,13 +146,32 @@ Phases, each printing one JSON line:
      zetas and 3000 steps (2000 reps) against
      ``lemma1_asymptotic_variance`` and against the CPU's run of the
      same draws (64 reps);
- 11. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+ 11. the sharded plane (``PhaseEngine(mesh=, collective=)``,
+     ``repro_torch.launch.mesh``; ``phase_sharded``): (a) the least
+     squares of phase 4 (64 steps; periodic-8, stochastic, and a ring
+     with the int8 wire under a fault plan) on 4 gloo ranks that share
+     the card, started with ``torch.multiprocessing`` over a ``file://``
+     rendezvous, 6 worker rows each, under ``gather`` (bitwise the
+     unsharded card run; each rank launches what the unsharded step
+     launches) and ``psum`` (one ``opt_step`` launch a step on the
+     rank's rows; the same decisions, params within rtol 1e-5 / atol
+     1e-7); (b) smollm-360m at full width (phase 3's periodic run) on 2
+     gloo ranks under ``psum``: the same events and losses as phase 3's
+     run, the consensus bitwise; per rank the peak memory, step ms, the
+     collectives' ms (the 1.45 GB column-sum all-reduce) and the local
+     column-sum, squared-distance and broadcast passes and a row's bf16
+     encode (plain torch, as the reference's are jnp); (c) the CLI's
+     ``--shard --collective gather`` under ``torchrun --nproc-per-node
+     1`` (NCCL) on ``--reduced`` smollm-360m: bitwise the unsharded
+     CLI's checkpoint;
+ 12. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
      masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-10)
-and read just after; the ``kernels`` line sums those runs. Any failed
+Every launch count is set to 0 just before a main-path run (phases 3-11;
+a spawned rank zeroes and reads its own) and read just after; the
+``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
 also refuses to run without a CUDA device. All of its work happens under
 ``if __name__ == "__main__"``.
@@ -1061,6 +1080,444 @@ def phase_paper_cnn(cx) -> dict:
             "wall_s": time.perf_counter() - t_ph}
 
 
+# ---- phase 11: the sharded plane ------------------------------------------
+#: (a) the least squares of phase 4 on SHARD_LS_RANKS gloo ranks sharing
+#: the card, SHARD_LS_STEPS steps a run, in phases of 16; (b) smollm-360m
+#: at full width on SHARD_LM_RANKS ranks; the fault plan crashes rows of
+#: two of the four ranks (6 rows each) and rejoins one, stragglers on all
+SHARD_LS_RANKS, SHARD_LS_STEPS = 4, 64
+SHARD_LM_RANKS = 2
+SHARD_FAULTS = "crash:m=3@t=20,crash:m=13@t=20,rejoin:m=3@t=45"
+SHARD_LS_RUNS = {
+    "periodic-8": dict(sched=dict(kind="periodic", phase_len=8)),
+    "stochastic": dict(sched=dict(kind="stochastic", zeta=0.1)),
+    "ring-int8-faults": dict(sched=dict(kind="periodic", phase_len=16),
+                             topology="ring", wire="int8", faults=True),
+}
+#: the CLI of phase 3's periodic run (smollm-360m, 4 workers, bf16)
+LM_ARGV = ["--arch", "smollm-360m", "--workers", "4", "--batch", "4",
+           "--seq", "64", "--optimizer", "momentum", "--lr", "0.01",
+           "--device", "cuda", "--steps", "6", "--avg", "periodic",
+           "--phase-len", "2"]
+
+
+def _kernel_wrappers() -> dict:
+    from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
+                                              compressed_mix, mix_disp)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.opt_step import opt_step
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    return {"opt_step": opt_step, "avg_disp": avg_disp,
+            "mix_disp": mix_disp, "avg_disp_outer": avg_disp_outer,
+            "compressed_mix": compressed_mix,
+            "flash_attention": flash_attention, "rglru_scan": rglru_scan,
+            "rwkv6_scan": rwkv6_scan}
+
+
+def _strip(hist: dict) -> dict:
+    return {k: v for k, v in hist.items() if k != "phase_wall"}
+
+
+def shard_ls_run(name: str, **engine_kw):
+    """Run ``name`` of SHARD_LS_RUNS on the card: phase 4's least squares
+    (24 workers, SGD on lr0 / (t - 1 + d)) through a DeviceDataset, a
+    sharded run with ``mesh=`` / ``collective=``. Returns (final, hist,
+    state)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper import CONVEX_SUITE
+    from repro_torch.core import AveragingSchedule, PhaseEngine
+    from repro_torch.core.compress import Compression
+    from repro_torch.data import DeviceDataset, convex_dataset
+    from repro_torch.faults import FaultPlan
+    from repro_torch.models.convex import make_problem
+    from repro_torch.optim import SGD
+    from repro_torch.topology import Topology
+
+    c = CONVEX_SUITE[0]
+    mw = c.num_workers
+    X, y, _ = convex_dataset(c.model, c.num_samples, c.num_dims,
+                             sparsity=c.sparsity, noise=c.noise, seed=0)
+    lr0 = 0.8 * 200.0 / float(np.mean(np.sum(X * X, axis=1)))
+    obj = make_problem("ls")[0]
+
+    def loss(p, b, r):
+        w = p["w"]
+        return obj(w, b["x"].reshape(-1, w.shape[0]), b["y"].reshape(-1)), {}
+
+    run = SHARD_LS_RUNS[name]
+    kw = dict(schedule=AveragingSchedule(**run["sched"]))
+    if "topology" in run:
+        kw["topology"] = Topology.build(run["topology"], mw)
+    if "wire" in run:
+        kw["compression"] = Compression(run["wire"])
+    if run.get("faults"):
+        kw["faults"] = FaultPlan.parse(SHARD_FAULTS, mw, straggle_prob=0.1,
+                                       rejoin_curriculum=8)
+    idx = np.random.default_rng(5).integers(0, c.num_samples,
+                                            (SHARD_LS_STEPS, mw))
+    data = DeviceDataset({"x": torch.from_numpy(X).cuda(),
+                          "y": torch.from_numpy(y).cuda()}, mw, indices=idx,
+                         device="cuda")
+    eng = PhaseEngine(loss, SGD(lr=lambda t: lr0 / (t - 1.0 + 200.0)),
+                      device="cuda", **kw, **engine_kw)
+    return eng.run({"w": torch.zeros(c.num_dims, device="cuda")}, data,
+                   num_workers=mw, seed=0, record_every=1, phase_len=16,
+                   return_state=True)
+
+
+def _shard_ls_rank(rank: int) -> dict:
+    """A rank of phase 11 (a): every run under both collectives, with
+    its launches, step ms and collective seconds."""
+    import torch
+    from repro_torch.launch.mesh import make_worker_mesh
+    mesh = make_worker_mesh(24, backend="gloo", device="cuda")
+    kernels = _kernel_wrappers()
+    out = {"rows": mesh.row_range(24)}
+    for name in SHARD_LS_RUNS:
+        for coll in ("gather", "psum"):
+            for k in kernels.values():
+                k.launches = 0
+            mesh.reset_stats()
+            t0 = time.perf_counter()
+            final, hist, state = shard_ls_run(name, mesh=mesh,
+                                              collective=coll)
+            torch.cuda.synchronize()
+            out[(name, coll)] = dict(
+                w=final["w"].cpu().numpy(), hist=_strip(hist),
+                launches={n: k.launches for n, k in kernels.items()},
+                step_ms=steady_step_ms(hist["phase_wall"]),
+                wall_s=time.perf_counter() - t0,
+                collectives={op: dict(st, ms_per_step=1e3 * st["seconds"]
+                                      / SHARD_LS_STEPS)
+                             for op, st in mesh.read_stats().items()})
+            del final, state
+    return out
+
+
+def _shard_lm_rank(rank: int, workdir: str) -> dict:
+    """A rank of phase 11 (b): phase 3's periodic run of smollm-360m with
+    its 4 worker rows over SHARD_LM_RANKS ranks (psum): peak memory, step
+    ms, the collectives' seconds; the local column-sum,
+    squared-distance and broadcast passes timed on the rank's rows, and
+    a bf16 wire's encode of one row; rank 0 saves the consensus."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_worker_mesh
+    dev = torch.device("cuda", 0)
+    kernels = _kernel_wrappers()
+    ap = train.make_parser()
+    args = ap.parse_args(LM_ARGV)
+    _, engine, params, batches = train.setup(args, ap)
+    mesh = make_worker_mesh(args.workers, backend="gloo", device="cuda")
+    eng = dataclasses.replace(engine, mesh=mesh, collective="psum")
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    final, hist, state = eng.run(params, batches(), num_workers=args.workers,
+                                 seed=args.seed, record_every=1,
+                                 return_state=True)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = args.steps
+    res = dict(rows=mesh.row_range(args.workers), hist=_strip(hist),
+               launches={n: k.launches for n, k in kernels.items()},
+               step_ms=steady_step_ms(hist["phase_wall"]), wall_s=wall,
+               peak_gb=peak,
+               collectives={op: dict(st, ms_per_call=1e3 * st["seconds"]
+                                     / st["calls"])
+                            for op, st in mesh.read_stats().items()},
+               steps=steps)
+    plane = state.plane
+
+    def timed(fn, iters=3):
+        fn()
+        torch.cuda.synchronize(dev)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize(dev)
+        return a.elapsed_time(b) / iters
+
+    glob = eng._col_sum(plane)
+
+    def sq_dist():
+        acc = torch.zeros((), device=dev)
+        for i in range(plane.shape[0]):
+            d = plane[i] - glob
+            acc = acc + torch.dot(d, d)
+        return acc
+    res["col_sum_ms"] = timed(lambda: eng._col_sum(plane))
+    res["sq_dist_ms"] = timed(sq_dist)
+    # the all-worker mean written to the rows, and a wire's row-local
+    # encode (bf16, error feedback) of one row
+    res["broadcast_ms"] = timed(
+        lambda: eng._write_rows(plane, glob.expand_as(plane)))
+    from repro_torch.core.compress import encode_decode
+    one, resid = plane[:1], torch.zeros_like(plane[:1])
+    res["encode_row_ms"] = timed(
+        lambda: encode_decode(one, resid, wire="bf16"))
+    del resid
+    if rank == 0:
+        torch.save([v.cpu() for v in torch.utils._pytree.tree_leaves(final)],
+                   Path(workdir) / "lm-final.pt")
+    return res
+
+
+def _shard_rank(rank: int, world: int, workdir: str, job: str) -> None:
+    """One spawned rank of phase 11: joins the gloo group over a file in
+    ``workdir`` (300 s per collective at most), runs ``job`` and pickles
+    its results (or its traceback) to ``workdir``."""
+    import datetime
+    import pickle
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{workdir}/{job}-rendezvous",
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=300))
+        out = (_shard_ls_rank(rank) if job == "ls"
+               else _shard_lm_rank(rank, workdir))
+        dist.destroy_process_group()
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(Path(workdir) / f"{job}-rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    if "error" in out:
+        raise SystemExit(1)
+
+
+def spawn_ranks(job: str, world: int, workdir: str, timeout: float) -> list:
+    """``world`` ranks of ``job`` started with ``torch.multiprocessing``
+    (spawn); every one still running at ``timeout`` seconds is killed.
+    Returns each rank's results; a rank's failure raises with its
+    traceback."""
+    import pickle
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(_shard_rank, args=(world, workdir, job),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout
+    failure = None
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                failure = f"{job}: ranks still running after {timeout} s"
+                break
+    except Exception as e:  # a rank exited non-zero
+        failure = f"{job}: {e}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r in range(world):
+        path = Path(workdir) / f"{job}-rank{r}.pkl"
+        res = pickle.load(open(path, "rb")) if path.exists() else {
+            "error": "no result"}
+        if "error" in res:
+            failure = (failure or job) + f"\nrank {r}: {res['error']}"
+        results.append(res)
+    check(failure is None, str(failure))
+    return results
+
+
+def phase_sharded(cx) -> dict:
+    """Phase 11: the sharded plane. (a) the least squares on 4 gloo ranks
+    sharing the card against the unsharded card run (gather bitwise, psum
+    the same decisions within rtol 1e-5 / atol 1e-7); (b) smollm-360m at
+    full width on 2 ranks (psum) against phase 3's periodic run: the
+    same decisions and losses, the consensus bitwise (as measured); (c)
+    the CLI's ``--shard --collective gather`` under ``torchrun`` with
+    one NCCL rank, bitwise the unsharded CLI."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    t_ph = time.perf_counter()
+    out = {}
+    cx.free()
+    with tempfile.TemporaryDirectory() as td:
+        # ---- (a) the least squares over 4 ranks --------------------------
+        tp = time.perf_counter()
+        base = {}
+        for name in SHARD_LS_RUNS:
+            cx.zero_counts()
+            final, hist, _ = shard_ls_run(name)
+            kname = ("compressed_mix" if "wire" in SHARD_LS_RUNS[name]
+                     else "avg_disp")
+            got = cx.read_counts({"opt_step": SHARD_LS_STEPS,
+                                  kname: hist["averages"]}, name)
+            base[name] = dict(w=final["w"].cpu().numpy(), hist=hist,
+                              launches=got)
+            del final
+        ranks = spawn_ranks("ls", SHARD_LS_RANKS, td, timeout=600)
+        ls = {"ranks": SHARD_LS_RANKS, "steps": SHARD_LS_STEPS,
+              "faults": SHARD_FAULTS, "straggle_prob": 0.1,
+              "rows": [r["rows"] for r in ranks],
+              "unsharded_step_ms": {n: steady_step_ms(b["hist"]["phase_wall"])
+                                    for n, b in base.items()}}
+        for name, b in base.items():
+            want_h = _strip(b["hist"])
+            kname = ("compressed_mix" if "wire" in SHARD_LS_RUNS[name]
+                     else "avg_disp")
+            for coll in ("gather", "psum"):
+                runs = [r[(name, coll)] for r in ranks]
+                first = runs[0]
+                check(all(r["hist"] == first["hist"]
+                          and np.array_equal(r["w"], first["w"])
+                          for r in runs),
+                      f"{name} {coll}: the ranks' runs differ")
+                if coll == "gather":
+                    check(np.array_equal(first["w"], b["w"])
+                          and first["hist"] == want_h,
+                          f"{name} gather: not bitwise the unsharded run")
+                    expect = {"opt_step": SHARD_LS_STEPS,
+                              kname: want_h["averages"]}
+                else:
+                    check(first["hist"]["averages"] == want_h["averages"]
+                          and [t for t, _ in first["hist"]["dispersion"]]
+                          == [t for t, _ in want_h["dispersion"]],
+                          f"{name} psum: decisions differ")
+                    expect = {"opt_step": SHARD_LS_STEPS}
+                rel = float(np.max(np.abs(first["w"] - b["w"])
+                                   / (np.abs(b["w"]) + 1e-30)))
+                ok = bool(np.allclose(first["w"], b["w"], rtol=1e-5,
+                                      atol=1e-7))
+                for r in runs:
+                    want = {n: expect.get(n, 0) for n in r["launches"]}
+                    check(r["launches"] == want,
+                          f"{name} {coll}: launches {r['launches']}, "
+                          f"want {want}")
+                    cx.add_counts(r["launches"])
+                ls[f"{name}/{coll}"] = dict(
+                    events=first["hist"]["averages"],
+                    launches_per_rank=runs[0]["launches"],
+                    step_ms=[r["step_ms"] for r in runs],
+                    collectives_rank0=first["collectives"],
+                    params_max_rel_err=rel, params_within_1e5=ok,
+                    bitwise=coll == "gather")
+            check(ls[f"{name}/psum"]["params_within_1e5"],
+                  f"{name} psum: params beyond rtol 1e-5 / atol 1e-7 "
+                  f"(max rel {ls[f'{name}/psum']['params_max_rel_err']})")
+        # the mesh hands gloo the CUDA tensors; gloo stages them itself
+        ls["gloo_cuda"] = "direct"
+        ls["wall_s"] = time.perf_counter() - tp
+        out["least_squares"] = ls
+
+        # ---- (b) smollm-360m at full width over 2 ranks ------------------
+        tp = time.perf_counter()
+        lm_base = cx.lm_periodic
+        cx.free()
+        lm = spawn_ranks("lm", SHARD_LM_RANKS, td, timeout=900)
+        got = torch.load(Path(td) / "lm-final.pt")
+        want = lm_base["final"]
+        check(len(got) == len(want), "smollm consensus leaves")
+        worst, differ, total = 0.0, 0, 0
+        for i, w in enumerate(want):
+            g = got[i]
+            d = (g.float() - w.float()).abs()
+            # one bf16 ulp of each of phase 3's values: 2^(e - 8) for
+            # |w| = m 2^e, m in [0.5, 1)
+            e = torch.frexp(w.float())[1]
+            ulp = torch.where(w == 0, torch.finfo(torch.bfloat16).tiny,
+                              torch.ldexp(torch.ones_like(d), e - 8))
+            worst = max(worst, float((d / ulp).max()))
+            differ += int((d > 0).sum())
+            total += d.numel()
+        # measured bitwise on the H100 (the rows' update is opt_step.cu
+        # on each rank, and the psum mean, rounded to bf16, lands on the
+        # kernel's): held so
+        check(differ == 0, f"smollm psum: consensus {differ} of {total} "
+              f"elements off phase 3's (up to {worst} bf16 ulps)")
+        h0 = lm[0]["hist"]
+        check(all(r["hist"] == h0 for r in lm), "smollm: the ranks differ")
+        check([v for _, v in h0["loss"]]
+              == [v for _, v in lm_base["hist"]["loss"]],
+              "smollm psum: losses differ from phase 3's")
+        check(h0["averages"] == lm_base["hist"]["averages"]
+              and [t for t, _ in h0["dispersion"]]
+              == [t for t, _ in lm_base["hist"]["dispersion"]],
+              "smollm psum: decisions differ from phase 3's run")
+        for r in lm:
+            want_l = {n: (lm_base["steps"] if n == "opt_step" else 0)
+                      for n in r["launches"]}
+            check(r["launches"] == want_l,
+                  f"smollm psum: launches {r['launches']}, want {want_l}")
+            cx.add_counts(r["launches"])
+        loss_rel = float(np.max(np.abs(
+            np.array([v for _, v in h0["loss"]])
+            - np.array([v for _, v in lm_base["hist"]["loss"]]))
+            / np.abs(np.array([v for _, v in lm_base["hist"]["loss"]]))))
+        out["smollm_360m"] = dict(
+            ranks=SHARD_LM_RANKS, workers=4, collective="psum",
+            steps=lm_base["steps"], events=h0["averages"],
+            unsharded_step_ms=lm_base["step_ms"],
+            per_rank=[{k: r[k] for k in ("rows", "peak_gb", "step_ms",
+                                         "wall_s", "collectives",
+                                         "col_sum_ms", "sq_dist_ms",
+                                         "broadcast_ms", "encode_row_ms",
+                                         "launches")} for r in lm],
+            gloo_cuda="direct",
+            consensus_vs_phase3=dict(max_bf16_ulps=worst,
+                                     elements_differing=differ,
+                                     elements=total),
+            loss_max_rel_err=loss_rel, wall_s=time.perf_counter() - tp)
+        del got
+
+        # ---- (c) the CLI under torchrun, one NCCL rank ---------------------
+        tp = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        argv = ["--arch", "smollm-360m", "--reduced", "--steps", "6",
+                "--workers", "4", "--avg", "periodic", "--phase-len", "2",
+                "--device", "cuda"]
+        cli = {}
+        for tag, pre, extra in (
+                ("plain", [sys.executable, "-m"], []),
+                ("gather", [sys.executable, "-m", "torch.distributed.run",
+                            "--standalone", "--nproc-per-node", "1", "-m"],
+                 ["--shard", "--collective", "gather"])):
+            t = time.perf_counter()
+            r = subprocess.run(pre + ["repro_torch.launch.train"] + argv
+                               + extra + ["--checkpoint", f"{td}/{tag}"],
+                               env=env, capture_output=True, text=True,
+                               timeout=400)
+            check(r.returncode == 0, f"CLI {tag}: {r.stdout}\n{r.stderr}")
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("[train]")]
+            cli[tag] = dict(lines=lines, wall_s=time.perf_counter() - t)
+        shard_line = next(ln for ln in cli["gather"]["lines"]
+                          if "sharding" in ln)
+        check("backend=nccl" in shard_line and "over 1 devices" in shard_line,
+              f"CLI --shard: {shard_line}")
+        a = np.load(f"{td}/plain.state.npz")
+        b = np.load(f"{td}/gather.state.npz")
+        check(a.files == b.files and all(np.array_equal(a[k], b[k])
+                                         for k in a.files),
+              "CLI --shard --collective gather (NCCL): not bitwise the "
+              "unsharded CLI run")
+        ops = [next(ln for ln in cli[t]["lines"] if "averaging ops" in ln)
+               .split("), ")[-1] for t in ("plain", "gather")]
+        check(ops[0] == ops[1], f"CLI averaging ops {ops}")
+        cli["gather_bitwise_plain"] = True
+        cli["wall_s"] = time.perf_counter() - tp
+        out["cli_torchrun_nccl"] = cli
+    out["wall_s"] = time.perf_counter() - t_ph
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1078,16 +1535,16 @@ def main() -> None:
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
-    kernels = {"opt_step": opt_step, "avg_disp": avg_disp,
-               "mix_disp": mix_disp, "avg_disp_outer": avg_disp_outer,
-               "compressed_mix": compressed_mix,
-               "flash_attention": flash_attention, "rglru_scan": rglru_scan,
-               "rwkv6_scan": rwkv6_scan}
+    kernels = _kernel_wrappers()
     main_launches = dict.fromkeys(kernels, 0)
 
     def zero_counts():
         for k in kernels.values():
             k.launches = 0
+
+    def add_counts(got: dict):
+        for n, c in got.items():
+            main_launches[n] += c
 
     def read_counts(expect: dict, what: str) -> dict:
         """The counts of the run just driven, held against ``expect``
@@ -1096,8 +1553,7 @@ def main() -> None:
         got = {n: k.launches for n, k in kernels.items()}
         want = {n: expect.get(n, 0) for n in kernels}
         check(got == want, f"{what}: launches {got}, want {want}")
-        for n, c in got.items():
-            main_launches[n] += c
+        add_counts(got)
         return got
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1477,6 +1933,13 @@ def main() -> None:
                   and torch.equal(prev, plane[0]),
                   f"{name}: the outer average off the grid or not "
                   "broadcast")
+        if name == "periodic":
+            # phase 11 (b) holds the sharded run against this one
+            lm_periodic = dict(
+                final=[v.cpu() for v in
+                       torch.utils._pytree.tree_leaves(final)],
+                hist=hist, steps=steps,
+                step_ms=steady_step_ms(hist["phase_wall"]))
         runs[name] = dict(steps=steps, averages=hist["averages"],
                           loss_first=losses[0], loss_last=losses[-1],
                           launches=got, step_ms=steady_step_ms(
@@ -2524,7 +2987,13 @@ def main() -> None:
     # ---- 10. the paper's §3.2 CNN, and the theory ---------------------------
     emit(dict(phase_paper_cnn(cx), card=smi))
 
-    # ---- 11. summary -------------------------------------------------------
+    # ---- 11. the sharded plane ---------------------------------------------
+    cx.add_counts = add_counts
+    cx.lm_periodic = lm_periodic
+    emit(dict(phase_sharded(cx), phase="sharded", card=smi))
+    del lm_periodic
+
+    # ---- 12. summary -------------------------------------------------------
     def line(name, src, replaces, row, fault=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -1,9 +1,9 @@
 """Phase engine: M workers, K local steps, averaging — on the flat plane.
 
-The counterpart of ``repro.core.engine.PhaseEngine`` on its flat-native,
-unsharded path. The M workers' params and optimizer state live as
-(M, P) float32 planes (:mod:`repro_torch.core.flat`) for the whole run;
-each step is
+The counterpart of ``repro.core.engine.PhaseEngine`` on its flat-native
+path, unsharded or sharded over ranks (``mesh``, below). The M workers'
+params and optimizer state live as (M, P) float32 planes
+(:mod:`repro_torch.core.flat`) for the whole run; each step is
 
     grads_fn(plane, batch)                 # loss + grad of every row
     opt_step(plane, grads, state planes)   # ONE fused pass: update,
@@ -60,6 +60,38 @@ zeroed, ``straggle_aware`` schedules decide on the discounted
 dispersion, and the loss and the consensus are the cohort's. A trivial
 plan is lowered away: the no-fault engine, bit for bit.
 
+``mesh`` (a :class:`~repro_torch.launch.mesh.WorkerMesh`) splits the
+worker rows over ``torch.distributed`` ranks: every rank of the mesh
+holds its contiguous block of M/n rows of the plane, of every
+optimizer-state plane, of the residual and of the fault rows
+(:mod:`repro_torch.sharding.specs`), and a copy of the rest, and runs
+the same Python loop on them. ``collective`` picks how a step spans the
+ranks, as the reference's does:
+
+* ``"gather"``: every step all-gathers the plane, the state planes, the
+  batch, the residual and the fault rows (one collective, their rows'
+  bytes side by side), runs the unsharded step on the full plane — with
+  every kernel that step launches — and keeps this rank's rows: bitwise
+  the unsharded run (validation);
+* ``"psum"`` (the default): ``opt_step`` updates this rank's rows alone
+  (mode none), one all-reduce of the column sums gives the global mean
+  and the summed squared distances (gathered and added in rank order,
+  so every rank decides on the same bytes) the Eq. 4 dispersion; each
+  event takes the unsharded event's route: the all-worker mean event
+  writes the mean to the rows (the outer step: ``avg_disp_outer`` on
+  the one-row plane of the mean), while group (over several groups)
+  and mixing events all-gather the rows (a compressed event its encoded
+  rows) and keep this rank's rows of the result; a
+  compressed mean encodes row-locally with the global rows' uniforms and
+  all-reduces the encoded sums, its residual never leaving the rank.
+  These reductions are plain torch, as the reference's are jnp outside
+  its kernels; the results agree with the unsharded run to float32
+  rounding, with the same decisions.
+
+Each rank reads the full (M, ...) batches (or index blocks) the data
+gives it and keeps its rows. Ranks of the world outside the mesh hold
+no rows: their :meth:`PhaseEngine.run` waits for the mesh's result.
+
 ``telemetry`` adds the metrics plane (:mod:`repro_torch.telemetry`): per
 phase, a float32 accumulator folded on the host from the losses,
 dispersions and decisions the phase already reads, the events priced in
@@ -72,6 +104,7 @@ a ``sink``.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import time
 from dataclasses import dataclass
@@ -84,8 +117,8 @@ from repro_torch import faults as faults_mod
 from repro_torch import rng
 from repro_torch.core.averaging import (AveragingSchedule, OuterOptimizer,
                                         SchedState)
-from repro_torch.core.compress import (Compression, row_uniforms,
-                                       wire_row_bytes)
+from repro_torch.core.compress import (Compression, encode_decode,
+                                       row_uniforms, wire_row_bytes)
 from repro_torch.core.flat import (FlatSpec, tree_flatten, tree_map,
                                    tree_unflatten)
 from repro_torch.device import resolve_device
@@ -98,11 +131,13 @@ from repro_torch.kernels.opt_step import opt_step
 from repro_torch.kernels.ref import (_div, _row_sum, avg_disp_outer_ref,
                                      mix_disp_ref, opt_step_ref,
                                      plane_average_ref, round_to_codes)
+from repro_torch.sharding.specs import mesh_worker_axes, shard_engine_state
 from repro_torch.telemetry import metrics as tele_metrics
 from repro_torch.telemetry.events import init_history, make_record
 from repro_torch.topology import MIX_KINDS, Topology, comm_bytes
 
 KERNEL_IMPLS = ("auto", "ref", "cuda")
+COLLECTIVES = ("psum", "gather")
 #: the plane passes: the wrappers (kernel on CUDA tensors, plain version
 #: on CPU tensors) and the plain versions on any device
 _KERNEL_OPS = {"opt_step": opt_step, "avg_disp": avg_disp,
@@ -183,7 +218,9 @@ class PhaseEngine:
     ``"ref"`` (the plain versions) or ``"cuda"`` (the kernels; a CPU
     engine is refused); ``faults``: worker crashes, rejoins and
     stragglers (:mod:`repro_torch.faults`, module note); ``telemetry``:
-    the metrics plane (module note)."""
+    the metrics plane (module note); ``mesh`` / ``collective``: the
+    worker rows split over the ranks of a
+    :class:`~repro_torch.launch.mesh.WorkerMesh` (module note)."""
     loss_fn: Callable
     optimizer: Any
     schedule: AveragingSchedule
@@ -194,9 +231,26 @@ class PhaseEngine:
     kernel_impl: str = "auto"
     faults: FaultPlan | None = None
     telemetry: bool = False
+    mesh: Any = None
+    collective: str = "psum"
 
     def __post_init__(self):
         dev = resolve_device(self.device)
+        if self.collective not in COLLECTIVES:
+            raise ValueError(f"collective must be one of {COLLECTIVES}, "
+                             f"got {self.collective!r}")
+        if self.mesh is not None:
+            axes = mesh_worker_axes(self.mesh)
+            other = {a: n for a, n in self.mesh.shape.items()
+                     if a not in axes and n > 1}
+            if other:
+                raise ValueError(
+                    f"the port splits only the worker rows over a mesh; "
+                    f"its axes {other} outside the worker axes {axes} "
+                    "must have size 1")
+            if self.mesh.backend == "nccl" and dev.type != "cuda":
+                raise ValueError("an NCCL mesh communicates CUDA tensors; "
+                                 f"a {dev.type} engine needs a gloo mesh")
         if self.kernel_impl not in KERNEL_IMPLS:
             raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}, "
                              f"got {self.kernel_impl!r}")
@@ -232,6 +286,12 @@ class PhaseEngine:
     def _check_workers(self, num_workers: int):
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
+        if self.mesh is not None and num_workers % self.mesh.size:
+            raise ValueError(
+                f"num_workers={num_workers} is not a multiple of the "
+                f"mesh's {self.mesh.size} worker shards — every shard "
+                "holds the same number of rows; build the mesh with "
+                "make_worker_mesh(num_workers)")
         if self._dev.type == "cuda" and num_workers > MAX_WORKERS:
             raise ValueError(f"the CUDA plane kernels take at most "
                              f"{MAX_WORKERS} workers, got {num_workers}")
@@ -343,34 +403,76 @@ class PhaseEngine:
         """All workers start at ``params`` (as the paper prescribes);
         optimizer-state planes and the residual start at zero; the outer
         optimizer starts at the consensus with zero velocity; ``key,
-        dec_key = split(PRNGKey(seed))`` as in the reference."""
+        dec_key = split(PRNGKey(seed))`` as in the reference. With a mesh
+        the state holds this rank's rows only (none outside the mesh):
+        the full plane is never made."""
         self._check_workers(num_workers)
         dev = self._dev
         params = tree_map(lambda x: x.to(dev), params)
         spec = FlatSpec.of(params, worker_axis=False)
-        plane = spec.pack1(params).expand(num_workers, spec.width)
-        plane = plane.contiguous()
+        full = spec.pack1(params).expand(num_workers, spec.width)
+        r0, r1 = self._row_range(num_workers)
+        plane = full[r0:r1].contiguous()
         opt_planes = tuple(torch.zeros_like(plane)
                            for _ in range(self.optimizer.state_planes))
         codes = spec.rounding_codes(device=dev)
         outer_state = ()
         if self.outer is not None:
-            avg = _div(_row_sum(plane), num_workers)
+            avg = _div(_row_sum(full), num_workers)
             if codes is not None:
                 avg = round_to_codes(avg, codes)
             outer_state = (avg, torch.zeros_like(avg))
         resid = torch.zeros_like(plane) if self._comp() else None
         key, dec_key = rng.split(rng.PRNGKey(seed))
-        fault = (faults_mod.init_fault_state(num_workers)
+        fault = (faults_mod.init_fault_state(r1 - r0)
                  if self._faults() is not None else ())
         return EngineState(spec, plane, opt_planes, codes, key, dec_key, 0,
                            self.schedule.init_sched_state(), outer_state,
                            resid, fault)
 
+    # ---- the sharded plane -------------------------------------------------
+    def _row_range(self, num_workers: int) -> tuple[int, int]:
+        """The global rows ``[r0, r1)`` this rank holds."""
+        if self.mesh is None:
+            return 0, num_workers
+        return self.mesh.row_range(num_workers)
+
+    def _global_m(self, state: EngineState) -> int:
+        """The run's worker count M of a (possibly sharded) state."""
+        m = int(state.plane.shape[0])
+        return m if self.mesh is None else m * self.mesh.size
+
+    def shard_state(self, state: EngineState,
+                    num_workers: int) -> EngineState:
+        """This rank's rows of a full ``num_workers``-row state
+        (:func:`repro_torch.sharding.specs.shard_engine_state`); a state
+        that holds them already passes through."""
+        if self.mesh is None:
+            return state
+        return shard_engine_state(state, self.mesh, num_workers)
+
     # ---- the averaging events ----------------------------------------------
     def _outer_kw(self) -> dict:
         o = self.outer
         return dict(lr=o.lr, momentum=o.momentum, nesterov=o.nesterov)
+
+    def _event_route(self, scope: str, W=None, outer_c=()):
+        """How an averaging event of ``scope`` ("inner" or "all") runs:
+        ``("mix", 1)`` with a mixing matrix ``W``, ``("group", g)`` for
+        a mean over g > 1 contiguous groups (an inner event, or the
+        ``groups`` topology's all-scope), ``("outer", 1)`` for the
+        all-scope with an outer optimizer, else ``("mean", 1)``. An
+        inner event over one group is a plain mean: it never steps the
+        outer optimizer."""
+        if W is not None:
+            return "mix", 1
+        groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
+                  else self._all_groups())
+        if groups > 1:
+            return "group", groups
+        if scope == "all" and self.outer is not None and outer_c != ():
+            return "outer", 1
+        return "mean", 1
 
     def _plane_avg_event(self, state: EngineState, plane, outer_c,
                          scope: str, W=None, alive=None):
@@ -381,19 +483,16 @@ class PhaseEngine:
         outer optimizer (never under faults), ``avg_disp_outer``, rounded
         through the codes. Returns (plane, outer state)."""
         codes = state.codes
-        if scope == "inner":
-            return self._op("avg_disp")(
-                plane, groups=max(self.schedule.inner_groups, 1),
-                codes=codes, alive=alive)[0], outer_c
-        if W is not None:
+        route, groups = self._event_route(scope, W, outer_c)
+        if route == "mix":
             return self._op("mix_disp")(plane, W, codes=codes,
                                         alive=alive)[0], outer_c
-        if self.outer is not None and outer_c != ():
+        if route == "outer":
             plane, prev, vel, _ = self._op("avg_disp_outer")(
                 plane, *outer_c, codes=codes, **self._outer_kw())
             return plane, (prev, vel)
-        return self._op("avg_disp")(plane, groups=self._all_groups(),
-                                    codes=codes, alive=alive)[0], outer_c
+        return self._op("avg_disp")(plane, groups=groups, codes=codes,
+                                    alive=alive)[0], outer_c
 
     def _event_uniforms(self, m: int, p: int, step: int, dec_key):
         """The int8 stochastic-rounding uniforms of this event's rows, or
@@ -411,13 +510,9 @@ class PhaseEngine:
         Returns (plane, residual)."""
         comp = self._comp()
         m, p = plane.shape
-        groups = (max(self.schedule.inner_groups, 1) if scope == "inner"
-                  else self._all_groups())
+        mode, groups = self._event_route(scope, W)
         plane, resid, _ = self._op("compressed_mix")(
-            plane, resid, wire=comp.wire,
-            mode="mix" if W is not None else
-            "group" if groups > 1 else "mean",
-            groups=groups, W=W,
+            plane, resid, wire=comp.wire, mode=mode, groups=groups, W=W,
             u=self._event_uniforms(m, p, step, state.dec_key),
             codes=state.codes, error_feedback=comp.error_feedback,
             alive=alive)
@@ -439,36 +534,29 @@ class PhaseEngine:
             kw.update(alive=fmask[0], umask=fmask[1])
         plane, planes = state.plane, state.opt_planes
         outer_c, resid = state.outer_state, state.resid
-        comp = self._comp()
-        if comp is not None and scope != "none":
-            m, p = plane.shape
-            groups = self._all_groups()
-            plane, planes, resid, disp = self._op("opt_step")(
-                plane, gplane, planes, scalars,
-                mode=("mix" if W is not None
-                      else "group" if groups > 1 else "mean"),
-                W=W, groups=groups, wire=comp.wire, resid=resid,
-                u=self._event_uniforms(m, p, step, state.dec_key),
-                error_feedback=comp.error_feedback, **kw)
-            return plane, planes, outer_c, resid, disp
         if scope == "none":
             plane, planes, disp = self._op("opt_step")(
                 plane, gplane, planes, scalars, mode="none", **kw)
             return plane, planes, outer_c, resid, disp
-        if W is not None:
-            plane, planes, disp = self._op("opt_step")(
-                plane, gplane, planes, scalars, mode="mix", W=W, **kw)
+        mode, groups = self._event_route(scope, W, outer_c)
+        comp = self._comp()
+        if comp is not None:
+            m, p = plane.shape
+            plane, planes, resid, disp = self._op("opt_step")(
+                plane, gplane, planes, scalars, mode=mode, W=W,
+                groups=groups, wire=comp.wire, resid=resid,
+                u=self._event_uniforms(m, p, step, state.dec_key),
+                error_feedback=comp.error_feedback, **kw)
             return plane, planes, outer_c, resid, disp
-        if self.outer is not None and outer_c != ():
+        if mode == "outer":
             plane, planes, _ = self._op("opt_step")(
                 plane, gplane, planes, scalars, mode="none", **kw)
             plane, prev, vel, disp = self._op("avg_disp_outer")(
                 plane, *outer_c, codes=codes, **self._outer_kw())
             return plane, planes, (prev, vel), resid, disp
-        groups = self._all_groups()
         plane, planes, disp = self._op("opt_step")(
-            plane, gplane, planes, scalars,
-            mode="group" if groups > 1 else "mean", groups=groups, **kw)
+            plane, gplane, planes, scalars, mode=mode, W=W, groups=groups,
+            **kw)
         return plane, planes, outer_c, resid, disp
 
     # ---- one step ----------------------------------------------------------
@@ -488,16 +576,8 @@ class PhaseEngine:
                                                      state.dec_key)
         rows = faults_mod.rows_where(rejoined)
         if rows:
-            glob = faults_mod.masked_mean(state.plane,
-                                          fp.mix_at(alive_prev, step - 1))
-            if state.codes is not None:
-                glob = round_to_codes(glob, state.codes)
-            for i in rows:
-                state.plane[i] = glob
-                for t in state.opt_planes:
-                    t[i].zero_()
-                if state.resid is not None:
-                    state.resid[i].zero_()
+            self._warm_start(state, rows, faults_mod.masked_mean(
+                state.plane, fp.mix_at(alive_prev, step - 1)))
         dscale = (fp.disp_scale(mix, state.dec_key, step)
                   if self.schedule.straggle_aware else None)
         # the scripted liveness and, of it, the rows that straggle: the
@@ -505,6 +585,20 @@ class PhaseEngine:
         n_alive = np.sum(fst.alive, dtype=np.float32)
         occ = (n_alive, n_alive - np.sum(umask, dtype=np.float32))
         return fst, (mix, umask), dscale, occ
+
+    @staticmethod
+    def _warm_start(state: EngineState, rows, glob):
+        """The rejoining ``rows`` of ``state`` restart from the cohort
+        mean ``glob`` (rounded to the codes), their state planes and
+        residual zeroed; in place."""
+        if state.codes is not None:
+            glob = round_to_codes(glob, state.codes)
+        for i in rows:
+            state.plane[i] = glob
+            for t in state.opt_planes:
+                t[i].zero_()
+            if state.resid is not None:
+                state.resid[i].zero_()
 
     def _step(self, state: EngineState, batch, grads_fn, gbuf):
         """One step, dispatched as the reference's flat-native step;
@@ -552,13 +646,223 @@ class PhaseEngine:
         state = state._replace(plane=plane, opt_planes=planes, key=key,
                                step=step, sched=sst, outer_state=outer_c,
                                resid=resid, fault=fst)
-        if alive is None:
-            return state, torch.mean(losses), disp, code, occ
-        # the loss over the mixing cohort
-        a = torch.from_numpy(alive).to(losses.device)
-        return state, torch.sum(losses * a) / torch.sum(a), disp, code, occ
+        return state, self._mean_loss(losses, alive), disp, code, occ
 
-    def _stage(self, batch):
+    @staticmethod
+    def _mean_loss(losses, alive=None):
+        """The step's loss: the mean of the (M,) worker losses, under a
+        fault plan over the mixing cohort ``alive``."""
+        if alive is None:
+            return torch.mean(losses)
+        a = torch.from_numpy(alive).to(losses.device)
+        return torch.sum(losses * a) / torch.sum(a)
+
+    # ---- one sharded step ---------------------------------------------------
+    def _step_gather(self, state: EngineState, batch, grads_fn, gbuf):
+        """``collective="gather"``: the rows, the state planes, the
+        residual, the fault rows and the batch of every rank gathered in
+        one collective, :meth:`_step` on the full plane, this rank's rows
+        kept. Returns what :meth:`_step` returns."""
+        dev = state.plane.device
+        leaves, tdef = tree_flatten(batch)
+        fault = state.fault if isinstance(state.fault, FaultState) else ()
+        resid = () if state.resid is None else (state.resid,)
+        k = len(state.opt_planes)
+        got = self.mesh.all_gather_rows_packed(
+            [state.plane, *state.opt_planes, *resid, *leaves,
+             *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in fault)])
+        plane, planes = got[0], tuple(got[1:1 + k])
+        rest = got[1 + k:]
+        resid_f = rest.pop(0) if resid else None
+        batch_f = tree_unflatten(tdef, rest[:len(leaves)])
+        fault_f = (FaultState(*(x.cpu().numpy() for x in rest[len(leaves):]))
+                   if fault else state.fault)
+        full = state._replace(plane=plane, opt_planes=planes, resid=resid_f,
+                              fault=fault_f)
+        full, loss, disp, code, occ = self._step(full, batch_f, grads_fn,
+                                                 gbuf)
+        r0, r1 = self.mesh.row_range(full.plane.shape[0])
+        fault = full.fault
+        if isinstance(fault, FaultState):
+            fault = FaultState(*(x[r0:r1].copy() for x in fault))
+        state = full._replace(
+            plane=full.plane[r0:r1].clone(),
+            opt_planes=tuple(t[r0:r1].clone() for t in full.opt_planes),
+            resid=None if full.resid is None else full.resid[r0:r1].clone(),
+            fault=fault)
+        return state, loss, disp, code, occ
+
+    @staticmethod
+    def _col_sum(plane, mask=None):
+        """The sum of ``plane``'s rows (those with ``mask > 0``) in row
+        order, from 0."""
+        s = torch.zeros_like(plane[0])
+        for i in (range(plane.shape[0]) if mask is None
+                  else faults_mod.rows_where(mask)):
+            s += plane[i]
+        return s
+
+    def _psum_mean(self, plane, mask, n):
+        """The global mean of the rows (with ``mask > 0``) over ``n``
+        rows: one all-reduce of this rank's column sums."""
+        return _div(self.mesh.all_reduce_(self._col_sum(plane, mask)), n)
+
+    def _psum_dispersion(self, plane, glob, mask, n) -> float:
+        """The Eq. 4 dispersion against the global mean ``glob``: this
+        rank's squared distances summed one row at a time (no (M/n, P)
+        temporary), the ranks' sums gathered and added in rank order, so
+        every rank holds the same float."""
+        acc = torch.zeros((), dtype=torch.float32, device=plane.device)
+        for i in (range(plane.shape[0]) if mask is None
+                  else faults_mod.rows_where(mask)):
+            d = plane[i] - glob
+            acc = acc + torch.dot(d, d)
+        return float(_div(self.mesh.sum_scalars(acc), n))
+
+    @staticmethod
+    def _write_rows(plane, out, mask=None):
+        """``out``'s rows (those with ``mask > 0``) into ``plane``, in
+        place."""
+        if mask is None:
+            plane.copy_(out)
+            return
+        for i in faults_mod.rows_where(mask):
+            plane[i] = out[i]
+
+    def _psum_event(self, state: EngineState, plane, outer_c, resid,
+                    scope: str, glob, step: int, fmask, m: int, r0: int):
+        """One averaging event on this rank's rows under ``psum``
+        (``fmask``: ``(mix_full, mix)`` under faults, else None), routed
+        as the unsharded event (:meth:`_event_route`): a mix or a group
+        mean on the gathered plane (``q`` under a wire), the mean from
+        ``glob`` (the all-reduced sums of ``q`` under a wire), the outer
+        step as ``avg_disp_outer`` on the one-row plane ``glob``; the
+        rows written in place. Returns (plane, outer state, residual)."""
+        ml, p = plane.shape
+        codes = state.codes
+        mix_full, mix = fmask if fmask is not None else (None, None)
+        W = self._event_W(step, state.dec_key) if scope == "all" else None
+        route, groups = self._event_route(scope, W, outer_c)
+        comp = self._comp()
+        if comp is None and route in ("mix", "group"):
+            full, outer_c = self._plane_avg_event(
+                state, self.mesh.all_gather_rows(plane), outer_c, scope, W,
+                mix_full)
+            plane.copy_(full[r0:r0 + ml])
+            return plane, outer_c, resid
+        if route == "outer":
+            one, prev, vel, _ = self._op("avg_disp_outer")(
+                glob[None], *outer_c, codes=codes, **self._outer_kw())
+            plane.copy_(one.expand(ml, p))
+            return plane, (prev, vel), resid
+        if comp is not None:
+            u = (row_uniforms(state.dec_key, step, range(r0, r0 + ml), p,
+                              device=self._dev)
+                 if comp.stochastic else None)
+            q, r_new = encode_decode(plane, resid, wire=comp.wire, u=u,
+                                     error_feedback=comp.error_feedback)
+            resid = (r_new if mix is None
+                     else faults_mod.select_rows(r_new, resid, mix))
+            if route == "mix":
+                if mix_full is not None:
+                    W = faults_mod.degraded_matrix(W, mix_full)
+                out = torch.matmul(W[r0:r0 + ml],
+                                   self.mesh.all_gather_rows(q))
+            elif route == "group":
+                a = mix_full if mix_full is not None else np.ones(
+                    m, np.float32)
+                out = faults_mod.masked_group_mean(
+                    self.mesh.all_gather_rows(q), a, groups)[r0:r0 + ml]
+            else:
+                n = m if mix is None else float(np.sum(mix_full,
+                                                       dtype=np.float32))
+                out = self._psum_mean(q, mix, n)
+        else:
+            out = glob
+        if codes is not None:
+            out = round_to_codes(out, codes)
+        self._write_rows(plane, out.expand(ml, p), mix)
+        return plane, outer_c, resid
+
+    def _step_psum(self, state: EngineState, batch, grads_fn, gbuf):
+        """``collective="psum"``: the update of this rank's rows in one
+        ``opt_step`` launch (mode none, masked under faults), the global
+        mean and dispersion through collectives, the decision, the event
+        (:meth:`_psum_event`). Returns (state, (this rank's losses, the
+        loss mask or None), dispersion, decision code, (n_alive,
+        n_straggle))."""
+        sched = self.schedule
+        step = state.step + 1
+        key = rng.split(state.key)[0]
+        dec = state.dec_key
+        ml, p = state.plane.shape
+        m = ml * self.mesh.size
+        r0 = self.mesh.row_range(m)[0]
+        plane, planes, resid = state.plane, state.opt_planes, state.resid
+        fp = self._faults()
+        fst, fmask, dscale, occ = state.fault, None, None, (m, 0.0)
+        kw = dict(kind=self.optimizer.plane_kind, codes=state.codes,
+                  **self.optimizer.plane_hypers())
+        if fp is not None:
+            fst0 = (fst if isinstance(fst, FaultState)
+                    else faults_mod.init_fault_state(ml))
+            fst, mix_full, mix, umask, rejoined = fp.transition(
+                fst0, step, dec, row0=r0, num_rows=ml)
+            if fp.has_rejoin:
+                # the previous cohort's size and the rows coming back,
+                # over every rank, in one gather; the cohort mean only
+                # when a row comes back somewhere
+                aprev = fp.mix_at(fst0.alive, step - 1, row0=r0,
+                                  num_rows=ml)
+                back = faults_mod.rows_where(rejoined)
+                n_prev, n_back = self.mesh.sum_scalars(torch.tensor(
+                    [np.sum(aprev, dtype=np.float32), len(back)],
+                    dtype=torch.float32)).tolist()
+                if n_back:
+                    self._warm_start(state, back,
+                                     self._psum_mean(plane, aprev, n_prev))
+            fmask = (mix_full, mix)
+            kw.update(alive=mix, umask=umask)
+            if sched.straggle_aware:
+                dscale = fp.disp_scale(mix_full, dec, step)
+            if self.telemetry:
+                alive_f = fp.alive_at(step)
+                straggle = fp.straggle_mask(dec, step, np.arange(m))
+                n_alive = np.sum(alive_f, dtype=np.float32)
+                occ = (n_alive, n_alive - np.sum(
+                    alive_f * (np.float32(1.0) - straggle),
+                    dtype=np.float32))
+        losses, _, gplane = grads_fn(plane, batch, out=gbuf)
+        scal = self.optimizer.plane_scalars(step)
+        # this rank's rows alone: the kernel's dispersion covers them only
+        plane, planes, _ = self._op("opt_step")(plane, gplane, planes, scal,
+                                                mode="none", **kw)
+        mix = None if fmask is None else fmask[1]
+        n = m if fmask is None else float(np.sum(fmask[0],
+                                                 dtype=np.float32))
+        glob = self._psum_mean(plane, mix, n)
+        disp = self._psum_dispersion(plane, glob, mix, n)
+        code, sst = sched.decision_state(
+            step, state.sched, disp, dec,
+            event_cost=self._sched_event_cost(p, m), disp_scale=dscale)
+        outer_c = state.outer_state
+        if sched.kind == "minibatch" or code:
+            scope = "inner" if code == 1 else "all"
+            plane, outer_c, resid = self._psum_event(
+                state, plane, outer_c, resid, scope, glob, step, fmask, m,
+                r0)
+        state = state._replace(plane=plane, opt_planes=planes, key=key,
+                               step=step, sched=sst, outer_state=outer_c,
+                               resid=resid, fault=fst)
+        return (state, (losses, None if fmask is None else fmask[0]), disp,
+                code, occ)
+
+    def _stage(self, batch, rows=None):
+        """A batch on the engine's device; ``rows``: the ``[r0, r1)``
+        worker rows of it to keep (a sharded rank's)."""
+        if rows is not None:
+            batch = tree_map(lambda x: x[rows[0]:rows[1]], batch)
         return tree_map(lambda x: torch.as_tensor(x, device=self._dev),
                         batch)
 
@@ -567,18 +871,32 @@ class PhaseEngine:
         the new state and the per-step traces {loss, dispersion,
         avg_code} as host lists (one device fetch for the losses), with
         telemetry the phase's ``metrics`` accumulator too, folded from
-        those host values."""
+        those host values. With a mesh each step is
+        :meth:`_step_gather` or :meth:`_step_psum`; under ``psum`` the
+        ranks' per-worker losses are gathered once, at the phase's
+        end."""
         grads_fn = make_plane_step(self.loss_fn, state.spec)
+        m, p = self._global_m(state), state.plane.shape[1]
+        step_fn = self._step
         gbuf = torch.empty_like(state.plane)
-        m, p = state.plane.shape
+        if self.mesh is not None and self.collective == "gather":
+            step_fn = self._step_gather
+            gbuf = state.plane.new_empty((m, p))
+        elif self.mesh is not None:
+            step_fn = self._step_psum
         losses, disps, codes, occs = [], [], [], []
         for batch in batches:
-            state, loss, disp, code, occ = self._step(state, batch,
-                                                      grads_fn, gbuf)
+            state, loss, disp, code, occ = step_fn(state, batch, grads_fn,
+                                                   gbuf)
             losses.append(loss)
             disps.append(disp)
             codes.append(code)
             occs.append(occ)
+        if step_fn == self._step_psum and losses:
+            per = self.mesh.all_gather_rows(
+                torch.stack([x for x, _ in losses], dim=1))
+            losses = [self._mean_loss(per[:, k], a)
+                      for k, (_, a) in enumerate(losses)]
         loss_h = torch.stack(losses).tolist() if losses else []
         trace = {"loss": loss_h, "dispersion": disps, "avg_code": codes}
         if self.telemetry:
@@ -593,10 +911,19 @@ class PhaseEngine:
             trace["metrics"] = acc
         return state, trace
 
+    def _rows(self, state: EngineState):
+        """The ``[r0, r1)`` rows of the full batches this rank keeps, or
+        None unsharded."""
+        if self.mesh is None:
+            return None
+        return self.mesh.row_range(self._global_m(state))
+
     def run_phase(self, state: EngineState, batches):
         """One phase over per-step batches (numpy arrays or tensors),
-        each staged to the engine's device before its step."""
-        return self._phase(state, (self._stage(b) for b in batches))
+        each staged to the engine's device before its step (a sharded
+        rank keeps its rows of each)."""
+        rows = self._rows(state)
+        return self._phase(state, (self._stage(b, rows) for b in batches))
 
     def run_phase_indexed(self, state: EngineState, arrays, idx_block):
         """One phase over a (K, M, B) or (K, M) int index block into the
@@ -609,7 +936,11 @@ class PhaseEngine:
             if a.device != dev:
                 raise ValueError(f"the dataset lives on {a.device}, the "
                                  f"planes on {dev}: gather where they are")
-        idx = torch.as_tensor(np.asarray(idx_block, np.int32)).to(dev)
+        idx_block = np.asarray(idx_block, np.int32)
+        rows = self._rows(state)
+        if rows is not None:
+            idx_block = idx_block[:, rows[0]:rows[1]]
+        idx = torch.as_tensor(idx_block).to(dev)
 
         def gather(i):
             flat = i.reshape(-1)
@@ -636,17 +967,32 @@ class PhaseEngine:
     def consensus(self, state: EngineState):
         """The paper's final estimate: the worker average, in the leaf
         dtypes; under a fault plan the mean over the mixing cohort of the
-        state's step."""
+        state's step. With a mesh the rows are summed across the ranks in
+        global row order (``WorkerMesh.chain_row_sum``): the unsharded
+        consensus bit for bit, on every rank of the mesh."""
         plane = state.plane
         fp = self._faults()
+        mix = None
         if fp is not None and isinstance(state.fault, FaultState):
-            mix = fp.mix_at(state.fault.alive, state.step)
-            return state.spec.unpack1(faults_mod.masked_mean(plane, mix))
-        return state.spec.unpack1(_div(_row_sum(plane), plane.shape[0]))
+            r0, r1 = self._row_range(self._global_m(state))
+            mix = fp.mix_at(state.fault.alive, state.step, row0=r0,
+                            num_rows=r1 - r0)
+        if self.mesh is None:
+            if mix is not None:
+                return state.spec.unpack1(faults_mod.masked_mean(plane, mix))
+            return state.spec.unpack1(_div(_row_sum(plane), plane.shape[0]))
+        n = self._global_m(state)
+        if mix is not None:
+            n = int(np.sum(self.mesh.gather_rows_host(mix) > 0))
+        return state.spec.unpack1(
+            _div(self.mesh.chain_row_sum(plane, mix), n))
 
     def worker_params(self, state: EngineState):
         """Every worker's params, leaves (M, *shape) in the leaf dtypes
-        (copies: the plane is updated in place)."""
+        (copies: the plane is updated in place); with a mesh gathered
+        from the ranks."""
+        if self.mesh is not None:
+            return state.spec.unpack(self.mesh.all_gather_rows(state.plane))
         return tree_map(lambda x: x.clone(), state.spec.unpack(state.plane))
 
     def _sync(self):
@@ -696,7 +1042,17 @@ class PhaseEngine:
         ``averaging_event`` per event step, a ``fault_event`` per
         scripted crash or rejoin in the phase, and one ``phase_metrics``
         record: the flushed accumulator, the phase's traces and its
-        ``phase_wall`` seconds."""
+        ``phase_wall`` seconds.
+
+        With a mesh every rank of the world calls it alike. The ranks of
+        the mesh run the phases on their rows; a full ``state`` is cut to
+        them first. The consensus (and ``eval_fn``'s) comes through
+        :meth:`consensus`, ``worker_eval_fn``'s params through an
+        all-gather, and every rank returns the same history (but
+        ``phase_wall``, its own clock); only the world's rank 0 emits to
+        ``sink``. A rank outside the mesh runs nothing and returns the
+        mesh's consensus, history and replicated state fields, with no
+        rows."""
         # imported here: the data plane's module imports core.flat, which
         # loads this package
         from repro_torch.data.pipeline import DeviceDataset, Prefetcher
@@ -706,8 +1062,28 @@ class PhaseEngine:
                 "run(sink=...) flushes the metrics accumulator, which "
                 "this engine does not carry — construct it with "
                 "PhaseEngine(..., telemetry=True)")
+        mesh = self.mesh
+        if mesh is not None and mesh.world_rank != 0:
+            sink = None
         if state is None:
             state = self.init(params, num_workers, seed)
+        else:
+            state = self.shard_state(state, num_workers)
+        if mesh is not None and not mesh.member:
+            # no rows here, but a stateful source (a stream, a dataset's
+            # cursor) advances as on the ranks that use it
+            if isinstance(data, DeviceDataset):
+                n = steps if steps is not None else data.num_steps
+                if n is not None and data.num_steps is not None:
+                    n = min(n, data.num_steps)
+                if n:
+                    data.index_block(n)
+            else:
+                for _ in itertools.islice(iter(data), steps):
+                    pass
+            return self._join_mesh(state, init_history(), None,
+                                   return_state)
+        rows = self._rows(state)
         t0 = state.step
         block = phase_len or self.default_phase_len()
         needs_eval = bool(record_every and (eval_fn or worker_eval_fn))
@@ -779,8 +1155,8 @@ class PhaseEngine:
                 state, trace = self.run_phase_indexed(
                     state, data.arrays, data.index_block(take))
                 t = consume(t, take, trace, tw0)
-            final = self.consensus(state)
-            return (final, hist, state) if return_state else (final, hist)
+            return self._join_mesh(state, hist, self.consensus(state),
+                                   return_state)
 
         def staged_blocks():
             it = iter(data)
@@ -795,7 +1171,7 @@ class PhaseEngine:
                     if nxt is None:
                         done = True
                         break
-                    chunk.append(self._stage(nxt))
+                    chunk.append(self._stage(nxt, rows))
                 if not chunk:
                     return
                 t += len(chunk)
@@ -819,7 +1195,27 @@ class PhaseEngine:
         finally:
             if pf is not None:
                 pf.close()
-        final = self.consensus(state)
+        return self._join_mesh(state, hist, self.consensus(state),
+                               return_state)
+
+    def _join_mesh(self, state: EngineState, hist, final, return_state):
+        """:meth:`run`'s return. Where the world has ranks outside the
+        mesh, the mesh's first rank hands them its consensus, history and
+        replicated state fields (every rank of the world takes part)."""
+        mesh = self.mesh
+        if mesh is not None and mesh.world_size > mesh.size:
+            out = None
+            if mesh.world_rank == mesh.ranks[0]:
+                out = (tree_map(lambda x: x.cpu(), final), hist, state.key,
+                       state.step, state.sched,
+                       tuple(x.cpu() for x in state.outer_state))
+            out = mesh.world_broadcast_object(out)
+            if not mesh.member:
+                dev = self._dev
+                final, hist = tree_map(lambda x: x.to(dev), out[0]), out[1]
+                state = state._replace(
+                    key=out[2], step=out[3], sched=out[4],
+                    outer_state=tuple(x.to(dev) for x in out[5]))
         return (final, hist, state) if return_state else (final, hist)
 
     def run_host(self, params, batches, *, num_workers: int, seed: int = 0,

@@ -26,8 +26,14 @@ Semantics (the reference's):
   each segment keeps the base events of the rows that exist in it. Row
   indices are stable identities across resizes.
 
-The reference's sharded branch (a worker mesh rebuilt per segment) is
-not here: the port has no sharded plane yet.
+On a sharded engine (``PhaseEngine(mesh=...)``) every rank of the world
+runs :func:`run_elastic` alike: each segment's engine gets the worker
+mesh rebuilt for its M' (:func:`repro_torch.launch.mesh.make_worker_mesh`,
+collective over the whole world, so a rank that sits a segment out
+calls it too), and before a resize the state is unsharded
+(:func:`repro_torch.sharding.specs.unshard_engine_state`) on every rank,
+so the repack runs on the full planes and the next segment cuts its
+rows from them.
 """
 from __future__ import annotations
 
@@ -283,12 +289,18 @@ def resize_state(state, new_m: int, *, faults=None):
 
 def resize_engine(engine, new_m: int, *, faults=None):
     """A segment engine for ``new_m`` rows: the topology validated and
-    rebuilt at the new size and the segment's fault plan swapped in."""
+    rebuilt at the new size, the worker mesh rebuilt over the ranks
+    dividing ``new_m`` (every rank of the world calls this) and the
+    segment's fault plan swapped in."""
     kw = {"faults": faults}
     t = engine.topology
     if t is not None:
         kw["topology"] = Topology.build(
             t.kind, new_m, groups=t.groups if t.kind == "groups" else None)
+    if engine.mesh is not None:
+        from repro_torch.launch.mesh import make_worker_mesh
+        kw["mesh"] = make_worker_mesh(new_m, backend=engine.mesh.backend,
+                                      device=engine.mesh.device)
     return dataclasses.replace(engine, **kw)
 
 
@@ -365,8 +377,13 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
         raise ValueError(
             f"state has already completed {done} of {steps} steps")
     hist = init_history(resizes=True)
+    if engine.mesh is not None and engine.mesh.world_rank != 0:
+        sink = None
     prev_faults = None
     params_final = None
+    # while ``state`` holds this rank's rows of a sharded plane: the
+    # (mesh, M) it is sharded over
+    sharded_by = None
     for seg in segs:
         fp = plan.segment_faults(engine.faults, seg.num_workers,
                                  seg.start, seg.stop)
@@ -375,7 +392,8 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
             continue
         eng = resize_engine(engine, seg.num_workers, faults=fp)
         if state is not None:
-            old_m = _state_m(state)
+            old_m = (_state_m(state) if sharded_by is None
+                     else sharded_by[1])
             if old_m != seg.num_workers:
                 if done + 1 != seg.start:
                     raise ValueError(
@@ -383,6 +401,11 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
                         f"segment covering step {done + 1} runs "
                         f"{seg.num_workers} — the checkpoint does not "
                         "match the elastic plan")
+                if sharded_by is not None:
+                    from repro_torch.sharding.specs import (
+                        unshard_engine_state)
+                    state = unshard_engine_state(state, sharded_by[0])
+                    sharded_by = None
                 state = resize_state(state, seg.num_workers,
                                      faults=prev_faults)
                 hist["resizes"].append((seg.start, old_m,
@@ -399,6 +422,8 @@ def run_elastic(engine, params, data_factory, plan: ElasticPlan, *,
             record_every=record_every, eval_fn=eval_fn,
             worker_eval_fn=worker_eval_fn, phase_len=phase_len, steps=k,
             prefetch=prefetch, state=state, return_state=True, sink=sink)
+        if eng.mesh is not None:
+            sharded_by = (eng.mesh, seg.num_workers)
         for key in ("loss", "dispersion", "disp_trace", "eval",
                     "worker_eval", "phase_wall"):
             hist[key].extend(h[key])

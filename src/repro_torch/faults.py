@@ -308,13 +308,18 @@ class FaultPlan:
                 out[worker] = 1.0
         return out
 
-    def mix_at(self, alive, step: int):
+    def mix_at(self, alive, step: int, *, row0: int = 0,
+               num_rows: int | None = None):
         """``alive`` masked down to the mixing cohort at ``step``: alive
         rows not inside a solo window. Without solo windows it returns
-        ``alive`` itself."""
+        ``alive`` itself. ``alive`` spans the full plane by default; a
+        shard passes its rows ``[row0, row0 + num_rows)``."""
         if not self._solo_windows:
             return alive
-        return alive * (_F32(1.0) - self.solo_at(step))
+        solo = self.solo_at(step)
+        if num_rows is not None:
+            solo = solo[row0:row0 + num_rows]
+        return alive * (_F32(1.0) - solo)
 
     def disp_scale(self, mix_full, dec_key, step: int) -> np.float32:
         """The fraction of the mixing cohort that applied its local
@@ -325,22 +330,28 @@ class FaultPlan:
         updated = np.sum(mix_full * (_F32(1.0) - straggle), dtype=_F32)
         return updated / max(np.sum(mix_full, dtype=_F32), _F32(1.0))
 
-    def transition(self, state: FaultState, step: int, dec_key):
-        """One fault-state step. Returns ``(new_state, mix_full, mix,
-        umask, rejoined)``: the mixing cohort (here the full plane, so
-        ``mix`` is ``mix_full``), ``umask`` the rows that apply their
-        local update (alive and not straggling; solo rows update), and
-        ``rejoined`` the rows alive now and dead before. The carried
-        state keeps the scripted liveness."""
-        alive = self.alive_at(step)
-        mix = self.mix_at(alive, step)
-        straggle = self.straggle_mask(dec_key, step,
-                                      np.arange(self.num_workers))
+    def transition(self, state: FaultState, step: int, dec_key, *,
+                   row0: int = 0, num_rows: int | None = None):
+        """One fault-state step for the rows ``[row0, row0 + num_rows)``
+        (the full plane by default; a shard passes its rows, and
+        ``state`` holds those rows). Returns ``(new_state, mix_full, mix,
+        umask, rejoined)``: ``mix_full`` the global (M,) mixing cohort
+        (every shard computes it: mixing matrices need all rows),
+        ``mix`` / ``umask`` / ``rejoined`` the given rows' masks —
+        ``umask`` the rows that apply their local update (alive and not
+        straggling; solo rows update), ``rejoined`` the rows alive now
+        and dead before. The carried state keeps the scripted
+        liveness."""
+        r1 = self.num_workers if num_rows is None else row0 + num_rows
+        alive_full = self.alive_at(step)
+        mix_full = self.mix_at(alive_full, step)
+        alive, mix = alive_full[row0:r1], mix_full[row0:r1]
+        straggle = self.straggle_mask(dec_key, step, np.arange(row0, r1))
         umask = alive * (_F32(1.0) - straggle)
         rejoined = alive * (_F32(1.0) - state.alive)
         staleness = np.where(umask > 0, np.int32(0),
                              state.staleness + np.int32(1)).astype(np.int32)
-        return FaultState(alive, staleness), mix, mix, umask, rejoined
+        return FaultState(alive, staleness), mix_full, mix, umask, rejoined
 
 
 # --------------------------------------------------------------------------

@@ -23,18 +23,32 @@ CUDA unless ``--device cpu``; ``--kernel-impl ref`` takes the kernels'
 plain versions on the card and ``--no-prefetch`` stages the batches in
 line, for comparison.
 
+``--shard`` splits the worker rows over the ranks ``torchrun`` starts
+(:mod:`repro_torch.launch.mesh`; a plain ``python -m`` is a world of
+one), over NCCL on CUDA and gloo on the CPU, with ``--collective psum``
+(the default) or ``gather`` (:class:`repro_torch.core.PhaseEngine`).
+Rank 0 prints, writes the telemetry and, under ``--checkpoint``, gathers
+the rows and writes the files; ``--resume`` loads on every rank, each
+keeping its rows.
+
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --steps 6 --workers 4 --avg periodic --phase-len 3
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --device cpu --reduced --steps 6 \
+      --workers 4 --avg periodic --phase-len 3 --shard
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (ENGINE_STATE_VERSION, load_engine_state,
                                     save_checkpoint, save_engine_state)
@@ -46,8 +60,10 @@ from repro_torch.data import token_stream
 from repro_torch.device import resolve_device
 from repro_torch.elastic import ElasticPlan, run_elastic, segment_engine
 from repro_torch.faults import FaultPlan
+from repro_torch.launch.mesh import make_worker_mesh
 from repro_torch.models import init_params, lm_loss
 from repro_torch.optim import AdamW, Momentum
+from repro_torch.sharding.specs import unshard_engine_state
 from repro_torch.telemetry import (JsonlSink, make_record, profile_trace,
                                    run_meta_record)
 from repro_torch.topology import KINDS as TOPOLOGY_KINDS
@@ -174,6 +190,15 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefetch", action="store_true",
                     help="stage phase blocks in line instead of via the "
                          "double-buffered prefetch thread")
+    ap.add_argument("--shard", action="store_true",
+                    help="split the (M, P) plane's worker rows over the "
+                         "ranks torchrun starts (NCCL on CUDA, gloo on "
+                         "the CPU; a plain python -m is one rank)")
+    ap.add_argument("--collective", default="psum",
+                    choices=["psum", "gather"],
+                    help="sharded averaging collective: psum (one "
+                         "all-reduce of column sums per step) or gather "
+                         "(validation; bit-identical to one rank)")
     ap.add_argument("--telemetry", default=None, metavar="PATH",
                     help="write structured run telemetry to this JSONL "
                          "file (repro_torch.telemetry): a run_meta header, "
@@ -194,6 +219,29 @@ def make_parser() -> argparse.ArgumentParser:
                          "(--checkpoint writes <path>.state) to resume "
                          "from; --steps counts additional steps")
     return ap
+
+
+def _rank0() -> bool:
+    """Whether this process is the world's rank 0 (or alone)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _say(*args, **kw):
+    """``print`` on the world's rank 0 only."""
+    if _rank0():
+        print(*args, **kw)
+
+
+def _init_ranks(device: torch.device):
+    """Join the process group ``torchrun`` describes in the environment
+    (NCCL on CUDA, each rank on its ``LOCAL_RANK`` card; gloo on the
+    CPU). Without ``torchrun``'s variables the world is this one
+    process."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
 
 
 def elastic_plan(args, ap) -> ElasticPlan | None:
@@ -330,11 +378,13 @@ def setup(args, ap):
     if args.kernel_impl == "cuda" and device.type != "cuda":
         ap.error(f"--kernel-impl cuda launches the CUDA kernels, which "
                  f"--device {args.device} cannot")
+    if args.shard:
+        _init_ranks(device)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.reduced:
         cfg = dataclasses.replace(cfg, dtype="float32")
-    print(f"[train] {cfg.name}: {cfg.num_params()/1e6:.1f}M params, "
+    _say(f"[train] {cfg.name}: {cfg.num_params()/1e6:.1f}M params, "
           f"{args.workers} workers, avg={args.avg}")
     if args.avg == "adaptive_bytes":
         # one event's wire cost at this topology x precision: a budget
@@ -371,21 +421,29 @@ def setup(args, ap):
         straggle_aware=args.straggle_aware)
     outer = (OuterOptimizer(lr=1.0, momentum=args.outer_momentum)
              if args.outer_momentum > 0 else None)
+    mesh = None
+    if args.shard:
+        mesh = make_worker_mesh(args.workers, device=device)
+        shards = mesh.shape["data"]
+        _say(f"[train] sharding {args.workers} workers over {shards} "
+             f"devices ({args.workers // shards} rows/shard, "
+             f"collective={args.collective}, backend={mesh.backend})")
     engine = PhaseEngine(loss_fn, opt, sch, device=str(device), outer=outer,
                          topology=topology, compression=compression,
                          kernel_impl=args.kernel_impl, faults=faults,
-                         telemetry=bool(args.telemetry))
+                         telemetry=bool(args.telemetry), mesh=mesh,
+                         collective=args.collective)
     if faults is not None and not faults.is_trivial:
         crashes = sum(ev.kind == "crash" for ev in faults.events)
         rejoins = sum(ev.kind == "rejoin" for ev in faults.events)
-        print(f"[train] faults: {crashes} crash / {rejoins} rejoin "
+        _say(f"[train] faults: {crashes} crash / {rejoins} rejoin "
               f"events, straggle_prob={faults.straggle_prob}")
     if topology is not None:
-        print(f"[train] topology={topology.kind} "
+        _say(f"[train] topology={topology.kind} "
               f"(spectral gap {topology.spectral_gap:.3f}, "
               f"{topology.comm_degree:.1f} msgs/worker/event)")
     if not compression.is_identity:
-        print(f"[train] wire={compression.wire} "
+        _say(f"[train] wire={compression.wire} "
               f"(error_feedback={compression.error_feedback})")
 
     # per-worker independent data streams (the reference's seeds), keyed
@@ -428,9 +486,12 @@ def _taken(plan: ElasticPlan | None, workers: int, at: int) -> dict:
 
 def _resume(args, engine, params, plan):
     """(state, step) of ``--resume`` in the like-state of the run — under
-    a plan, that of the segment whose row count the save recorded."""
+    a plan, that of the segment whose row count the save recorded. Under
+    ``--shard`` every rank loads the full state; the run keeps each
+    rank's rows."""
     if plan is None:
-        like = engine.init(params, args.workers, args.seed)
+        like = dataclasses.replace(engine, mesh=None).init(
+            params, args.workers, args.seed)
     else:
         with open(args.resume + ".json") as f:
             meta = json.load(f)
@@ -442,14 +503,15 @@ def _resume(args, engine, params, plan):
         if saved_m is not None and int(saved_m) != m:
             seg_eng, m = segment_engine(engine, plan, at + 1,
                                         at + args.steps)
-        like = seg_eng.init(params, m, args.seed)
+        like = dataclasses.replace(seg_eng, mesh=None).init(params, m,
+                                                            args.seed)
     return load_engine_state(args.resume, like)
 
 
 def _open_sink(args, engine) -> JsonlSink | None:
     """``--telemetry``'s sink, its ``run_meta`` record written (the
     reference CLI's config keys)."""
-    if not args.telemetry:
+    if not args.telemetry or not _rank0():
         return None
     sink = JsonlSink(args.telemetry)
     topo = engine.topology
@@ -462,7 +524,7 @@ def _open_sink(args, engine) -> JsonlSink | None:
         "spectral_gap": topo.spectral_gap if topo is not None else None,
         "comm_dtype": args.comm_dtype, "seed": args.seed},
         device=engine.device))
-    print(f"[train] telemetry -> {args.telemetry}")
+    _say(f"[train] telemetry -> {args.telemetry}")
     return sink
 
 
@@ -471,12 +533,22 @@ def main(argv=None):
     (final consensus params, history, final EngineState)."""
     ap = make_parser()
     args = ap.parse_args(argv)
+    joined = dist.is_initialized()
+    try:
+        return _main(args, ap)
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, ap):
+    """:func:`main` after the parse."""
     _, engine, params, batches = setup(args, ap)
     plan = elastic_plan(args, ap)
     state, at = None, 0
     if args.resume:
         state, at = _resume(args, engine, params, plan)
-        print(f"[train] resuming from {args.resume} at step {at}")
+        _say(f"[train] resuming from {args.resume} at step {at}")
     skip = _taken(plan, args.workers, at)
     sink = _open_sink(args, engine)
     try:
@@ -505,7 +577,7 @@ def _train(args, engine, params, batches, plan, state, at, skip, sink):
                 sink=sink)
             for t, old_m, new_m in hist["resizes"]:
                 kind = "shrink" if new_m < old_m else "grow"
-                print(f"[train] {kind} {old_m} -> {new_m} workers "
+                _say(f"[train] {kind} {old_m} -> {new_m} workers "
                       f"before step {t}")
         else:
             final, hist, state = engine.run(
@@ -515,21 +587,29 @@ def _train(args, engine, params, batches, plan, state, at, skip, sink):
                 return_state=True, sink=sink)
     dt = time.time() - t0
     if args.profile_dir:
-        print(f"[train] profiler trace -> {args.profile_dir}")
+        _say(f"[train] profiler trace -> {args.profile_dir}")
     losses = hist["loss"]
-    print(f"[train] {args.steps} steps in {dt:.1f}s "
+    _say(f"[train] {args.steps} steps in {dt:.1f}s "
           f"({dt / args.steps * 1e3:.0f} ms/step), "
           f"{hist['averages']} averaging ops")
     if losses:
-        print(f"[train] loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f}")
+        _say(f"[train] loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f}")
     if hist["dispersion"]:
-        print(f"[train] final pre-average worker dispersion: "
+        _say(f"[train] final pre-average worker dispersion: "
               f"{hist['dispersion'][-1][1]:.3e}")
     if args.checkpoint:
+        if engine.mesh is not None:
+            # the last segment's mesh; every rank gathers, rank 0 writes
+            m = (plan.segments(state.step)[-1].num_workers
+                 if plan is not None else args.workers)
+            mesh = make_worker_mesh(m, backend=engine.mesh.backend,
+                                    device=engine.mesh.device)
+            state = unshard_engine_state(state, mesh, to="cpu")
+    if args.checkpoint and _rank0():
         save_checkpoint(args.checkpoint, final, step=state.step)
         save_engine_state(args.checkpoint + ".state", state,
                           elastic=plan is not None)
-        print(f"[train] saved consensus model to {args.checkpoint} "
+        _say(f"[train] saved consensus model to {args.checkpoint} "
               f"(+ resumable EngineState at {args.checkpoint}.state)")
         if sink is not None:
             sink.emit(make_record(

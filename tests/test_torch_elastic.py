@@ -577,3 +577,45 @@ class TestElasticCheckpoint:
         pio.save_engine_state(path, st, elastic=True)
         loaded, _ = pio.load_engine_state(path, like)
         _equal_states(loaded, st)
+
+
+class TestShardedElastic:
+    """The CLI's elastic run under a 2-rank mesh (``torchrun``, gloo):
+    shrinking to 3 rows leaves a mesh of one rank (the other sits the
+    segment out), growing back to 4 splits the rows again."""
+
+    ARGV = ["--device", "cpu", "--reduced", "--workers", "4", "--avg",
+            "periodic", "--phase-len", "2", "--batch", "1", "--seq", "8",
+            "--steps", "8", "--shrink-at", "3:3", "--grow-at", "5:4",
+            "--rejoin-curriculum", "1"]
+
+    @pytest.mark.parametrize("coll", ["gather", "psum"])
+    def test_cli_elastic_under_a_mesh_equals_the_unsharded_run(
+            self, tmp_path, capsys, coll):
+        import torch_sharded_worker as tw
+        from repro_torch.launch import train
+        one = str(tmp_path / "one")
+        final, hist, _ = train.main(self.ARGV + ["--checkpoint", one])
+        want = capsys.readouterr().out
+        two = str(tmp_path / "two")
+        rc, out, err = tw.torchrun(2, self.ARGV + [
+            "--shard", "--collective", coll, "--checkpoint", two])
+        assert rc == 0, out + err
+        for line in ("[train] shrink 4 -> 3 workers before step 3",
+                     "[train] grow 3 -> 4 workers before step 5"):
+            assert line in out and line in want
+        assert "(2 rows/shard" in out
+        ops = [ln.split("), ")[-1] for ln in (out + want).splitlines()
+               if "averaging ops" in ln]
+        assert len(ops) == 2 and ops[0] == ops[1]
+        # gather: the whole engine state bitwise; psum: the consensus
+        # model within the reference's psum tolerances
+        kind = ".state.npz" if coll == "gather" else ".npz"
+        a, b = np.load(one + kind), np.load(two + kind)
+        assert a.files == b.files
+        for k in a.files:
+            if coll == "gather":
+                np.testing.assert_array_equal(b[k], a[k])
+            else:
+                np.testing.assert_allclose(b[k], a[k], rtol=1e-5,
+                                           atol=1e-7)

@@ -299,6 +299,101 @@ def test_cli_kernel_impl_and_prefetch_leave_the_run_unchanged():
         assert hist["dispersion"] == base_hist["dispersion"]
 
 
+# ---- --shard: the worker rows over torchrun's ranks -------------------------
+
+SHARD_ARGV = ["--device", "cpu", "--reduced", "--workers", "4", "--avg",
+              "periodic", "--phase-len", "3", "--batch", "1", "--seq", "8"]
+
+
+def _states_equal(a: str, b: str) -> bool:
+    """Two engine-state checkpoints hold the same leaves, bit for bit."""
+    import numpy as np
+    x, y = np.load(a + ".state.npz"), np.load(b + ".state.npz")
+    return x.files == y.files and all(np.array_equal(x[k], y[k])
+                                      for k in x.files)
+
+
+def _line(out: str, key: str) -> str:
+    return next(ln for ln in out.splitlines() if key in ln)
+
+
+@pytest.mark.parametrize("coll", ["gather", "psum"])
+def test_cli_shard_over_two_ranks_keeps_the_run(tmp_path, capsys, coll):
+    """``torchrun --nproc-per-node 2 ... --shard``: rank 0 prints the
+    reference's sharding line (with the backend), the unsharded run's
+    averaging count and loss line; ``gather`` checkpoints the unsharded
+    run's state bit for bit."""
+    import torch_sharded_worker as tw
+    argv = SHARD_ARGV + ["--steps", "10", "--faults",
+                         "crash:m=1@t=4,rejoin:m=1@t=7", "--straggle-prob",
+                         "0.2"]
+    train.main(argv + ["--checkpoint", str(tmp_path / "one")])
+    want = capsys.readouterr().out
+    rc, out, err = tw.torchrun(2, argv + ["--shard", "--collective", coll,
+                                          "--checkpoint",
+                                          str(tmp_path / "two")])
+    assert rc == 0, out + err
+    assert out.count("[train] sharding") == 1
+    assert ("[train] sharding 4 workers over 2 devices (2 rows/shard, "
+            f"collective={coll}, backend=gloo)") in out
+    for key in ("averaging ops", "[train] loss"):
+        assert (_line(out, key).split("), ")[-1]
+                == _line(want, key).split("), ")[-1])
+    if coll == "gather":
+        assert _states_equal(str(tmp_path / "two"), str(tmp_path / "one"))
+
+
+def test_cli_shard_checkpoint_then_resume_bitwise(tmp_path):
+    """Under ``--shard`` (psum, 2 ranks) ``--checkpoint`` gathers the rows
+    to rank 0, ``--resume`` gives every rank its rows back, and the
+    resumed run ends where one run of all the steps ends, bit for
+    bit."""
+    import torch_sharded_worker as tw
+    argv = SHARD_ARGV + ["--shard", "--comm-dtype", "int8"]
+    ck = str(tmp_path / "run")
+    outs = []
+    for extra in (["--steps", "4", "--checkpoint", ck],
+                  ["--steps", "4", "--resume", ck + ".state",
+                   "--checkpoint", ck + "-resumed"],
+                  ["--steps", "8", "--checkpoint", ck + "-whole"]):
+        rc, out, err = tw.torchrun(2, argv + extra)
+        assert rc == 0, out + err
+        outs.append(out)
+    assert f"resuming from {ck}.state at step 4" in outs[1]
+    assert _states_equal(ck + "-resumed", ck + "-whole")
+    assert not _states_equal(ck, ck + "-whole")
+
+
+def test_cli_shard_in_a_world_of_one(capsys):
+    """``--shard`` without torchrun: one rank holding every row; ``gather``
+    is the unsharded run bit for bit."""
+    argv = SHARD_ARGV + ["--steps", "4"]
+    f0, h0, s0 = train.main(argv)
+    capsys.readouterr()
+    f1, h1, s1 = train.main(argv + ["--shard", "--collective", "gather"])
+    assert ("[train] sharding 4 workers over 1 devices (4 rows/shard, "
+            "collective=gather, backend=gloo)") in capsys.readouterr().out
+    assert torch.equal(s1.plane, s0.plane)
+    assert h1["dispersion"] == h0["dispersion"]
+
+
+@pytest.mark.parametrize("argv", [["--collective", "ring"],
+                                  ["--shard", "--collective", "allreduce"]],
+                         ids=["collective", "shard-collective"])
+def test_cli_refuses_bad_shard_flags_as_the_reference(argv, capsys):
+    from repro.launch import train as jtrain
+    with pytest.raises(SystemExit) as ej:
+        jtrain.main(["--reduced", "--steps", "2"] + argv)
+    assert ej.value.code == 2
+    want = capsys.readouterr().err.splitlines()[-1]
+    assert "invalid choice" in want
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu", "--reduced", "--steps", "2"] + argv)
+    assert e.value.code == 2
+    assert capsys.readouterr().err.splitlines()[-1].split(": ", 1)[1] \
+        == want.split(": ", 1)[1]
+
+
 def test_cli_refuses_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

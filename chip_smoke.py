@@ -7,7 +7,7 @@ Phases, each printing one JSON line:
   1. card + build: the device, ``nvidia-smi`` name and power limit, and
      the build of every CUDA kernel under src/repro_torch/kernels/csrc/;
      the bf16 flash kernel's (``flash_fwd_wgmma``) registers and spills
-     per head dim, none allowed at 64 and 256, and its ``HGMMA``
+     per head dim, none allowed at 64, 128 and 256, and its ``HGMMA``
      (tensor-core) instructions counted in the SASS by ``cuobjdump``
      where the toolkit or Triton has one, each head dim needing some; the
      same for ``rwkv6_scan``'s ``rwkv6_chunk_mma`` per head dim and input
@@ -53,9 +53,9 @@ Phases, each printing one JSON line:
      least squares, two logistic regressions, 24 workers): w* from
      ``solve_optimum``, σ², β² and ρ from ``core.variance_model``, then
      paired-draw curves from one ``DeviceDataset`` index list — oneshot,
-     minibatch, periodic 128, periodic 512 and one worker, 512 steps
+     minibatch, periodic 128, periodic 256 and one worker, 256 steps
      each, the objective every 64 steps — with their events, launches
-     (``opt_step`` 512; ``avg_disp`` 4 / 1 / 0 / 0), steady ms per step
+     (``opt_step`` 256; ``avg_disp`` 2 / 1 / 0 / 0), steady ms per step
      and normalized suboptimality; and one config run three ways over 256
      steps (indexed, staged from host batches, ``run_host``), bitwise
      equal, with their ms per step;
@@ -73,7 +73,7 @@ Phases, each printing one JSON line:
      keys, drawn on the card), prefill ms, decode ms per token, tokens/s
      and peak memory; the kernel path against ``impl="plain"`` on the card
      where the serve prefill launches a kernel (reported, not gated);
-     and the serve CLI once;
+     and the serve CLI once (``serve_run``, which phase 12 runs too);
   7. faults (``repro_torch.faults``, the plane passes' ``alive`` /
      ``umask`` paths, each one launch of its kernel's masked pass):
      card_check's fault sweep (dead, straggling and all-alive rows, and
@@ -92,7 +92,7 @@ Phases, each printing one JSON line:
      minibatch, ring + one_bit; 8 steps each, the last 2 under
      ``torch.profiler``) beside the same runs without the plan: step
      ms, device-busy ms, peak memory, and their differences; the
-     least squares of phase 4 (256 steps from a ``DeviceDataset``,
+     least squares of phase 4 (160 steps from a ``DeviceDataset``,
      crash:m=3@t=40,crash:m=7@t=40,rejoin:m=3@t=120, straggle 0.1,
      curriculum 16) under periodic 16, hierarchical (2 groups), ring,
      int8, minibatch over a torus with int8, and adaptive_threshold with
@@ -164,12 +164,26 @@ Phases, each printing one JSON line:
      ``--shard --collective gather`` under ``torchrun --nproc-per-node
      1`` (NCCL) on ``--reduced`` smollm-360m: bitwise the unsharded
      CLI's checkpoint;
- 12. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+ 12. the decoder-only zoo (``phase_zoo``): served at full width through
+     ``serve_run`` as phase 6 serves (bf16, random weights): starcoder2-3b
+     (batch 4, a prompt of 5120 past its 4096 window; 30
+     ``flash_attention`` launches a prefill), minitron-8b (4 x 2048; 32),
+     gemma3-27b (2 x 2048 past its 1024 window, 52 local and 10 global
+     layers; 62), phi3.5-moe-42b-a6.6b at 4 of its 32 layers (4 x 2048,
+     16 experts top-2 at the published widths; 4) and
+     llama4-maverick-400b-a17b at 2 of 48 (1 x 2048, 128 experts top-1
+     and the shared expert; 2), 32 / 32 / 32 / 16 / 8 tokens generated,
+     decode launching nothing; the serve CLI once for gemma3-27b (``--batch
+     1 --gen 4``); then phi3.5-moe at its published widths cut to one
+     layer (P = 1.56e9) trained through ``launch/train.py``'s ``setup``
+     (bf16, 2 workers, Momentum, periodic K=2, 4 steps; ``opt_step`` once
+     a step, ``avg_disp`` once an event), twice, bitwise equal;
+ 13. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
      masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-11;
+Every launch count is set to 0 just before a main-path run (phases 3-12;
 a spawned rank zeroes and reads its own) and read just after; the
 ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
@@ -209,12 +223,17 @@ RGLRU = dict(b=4, s=3072, w=2560)
 # rwkv6_scan at rwkv6-7b's prefill: batch, sequence, heads, head dim
 RWKV6 = dict(b=4, s=2048, h=64, n=64)
 # the convex suite of phase 5 (the paper's §3.1 protocol): steps per curve
-# (1024 until phase 7 needed the time), eval every SUITE_EVERY steps, SGD
+# (1024 until phase 7 needed the time, 512 until phase 12 did; phase 7's
+# paired curve takes as many), eval every SUITE_EVERY steps, SGD
 # at lr0 / (t - 1 + d) with lr0 = mult * d / mean ||x_j||², and the steps
 # of the indexed / staged / run_host comparison
-SUITE_STEPS, SUITE_EVERY = 512, 64
+SUITE_STEPS, SUITE_EVERY = 256, 64
 SUITE_LR_MULT, SUITE_LR_D = 0.8, 200.0
 HOST_STEPS = 256
+# phase 7's least squares under a fault plan: steps a run (256 until
+# phase 12 needed the time; the plan's last rejoin and its curriculum end
+# at step 136)
+FAULT_LS_STEPS = 160
 
 
 def emit(obj) -> None:
@@ -1518,6 +1537,249 @@ def phase_sharded(cx) -> dict:
     return out
 
 
+# ---- phases 6 and 12: serving at full width ---------------------------------
+#: phase 12's serving runs, the decoder-only zoo (bf16, random weights):
+#: the layers kept (None: the published depth; the MoE archs do not fit
+#: whole, 84 GB and 800 GB of bf16 weights, so their depth is cut and
+#: their widths kept), batch, prompt, tokens generated and each serve
+#: prefill's kernel launches; starcoder2-3b's prompt runs past its 4096
+#: window, gemma3-27b's past its 1024 one
+ZOO_SERVE = {
+    "starcoder2-3b": dict(layers=None, batch=4, prompt=5120, gen=32,
+                          launches={"flash_attention": 30}),
+    "minitron-8b": dict(layers=None, batch=4, prompt=2048, gen=32,
+                        launches={"flash_attention": 32}),
+    "gemma3-27b": dict(layers=None, batch=2, prompt=2048, gen=32,
+                       launches={"flash_attention": 62}),
+    "phi3.5-moe-42b-a6.6b": dict(layers=4, batch=4, prompt=2048, gen=16,
+                                 launches={"flash_attention": 4}),
+    "llama4-maverick-400b-a17b": dict(layers=2, batch=1, prompt=2048, gen=8,
+                                      launches={"flash_attention": 2})}
+#: phase 12's MoE training run: phi3.5-moe at its published widths cut to
+#: ZOO_TRAIN_LAYERS layer (P = 1.56e9), through the training CLI's
+#: ``setup`` as phase 3 runs smollm-360m: bf16, 2 workers, Momentum,
+#: periodic K=2, 4 steps
+ZOO_TRAIN_LAYERS = 1
+ZOO_TRAIN_ARGV = ["--arch", "phi3.5-moe-42b-a6.6b", "--workers", "2",
+                  "--batch", "4", "--seq", "64", "--optimizer", "momentum",
+                  "--lr", "0.01", "--device", "cuda", "--steps", "4",
+                  "--avg", "periodic", "--phase-len", "2"]
+
+
+def cut_depth(cfg, layers):
+    """``cfg`` with its first ``layers`` layers (None: unchanged)."""
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               layers=cfg.layers[:layers])
+
+
+def serve_run(cx, cfg, run) -> dict:
+    """One arch served as ``launch/serve.py`` serves it: ``init_params``
+    (the reference's keys, drawn on the card) timed, a warm-up prefill,
+    then the timed prefill and decode, each launch count held against
+    ``run["launches"]`` (decode launches none), the peak memory; the
+    plain path on the card (einsum attention, the associative scan),
+    its last logits and tokens against the kernel path's (reported, not
+    gated: random-init logits over the vocabulary sit close together);
+    where ``run`` has ``step_launches``, the cacheless prefill step too."""
+    import torch
+
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import init_params
+    dev, name = cx.dev, cfg.name
+    batch, plen, gen = run["batch"], run["prompt"], run["gen"]
+    cx.sync()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    cx.sync()
+    t_init = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(dev)
+    # warm-up prefill (cuBLAS set-up, the kernels' first launches)
+    serve.prefill(cfg, params, prompt, max_len=gen)
+    cx.free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cx.zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = serve.prefill(cfg, params, prompt, max_len=gen)
+    cx.sync()
+    t_pre = time.perf_counter() - t0
+    pre = cx.read_counts(run["launches"], f"serve {name} prefill")
+    cx.zero_counts()
+    t0 = time.perf_counter()
+    toks = serve.decode(cfg, params, logits, cache, max_len=gen)
+    cx.sync()
+    t_dec = time.perf_counter() - t0
+    dec = cx.read_counts({}, f"serve {name} decode")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(tuple(toks.shape) == (batch, gen), f"{name}: tokens "
+          f"{tuple(toks.shape)}")
+    check(0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+          f"{name}: a token beyond the vocabulary")
+    check(bool(torch.isfinite(logits).all()), f"{name}: logits")
+    del cache
+    cx.free()
+    cx.zero_counts()
+    plogits, pcache = serve.prefill(cfg, params, prompt, max_len=gen,
+                                    impl="plain")
+    ptoks = serve.decode(cfg, params, plogits, pcache, max_len=gen)
+    cx.read_counts({}, f"serve {name} plain")
+    del pcache
+    cx.free()
+    out = {}
+    if "step_launches" in run:
+        # the cacheless prefill step, the path of the arch's kernel,
+        # after a warm-up; its last logits against the serve prefill's
+        # (kernel against the chunked path; reported)
+        step = steps.make_prefill_step(cfg)
+        step(params, {"tokens": prompt})
+        cx.free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cx.zero_counts()
+        t0 = time.perf_counter()
+        last = step(params, {"tokens": prompt})
+        cx.sync()
+        t_step = time.perf_counter() - t0
+        got = cx.read_counts(run["step_launches"], f"{name} prefill step")
+        step_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(tuple(last.shape) == (batch, cfg.padded_vocab)
+              and bool(torch.isfinite(last).all()),
+              f"{name}: prefill step logits")
+        out = dict(
+            prefill_step_ms=t_step * 1e3, launches_prefill_step=got,
+            prefill_step_peak_memory_gb=step_peak_gb,
+            prefill_step_vs_serve_last_logits_max_abs_diff=float(
+                (last - logits[:, -1]).abs().max()),
+            prefill_step_vs_serve_equal_argmax=float(
+                (last.argmax(-1) == logits[:, -1].argmax(-1))
+                .float().mean()))
+        del last
+        cx.free()
+    if run["launches"]:
+        # kernel against plain; where the serve prefill launches no
+        # kernel (rwkv6-7b) both runs take the same path: left out
+        out.update(
+            kernel_vs_plain_last_logits_max_abs_diff=float(
+                (logits - plogits).abs().max()),
+            kernel_vs_plain_equal_tokens=float(
+                (toks == ptoks).float().mean()))
+    result = dict(
+        batch=batch, prompt=plen, gen=gen, params=cfg.num_params(),
+        init_params_s=t_init, prefill_ms=t_pre * 1e3,
+        decode_ms_per_token=t_dec * 1e3 / gen,
+        prefill_tokens_per_s=batch * plen / t_pre,
+        decode_tokens_per_s=batch * gen / t_dec,
+        end_to_end_tokens_per_s=batch * gen / (t_pre + t_dec),
+        launches_prefill=pre, launches_decode=dec, peak_memory_gb=peak_gb,
+        tokens_first_row=toks[0, :12].tolist(), **out)
+    del params, prompt, logits, plogits, toks, ptoks
+    cx.free()
+    return result
+
+
+def zoo_train_run(cx) -> tuple:
+    """phase 12's MoE training run: ``train.setup`` on ZOO_TRAIN_ARGV (its
+    config cut to ZOO_TRAIN_LAYERS), then ``PhaseEngine.run``, the loss
+    every step; ``opt_step`` once a step, ``avg_disp`` once an event.
+    Returns (the final state's plane, copied to the host: a second run
+    needs the card's memory, the run's report)."""
+    import torch
+
+    from repro_torch.launch import train
+    torch.cuda.reset_peak_memory_stats(cx.dev)
+    full_config = train.get_config
+    train.get_config = lambda arch, reduced=False: cut_depth(
+        full_config(arch, reduced=reduced), ZOO_TRAIN_LAYERS)
+    try:
+        ap = train.make_parser()
+        args = ap.parse_args(ZOO_TRAIN_ARGV)
+        t0 = time.perf_counter()
+        cfg, engine, params, batches = train.setup(args, ap)
+        cx.sync()
+        setup_s = time.perf_counter() - t0
+    finally:
+        train.get_config = full_config
+    check(cfg.num_layers == ZOO_TRAIN_LAYERS
+          and cfg.layers[0].ffn == "moe", f"MoE training config {cfg}")
+    cx.zero_counts()
+    t0 = time.perf_counter()
+    final, hist, state = engine.run(
+        params, batches(), num_workers=args.workers, seed=args.seed,
+        record_every=1, phase_len=args.phase_len, return_state=True)
+    cx.sync()
+    wall = time.perf_counter() - t0
+    events = args.steps // args.phase_len
+    got = cx.read_counts({"opt_step": args.steps, "avg_disp": events},
+                         "MoE training")
+    losses = [v for _, v in hist["loss"]]
+    check(len(losses) == args.steps and all(map(math.isfinite, losses)),
+          f"MoE training: losses {losses}")
+    check(hist["averages"] == events,
+          f"MoE training: {hist['averages']} averaging ops, want {events}")
+    plane = state.plane
+    # every leaf: num_params and the final norm (a bias with layernorm)
+    final_norm = (2 if cfg.norm == "layernorm" else 1) * cfg.d_model
+    check(tuple(plane.shape) == (args.workers,
+                                 cfg.num_params() + final_norm),
+          f"MoE training: plane {tuple(plane.shape)}")
+    check(bool(torch.isfinite(plane).all()), "MoE training: plane")
+    report = dict(
+        params=cfg.num_params(), active_params=cfg.num_active_params(),
+        plane=list(plane.shape), setup_s=setup_s, wall_s=wall,
+        step_ms=steady_step_ms(hist["phase_wall"]), losses=losses,
+        averages=hist["averages"], launches=got,
+        peak_memory_gb=torch.cuda.max_memory_allocated(cx.dev) / 1e9)
+    plane = plane.cpu()
+    del final, engine, params, state
+    return plane, report
+
+
+def phase_zoo(cx) -> dict:
+    """phase 12: ZOO_SERVE's archs served (``serve_run``), the serve CLI
+    once for gemma3-27b (``--batch 1 --gen 4``), then the MoE training
+    run twice, bitwise equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_zoo = time.perf_counter()
+    served = {}
+    for arch, run in ZOO_SERVE.items():
+        cfg = cut_depth(get_config(arch), run["layers"])
+        t0 = time.perf_counter()
+        served[arch] = dict(serve_run(cx, cfg, run), layers=cfg.num_layers,
+                            published_layers=get_config(arch).num_layers,
+                            active_params=cfg.num_active_params(),
+                            wall_s=time.perf_counter() - t0)
+    cx.zero_counts()
+    t0 = time.perf_counter()
+    cli_toks = serve.main(["--arch", "gemma3-27b", "--batch", "1", "--gen",
+                           "4"])
+    cli_s = time.perf_counter() - t0
+    cx.read_counts(ZOO_SERVE["gemma3-27b"]["launches"], "serve CLI gemma3")
+    check(tuple(cli_toks.shape) == (1, 4), "serve CLI gemma3 tokens")
+    cx.free()
+    plane, first = zoo_train_run(cx)
+    cx.free()
+    plane2, second = zoo_train_run(cx)
+    check(torch.equal(plane, plane2) and first["losses"] == second["losses"],
+          "MoE training: two runs differ")
+    del plane, plane2
+    cx.free()
+    return {"phase": "zoo", "serve": served,
+            "serve_cli": {"arch": "gemma3-27b", "batch": 1, "gen": 4,
+                          "wall_s": cli_s},
+            "moe_train": dict(first, second_wall_s=second["wall_s"],
+                              second_step_ms=second["step_ms"],
+                              bitwise=True),
+            "reduced": ["phi3.5-moe-42b-a6.6b served at 4 of 32 layers, "
+                        "trained at 1", "llama4-maverick-400b-a17b served "
+                        "at 2 of 48 layers"],
+            "wall_s": time.perf_counter() - t_zoo}
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1578,7 +1840,7 @@ def main() -> None:
                   for hd, n in sorted(flash_kernels(ptx_flash).items())}
     check(sorted(flash_regs) == [32, 64, 128, 256],
           f"flash_fwd_wgmma head dims in ptxas: {sorted(flash_regs)}")
-    for hd in (64, 256):
+    for hd in cc.FLASH_NO_SPILL_HEAD_DIMS:
         check(flash_regs[hd]["spill_stores"] == 0
               and flash_regs[hd]["spill_loads"] == 0,
               f"flash_fwd_wgmma<{hd}> spills: {flash_regs[hd]}")
@@ -1628,7 +1890,7 @@ def main() -> None:
 
     # ---- 2. kernels against their plain versions ---------------------------
     # the sweep and its criteria: repro_torch.kernels.card_check
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     n_cases, err = cc.sweep(dev)
     sweep_s = time.perf_counter() - t0
 
@@ -1849,10 +2111,12 @@ def main() -> None:
           "serve_max_abs_err": serve_err,
           "flash_serve_tol": dict(zip(("atol", "rtol"), cc.FLASH_SERVE_TOL)),
           "rwkv6_tol": dict(zip(("atol", "rtol"), cc.RWKV6_TOL)),
-          "full_width": {"M": FULL_M, "P": FULL_P, **full}, "card": smi})
+          "full_width": {"M": FULL_M, "P": FULL_P, **full},
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
 
     # ---- 3. the main path at full width (bf16 smollm-360m) ----------------
     from repro_torch.launch import train
+    t_phase = time.perf_counter()
 
     def train_run(argv, phase_len):
         """The CLI's run, with the loss recorded every step and phases of
@@ -1955,9 +2219,11 @@ def main() -> None:
     engine_mod._PLAIN_OPS["avg_disp_outer"] = ref.avg_disp_outer_ref
     runs["periodic-outer"]["plain_outer_calls"] = plain_outer["calls"]
     emit({"phase": "main_path_bf16", "arch": "smollm-360m",
-          "params": FULL_P, "workers": FULL_M, **runs, "card": smi})
+          "params": FULL_P, "workers": FULL_M, **runs,
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
 
     # ---- 4. the f32 path: the paper's least squares ------------------------
+    t_phase = time.perf_counter()
     from repro_torch.configs import get_config
     from repro_torch.configs.paper import CONVEX_SUITE
     from repro_torch.core import AveragingSchedule, PhaseEngine
@@ -2141,7 +2407,7 @@ def main() -> None:
                           "ls_gossip_int8_64": {"losses": "rtol 1e-4",
                                                 "quantum_flips": flips},
                           "reduced_lm_periodic_4": "rtol 1e-4 / atol 1e-4"},
-          "card": smi})
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
 
     # ---- 5. the paper's §3.1 convex suite at full size ---------------------
     from repro_torch import rng
@@ -2308,107 +2574,23 @@ def main() -> None:
           "wall_s": time.perf_counter() - t_suite, "card": smi})
 
     # ---- 6. serving at full width (bf16, random weights) ------------------
-    from repro_torch.launch import serve, steps
-    served = {}
-    for arch, run in SERVE.items():
-        cfg = get_config(arch)
-        batch, plen, gen = run["batch"], run["prompt"], run["gen"]
-        # the reference's key splits, drawn on the card in chunks
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        params = init_params(cfg, 0, device=dev)
-        torch.cuda.synchronize(dev)
-        t_init = time.perf_counter() - t0
-        prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
-                               generator=torch.Generator().manual_seed(1)
-                               ).to(dev)
-        # warm-up prefill (cuBLAS set-up, the kernels' first launches)
-        serve.prefill(cfg, params, prompt, max_len=gen)
-        free()
-        torch.cuda.reset_peak_memory_stats(dev)
-        zero_counts()
-        t0 = time.perf_counter()
-        logits, cache = serve.prefill(cfg, params, prompt, max_len=gen)
-        torch.cuda.synchronize(dev)
-        t_pre = time.perf_counter() - t0
-        pre = read_counts(run["launches"], f"serve {arch} prefill")
-        zero_counts()
-        t0 = time.perf_counter()
-        toks = serve.decode(cfg, params, logits, cache, max_len=gen)
-        torch.cuda.synchronize(dev)
-        t_dec = time.perf_counter() - t0
-        dec = read_counts({}, f"serve {arch} decode")
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        check(tuple(toks.shape) == (batch, gen), f"{arch}: tokens "
-              f"{tuple(toks.shape)}")
-        check(0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
-              f"{arch}: a token beyond the vocabulary")
-        check(bool(torch.isfinite(logits).all()), f"{arch}: logits")
-        del cache
-        free()
-        # the plain path on the card (einsum attention, the associative
-        # scan): launches none of the kernels; reported, not gated, since
-        # random-init logits over the vocabulary sit close together
-        zero_counts()
-        plogits, pcache = serve.prefill(cfg, params, prompt, max_len=gen,
-                                        impl="plain")
-        ptoks = serve.decode(cfg, params, plogits, pcache, max_len=gen)
-        read_counts({}, f"serve {arch} plain")
-        step_run = {}
-        if "step_launches" in run:
-            # the cacheless prefill step, the path of the arch's kernel,
-            # after a warm-up; its last logits against the serve
-            # prefill's (kernel against the chunked path; reported)
-            step = steps.make_prefill_step(cfg)
-            step(params, {"tokens": prompt})
-            free()
-            torch.cuda.reset_peak_memory_stats(dev)
-            zero_counts()
-            t0 = time.perf_counter()
-            last = step(params, {"tokens": prompt})
-            torch.cuda.synchronize(dev)
-            t_step = time.perf_counter() - t0
-            got = read_counts(run["step_launches"], f"{arch} prefill step")
-            step_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-            check(tuple(last.shape) == (batch, cfg.padded_vocab)
-                  and bool(torch.isfinite(last).all()),
-                  f"{arch}: prefill step logits")
-            step_run = dict(
-                prefill_step_ms=t_step * 1e3, launches_prefill_step=got,
-                prefill_step_peak_memory_gb=step_peak_gb,
-                prefill_step_vs_serve_last_logits_max_abs_diff=float(
-                    (last - logits[:, -1]).abs().max()),
-                prefill_step_vs_serve_equal_argmax=float(
-                    (last.argmax(-1) == logits[:, -1].argmax(-1))
-                    .float().mean()))
-            del last
-            free()
-        if run["launches"]:
-            # kernel against plain; where the serve prefill launches no
-            # kernel (rwkv6-7b) both runs take the same path: left out
-            step_run.update(
-                kernel_vs_plain_last_logits_max_abs_diff=float(
-                    (logits - plogits).abs().max()),
-                kernel_vs_plain_equal_tokens=float(
-                    (toks == ptoks).float().mean()))
-        served[arch] = dict(
-            batch=batch, prompt=plen, gen=gen, params=cfg.num_params(),
-            init_params_s=t_init, prefill_ms=t_pre * 1e3,
-            decode_ms_per_token=t_dec * 1e3 / gen,
-            prefill_tokens_per_s=batch * plen / t_pre,
-            decode_tokens_per_s=batch * gen / t_dec,
-            end_to_end_tokens_per_s=batch * gen / (t_pre + t_dec),
-            launches_prefill=pre, launches_decode=dec,
-            peak_memory_gb=peak_gb, tokens_first_row=toks[0, :12].tolist(), **step_run)
-        del params, prompt, logits, plogits, pcache, toks, ptoks
-        free()
+    from repro_torch.launch import serve
+    cx = SimpleNamespace(
+        dev=dev, zero_counts=zero_counts, read_counts=read_counts, free=free,
+        cuda_time=cuda_time, sync=lambda: torch.cuda.synchronize(dev),
+        common=common, workers=FULL_M, tele_steps=6, cnn_steps=CNN_STEPS,
+        lemma_reps=LEMMA1_REPS)
+    t_serve = time.perf_counter()
+    served = {arch: serve_run(cx, get_config(arch), run)
+              for arch, run in SERVE.items()}
     # the CLI on the card, once
     zero_counts()
     cli_toks = serve.main(["--arch", "smollm-360m", "--batch", "2",
                            "--prompt-len", "64", "--gen", "4"])
     read_counts({"flash_attention": 32}, "serve CLI")
     check(tuple(cli_toks.shape) == (2, 4), "serve CLI tokens")
-    emit({"phase": "serve", **served, "card": smi})
+    emit({"phase": "serve", **served,
+          "wall_s": time.perf_counter() - t_serve, "card": smi})
 
     # ---- 7. faults ----------------------------------------------------------
     from repro_torch.faults import FaultPlan, degraded_matrix
@@ -2617,11 +2799,12 @@ def main() -> None:
     Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
     plan = FaultPlan.parse("crash:m=3@t=40,crash:m=7@t=40,rejoin:m=3@t=120",
                            mw, straggle_prob=0.1, rejoin_curriculum=16)
-    idx = np.random.default_rng(2).integers(0, c.num_samples, (256, mw))
+    idx = np.random.default_rng(2).integers(0, c.num_samples,
+                                            (FAULT_LS_STEPS, mw))
     lr0_f = 0.8 * 200.0 / float(np.mean(np.sum(X * X, axis=1)))
     sgd_f = SGD(lr=lambda t: lr0_f / (t - 1.0 + 200.0))
 
-    def ls_run(sched, device, faults=plan, host=False, steps=256,
+    def ls_run(sched, device, faults=plan, host=False, steps=FAULT_LS_STEPS,
                idx_=idx, every=1, eval_fn=None, **comm):
         eng = PhaseEngine(convex_loss("ls"), sgd_f, sched, device=device,
                           faults=faults, **comm)
@@ -2665,7 +2848,8 @@ def main() -> None:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         events = hg["averages"]
-        got = read_counts({"opt_step": 256, expect: events}, f"ls {name}")
+        got = read_counts({"opt_step": FAULT_LS_STEPS, expect: events},
+                          f"ls {name}")
         t0_cpu = time.perf_counter()
         fc, hc, sc = ls_run(sched, "cpu", faults=fp, **comm)
         cpu_s = time.perf_counter() - t0_cpu
@@ -2680,7 +2864,7 @@ def main() -> None:
         spread = None
         if "compression" in comm:
             # int8's floor lands one quantum apart where the devices'
-            # gradients differ in the last bit (phase 4), and over 256
+            # gradients differ in the last bit (phase 4), and over the
             # steps those flips spread through the gradients: held on
             # the objective, the spread reported (with and without the
             # plan)
@@ -2753,7 +2937,7 @@ def main() -> None:
           "full_width": {"M": FULL_M, "P": FULL_P, "alive": dead1.tolist(),
                          **ff},
           "smollm_360m": {"plan": " ".join(plan_argv), **fault_lm},
-          "least_squares": {"config": c.name, "steps": 256,
+          "least_squares": {"config": c.name, "steps": FAULT_LS_STEPS,
                             "plan": "crash:m=3@t=40,crash:m=7@t=40,"
                                     "rejoin:m=3@t=120",
                             "straggle_prob": 0.1, "rejoin_curriculum": 16,
@@ -2977,11 +3161,6 @@ def main() -> None:
           "wall_s": time.perf_counter() - t_el, "card": smi})
 
     # ---- 9. telemetry -------------------------------------------------------
-    cx = SimpleNamespace(
-        dev=dev, zero_counts=zero_counts, read_counts=read_counts, free=free,
-        cuda_time=cuda_time, sync=lambda: torch.cuda.synchronize(dev),
-        common=common, workers=FULL_M, tele_steps=6, cnn_steps=CNN_STEPS,
-        lemma_reps=LEMMA1_REPS)
     emit(dict(phase_telemetry(cx), card=smi))
 
     # ---- 10. the paper's §3.2 CNN, and the theory ---------------------------
@@ -2993,7 +3172,10 @@ def main() -> None:
     emit(dict(phase_sharded(cx), phase="sharded", card=smi))
     del lm_periodic
 
-    # ---- 12. summary -------------------------------------------------------
+    # ---- 12. the decoder-only zoo -------------------------------------------
+    emit(dict(phase_zoo(cx), card=smi))
+
+    # ---- 13. summary -------------------------------------------------------
     def line(name, src, replaces, row, fault=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -1,11 +1,13 @@
 """Model configs: the reference package's dataclasses, registry cut to the
-architectures the port runs (``smollm-360m``, ``recurrentgemma-2b``,
-``rwkv6-7b``).
+architectures the port runs: the reference's eight decoder-only archs
+(every one but whisper-small and llama-3.2-vision-90b, whose encoder and
+cross-attention layers are not ported).
 
 The dataclasses keep every field of the reference's, so a config built
 here and one built there compare field for field; the port's model code
 implements the dense-attention, local-attention, RG-LRU and RWKV6
-time-mix / channel-mix blocks (``models/transformer.py``).
+time-mix / channel-mix blocks with dense, MoE and RWKV channel-mix FFNs
+(``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -107,7 +109,8 @@ class ModelConfig:
         block-diagonal gates ``wa``/``wi`` (2 W²/H), and an RWKV block
         its decay LoRA, token-shift mixes and per-channel vectors, which
         the reference's approximate count leaves out; layernorm counts
-        its bias."""
+        its bias. A MoE FFN counts every expert, the router and the
+        shared expert."""
         d = self.d_model
         n = self.padded_vocab * d  # embed
         if not self.tie_embeddings:
@@ -128,18 +131,43 @@ class ModelConfig:
             if spec.ffn == "dense":
                 mult = 3 if self.gated_mlp else 2
                 n += mult * d * self.d_ff
+            elif spec.ffn == "moe":
+                mult = 3 if self.gated_mlp else 2
+                n += self.num_experts * mult * d * self.moe_d_ff
+                n += d * self.num_experts  # router
+                if self.shared_expert:
+                    n += mult * d * self.moe_d_ff
             elif spec.ffn == "rwkv_cmix":
                 n += 2 * d * self.d_ff + d  # wk, wv; mu_k
             # norm1, norm2: a scale, and a bias for layernorm
             n += (4 if self.norm == "layernorm" else 2) * d
         return n
 
+    def num_active_params(self) -> int:
+        """Parameters a token passes through: :meth:`num_params` less, in
+        every MoE layer, the ``num_experts - top_k`` experts it is not
+        routed to (the reference's definition)."""
+        if self.num_experts == 0:
+            return self.num_params()
+        mult = 3 if self.gated_mlp else 2
+        moe_layers = sum(1 for s in self.layers if s.ffn == "moe")
+        dead = (self.num_experts - self.top_k) * mult * self.d_model \
+            * self.moe_d_ff
+        return self.num_params() - moe_layers * dead
 
-ARCHS = ["smollm-360m", "recurrentgemma-2b", "rwkv6-7b"]
+
+ARCHS = ["smollm-360m", "recurrentgemma-2b", "rwkv6-7b", "starcoder2-3b",
+         "minitron-8b", "gemma3-27b", "phi3.5-moe-42b-a6.6b",
+         "llama4-maverick-400b-a17b"]
 
 _MODULES = {"smollm-360m": "smollm_360m",
             "recurrentgemma-2b": "recurrentgemma_2b",
-            "rwkv6-7b": "rwkv6_7b"}
+            "rwkv6-7b": "rwkv6_7b",
+            "starcoder2-3b": "starcoder2_3b",
+            "minitron-8b": "minitron_8b",
+            "gemma3-27b": "gemma3_27b",
+            "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+            "llama4-maverick-400b-a17b": "llama4_maverick_400b"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

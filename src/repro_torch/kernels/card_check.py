@@ -845,20 +845,38 @@ def fault_sweep(dev) -> tuple[int, dict]:
 
 #: flash_attention's (batch, sequence, heads, kv heads, head_dim): the JAX
 #: suite's four shapes (tests/test_kernels.py: GQA, MHA, MQA, a sequence
-#: below one tile), one of head_dim 256 at a small size, and a sequence
-#: shorter than one TMA box of the bf16 kernel (64 rows)
+#: below one tile), one of head_dim 256 at a small size, a sequence
+#: shorter than one TMA box of the bf16 kernel (64 rows), and head_dim
+#: 128 at the zoo's GQA ratios 12 (starcoder2-3b: 24 / 2) and 5
+#: (llama4-maverick: 40 / 8), over ragged sequences
 FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 4, 4, 32), (1, 384, 8, 1, 128),
-                (2, 96, 6, 3, 64), (2, 160, 4, 1, 256), (2, 40, 4, 2, 128)]
+                (2, 96, 6, 3, 64), (2, 160, 4, 1, 256), (2, 40, 4, 2, 128),
+                (1, 200, 24, 2, 128), (2, 136, 10, 2, 128)]
 #: (causal, window): the suite's sweep, and a window without the causal
 #: mask
 FLASH_MASKS = [(True, 0), (True, 64), (False, 0), (False, 64)]
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 #: the serving path's shapes, bf16: recurrentgemma-2b's local attention
 #: (MQA, head_dim 256, window 2048, a prompt of 3072) and smollm-360m's
-#: (GQA 15 / 5, head_dim 64, a prompt of 2048), each as (shape, causal,
-#: window)
+#: (GQA 15 / 5, head_dim 64, a prompt of 2048); then the zoo's, all at
+#: head_dim 128 — starcoder2-3b's (GQA 24 / 2, window 4096, a prompt of
+#: 5120), minitron-8b's (32 / 8, 2048), gemma3-27b's local and global
+#: layers (32 / 16, window 1024, batch 2 x 2048), phi3.5-moe's (32 / 8,
+#: 2048) and llama4-maverick's local layers (40 / 8, window 8192 past a
+#: prompt of 2048, batch 1); each as (shape, causal, window)
 FLASH_SERVE = {"recurrentgemma-2b": ((4, 3072, 10, 1, 256), True, 2048),
-               "smollm-360m": ((4, 2048, 15, 5, 64), True, 0)}
+               "smollm-360m": ((4, 2048, 15, 5, 64), True, 0),
+               "starcoder2-3b": ((4, 5120, 24, 2, 128), True, 4096),
+               "minitron-8b": ((4, 2048, 32, 8, 128), True, 0),
+               "gemma3-27b-local": ((2, 2048, 32, 16, 128), True, 1024),
+               "gemma3-27b-global": ((2, 2048, 32, 16, 128), True, 0),
+               "phi3.5-moe-42b-a6.6b": ((4, 2048, 32, 8, 128), True, 0),
+               "llama4-maverick-400b-a17b": ((1, 2048, 40, 8, 128), True,
+                                             8192)}
+#: head dims whose bf16 tensor-core kernel (``flash_fwd_wgmma<hd>``) must
+#: build without register spills: those the served archs take (32 serves
+#: none)
+FLASH_NO_SPILL_HEAD_DIMS = (64, 128, 256)
 #: (atol, rtol) of the suite's shapes, as the JAX suite holds them
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
 #: (atol, rtol) of the bf16 serving shapes. Most rows there see 1-3k keys

@@ -1,11 +1,11 @@
 """Model assembly: block stacks of dense attention, local (sliding-window)
-attention, RG-LRU and RWKV6 time-mix mixers with dense or RWKV
-channel-mix FFNs; init, the full-sequence forward (training, and prefill
-with cache capture), the next-token loss and single-token decode with
-per-layer caches — the counterpart of ``repro.models.transformer``, over
-the same nested-dict params layout (so params convert 1:1, see
-``repro_torch.convert``). MoE FFNs, cross-attention and encoders are not
-ported yet and raise.
+attention, RG-LRU and RWKV6 time-mix mixers with dense, mixture-of-experts
+or RWKV channel-mix FFNs; init, the full-sequence forward (training, and
+prefill with cache capture), the next-token loss (with the MoE auxiliary
+losses) and single-token decode with per-layer caches — the counterpart
+of ``repro.models.transformer``, over the same nested-dict params layout
+(so params convert 1:1, see ``repro_torch.convert``). Cross-attention
+layers and encoders are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -17,11 +17,12 @@ from repro_torch.configs import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import rwkv as rwkv_mod
 
 _MIXERS = ("attn", "attn_local", "rglru", "rwkv")
-_FFNS = ("dense", "rwkv_cmix")
+_FFNS = ("dense", "moe", "rwkv_cmix")
 #: compute paths of the full-sequence forward: the reference's "xla" and
 #: "pallas"
 IMPLS = ("plain", "kernel")
@@ -33,10 +34,11 @@ def _check_ported(cfg: ModelConfig) -> None:
                 or spec.cross_attn:
             raise NotImplementedError(
                 f"layer {spec} is not ported yet: repro_torch runs "
-                f"{_MIXERS} mixers with {_FFNS} FFNs (ROADMAP queue 1, "
-                "item 18)")
+                f"{_MIXERS} mixers with {_FFNS} FFNs; cross-attention "
+                "layers are ROADMAP queue 1, item 7 (c)")
     if cfg.encoder_layers or cfg.family in ("audio", "vlm"):
-        raise NotImplementedError("encoder / media stacks are not ported")
+        raise NotImplementedError("encoder / media stacks are not ported "
+                                  "(ROADMAP queue 1, item 7 (c))")
 
 
 def _init_block(cfg: ModelConfig, spec: LayerSpec, key, device):
@@ -52,6 +54,8 @@ def _init_block(cfg: ModelConfig, spec: LayerSpec, key, device):
     p["norm2"] = L.init_norm(cfg, device)
     if spec.ffn == "rwkv_cmix":
         p["ffn"] = rwkv_mod.init_rwkv_cmix(cfg, ks[2], device)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(cfg, ks[2], device)
     else:
         p["ffn"] = L.init_mlp(cfg, ks[2], device)
     return p
@@ -80,10 +84,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
 
 def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
                  capture: int = 0):
-    """capture > 0: also return the decode cache of this block, with the
-    attention K/V padded to ``capture`` positions (prefill). An RWKV
-    layer's mixer and channel mix share one cache dict."""
-    cache = {}
+    """Returns (x, aux, cache): aux the MoE FFN's auxiliary losses ({}
+    for the other FFNs), cache the decode cache of this block when
+    capture > 0, with the attention K/V padded to ``capture`` positions
+    (prefill). An RWKV layer's mixer and channel mix share one cache
+    dict."""
+    cache, aux = {}, {}
     h = L.apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "rglru":
         if capture:
@@ -110,10 +116,32 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
         if capture:  # the channel mix's token shift: its last normed input
             cache.setdefault("rwkv", {})["shift_c"] = h[:, -1:]
         h = rwkv_mod.apply_rwkv_cmix(cfg, p["ffn"], h)
+    elif spec.ffn == "moe":
+        h, aux = moe_mod.apply_moe(cfg, p["ffn"], h)
     else:
         h = L.apply_mlp(cfg, p["ffn"], h)
-    x = x + h
-    return (x, cache) if capture else x
+    return x + h, aux, cache
+
+
+def _forward(cfg: ModelConfig, params, tokens, impl, capture: int):
+    """(fp32 logits (B, S, V), the MoE auxiliary losses summed over the
+    layers — {"load_balance", "router_z"}, 0.0 without MoE layers, as the
+    reference's forward sums them — and, where ``capture`` > 0, the
+    decode cache)."""
+    _check_ported(cfg)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    x = L.embed(cfg, params["embed"], tokens)
+    aux_sum = {"load_balance": 0.0, "router_z": 0.0}
+    caches = []
+    for spec, p in zip(cfg.layers, params["layers"]):
+        x, aux, c = _apply_block(cfg, spec, p, x, impl, capture)
+        caches.append(c)
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum[k] + v
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(cfg, params["embed"], x)
+    return logits, aux_sum, {"pos": tokens.shape[1], "layers": caches}
 
 
 def forward(cfg: ModelConfig, params, batch, *, impl="plain",
@@ -125,31 +153,21 @@ def forward(cfg: ModelConfig, params, batch, *, impl="plain",
     flash_attention and rglru_scan kernels, and rwkv6_scan where no cache
     is captured: the cache-capturing prefill takes the chunked WKV, as the
     reference's does)."""
-    _check_ported(cfg)
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     tokens = batch["tokens"]
-    x = L.embed(cfg, params["embed"], tokens)
     capture = max(cache_len, tokens.shape[1]) if return_cache else 0
-    caches = []
-    for spec, p in zip(cfg.layers, params["layers"]):
-        if capture:
-            x, c = _apply_block(cfg, spec, p, x, impl, capture)
-            caches.append(c)
-        else:
-            x = _apply_block(cfg, spec, p, x, impl)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = L.unembed(cfg, params["embed"], x)
-    if return_cache:
-        return logits, {"pos": tokens.shape[1], "layers": caches}
-    return logits
+    logits, _, cache = _forward(cfg, params, tokens, impl, capture)
+    return (logits, cache) if return_cache else logits
 
 
 def lm_loss(cfg: ModelConfig, params, batch):
-    """Next-token cross-entropy; labels default to the shifted tokens,
-    positions with label < 0 are masked. Returns (loss, metrics)."""
-    logits = forward(cfg, params, batch)
+    """Next-token cross-entropy, plus the MoE auxiliary losses where the
+    config has experts (``router_aux_coef`` x load balance + 1e-3 x router
+    z, each over the MoE layers); labels default to the shifted tokens,
+    positions with label < 0 are masked. Returns (loss, metrics): the
+    reference's dict, whose "ce" holds the loss with the auxiliary terms
+    added, beside the summed "load_balance" and "router_z"."""
     tokens = batch["tokens"]
+    logits, aux, _ = _forward(cfg, params, tokens, "plain", 0)
     if "labels" in batch:
         labels = batch["labels"]
     else:
@@ -159,7 +177,12 @@ def lm_loss(cfg: ModelConfig, params, batch):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels_c[..., None])[..., 0]
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return loss, {"ce": loss}
+    if cfg.num_experts:
+        moe_layers = max(1, sum(1 for s in cfg.layers if s.ffn == "moe"))
+        aux_loss = cfg.router_aux_coef * aux["load_balance"] / moe_layers \
+            + 1e-3 * aux["router_z"] / moe_layers
+        loss = loss + aux_loss
+    return loss, {"ce": loss, **aux}
 
 
 # --------------------------------------------------------------------------
@@ -205,6 +228,8 @@ def _decode_block(cfg: ModelConfig, spec: LayerSpec, p, x, cache, pos):
     if spec.ffn == "rwkv_cmix":
         h, cache["rwkv"] = rwkv_mod.decode_rwkv_cmix(cfg, p["ffn"], h,
                                                     cache["rwkv"])
+    elif spec.ffn == "moe":
+        h, _ = moe_mod.apply_moe(cfg, p["ffn"], h)
     else:
         h = L.apply_mlp(cfg, p["ffn"], h)
     return x + h, cache

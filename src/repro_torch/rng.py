@@ -10,8 +10,9 @@ it needs the same bits, so this module re-implements the pieces of
   PRNGKey(seed)        -> key [0, seed]
   split(key, n)        -> (n, 2) keys: threefry(key, (0, i)) for i < n
   fold_in(key, d)      -> threefry(key, (0, d))
-  random_bits(key, s)  -> b1 ^ b2 of threefry(key, (0, i)), i the flat
-                          index (the partitionable counter layout)
+  random_bits(key, s)  -> b1 ^ b2 of threefry(key, (i >> 32, i mod
+                          2**32)), i the flat index (the partitionable
+                          counter layout: a uint64 iota as two words)
   uniform(key, s)      -> bits >> 9 | 0x3F800000 as float32, minus 1;
                           on [lo, hi): that * (hi - lo) + lo, then
                           max(lo, .)
@@ -108,11 +109,10 @@ def random_bits(key, shape, *, device=None, start: int = 0) -> torch.Tensor:
     a long row can be drawn in chunks."""
     k1, k2 = _words(key)
     n = math.prod(shape)
-    if start + n > 2**32:
-        raise ValueError("draws past 2**32 counters use the high counter "
-                         "word, which this port does not implement")
-    lo = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    # the high word is 0 below 2**32 draws (an expert tensor of llama4
+    # holds 5.4e9 entries)
+    b1, b2 = threefry2x32(k1, k2, i >> 32, i & _MASK)
     return (b1 ^ b2).reshape(shape)
 
 

@@ -593,6 +593,19 @@ def test_flash_attention_takes_its_dtype_kernel(dev, dtype, kernel, other):
         assert any(f"{kernel}ILi{hd}E" in n for n in ptxas), (hd, ptxas)
 
 
+@pytest.mark.parametrize("hd", cc.FLASH_NO_SPILL_HEAD_DIMS)
+def test_flash_wgmma_builds_without_spills(dev, hd):
+    """ptxas's report of the build: ``flash_fwd_wgmma<hd>`` spills no
+    register at the head dims the served archs take (128: starcoder2,
+    minitron, gemma3, phi3.5-moe, llama4)."""
+    from repro_torch.kernels import _build
+    rows = [r for r in _build.build_all()["ptxas"]["flash_attention"]
+            if f"flash_fwd_wgmmaILi{hd}E" in r["kernel"]]
+    assert len(rows) == 1, rows
+    assert rows[0]["spill_stores"] == 0 and rows[0]["spill_loads"] == 0, \
+        rows[0]
+
+
 @pytest.mark.parametrize("shape", cc.RGLRU_SHAPES,
                          ids=lambda s: "B{}S{}W{}".format(*s))
 def test_rglru_scan_kernel_matches_plain(dev, shape):

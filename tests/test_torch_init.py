@@ -7,8 +7,8 @@ seed gives the same weights.
   ``rng.normal``); its two erf constants equal jax's; a chunked draw is
   the one draw; ``rng.uniform(minval=, maxval=)`` bitwise.
 - ``init_params(cfg, seed, device="cpu")`` against
-  ``repro.models.init_params(cfg, PRNGKey(seed))`` for smollm-360m,
-  recurrentgemma-2b and rwkv6-7b at ``reduced=True``, in the config's
+  ``repro.models.init_params(cfg, PRNGKey(seed))`` for every arch of
+  ``repro_torch.configs.ARCHS`` at ``reduced=True``, in the config's
   dtype and in float32: the same tree, shapes and dtypes, every leaf
   within 4 ulps of its dtype.
 - The training CLIs of both packages, given the same flags, start from
@@ -33,7 +33,8 @@ from repro_torch import rng  # noqa: E402
 from repro_torch.launch import train as ptrain  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 
-ARCHS = ("smollm-360m", "recurrentgemma-2b", "rwkv6-7b")
+# every arch the port runs (MoE routers stay float32 in a bf16 tree)
+ARCHS = tuple(port_configs.ARCHS)
 
 
 def _key(jkey) -> torch.Tensor:

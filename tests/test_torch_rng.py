@@ -146,3 +146,26 @@ def test_normal_and_uniform_blocks_are_the_whole_draw(start_steps):
     blk_u = rng.uniform(key, (n, 6), start=start_steps * 6)
     assert torch.equal(blk_n, whole_n[start_steps:start_steps + n])
     assert torch.equal(blk_u, whole_u[start_steps:start_steps + n])
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_bits_past_2_32_counters_take_the_high_word(seed):
+    """Past 2**32 draws (an expert tensor of llama4, 5.4e9 entries) the
+    flat index i runs threefry on the counter pair (i >> 32, i mod
+    2**32): jax's partitionable layout, a uint64 iota split into two
+    uint32 words (``iota_2x32_shape``, whose low-index words are checked
+    here), each pair hashed as jax's threefry primitive hashes it."""
+    from jax._src import prng as jprng
+    hi, lo = jprng.iota_2x32_shape((3, 5))
+    np.testing.assert_array_equal(np.asarray(hi), 0)
+    np.testing.assert_array_equal(np.asarray(lo), np.arange(15).reshape(3, 5))
+    key = jax.random.PRNGKey(seed)
+    start = 2**32 - 6
+    i = np.arange(start, start + 12, dtype=np.uint64)
+    k1, k2 = np.asarray(key)
+    b1, b2 = jprng.threefry2x32_p.bind(
+        k1, k2, jnp.asarray((i >> 32).astype(np.uint32)),
+        jnp.asarray((i & 0xFFFFFFFF).astype(np.uint32)))
+    want = np.asarray(b1) ^ np.asarray(b2)
+    got = rng.random_bits(rng.PRNGKey(seed), (12,), start=start)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)

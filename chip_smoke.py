@@ -27,7 +27,10 @@ Phases, each printing one JSON line:
      bfloat16, and the serving shapes) and timed at the serving shapes
      beside their bounds, their plain versions and, for flash attention,
      ``scaled_dot_product_attention`` (the backend that ran is named),
-     with both achieved TFLOP/s and the kernel's share of its bound;
+     with both achieved TFLOP/s, both device-busy times under
+     ``torch.profiler`` (``device_ms``: CUDA events around back-to-back
+     calls also hold the host's launch path where it is the longer) and
+     the kernel's share of its bound;
      ``rwkv6_scan`` is held to the recurrence evaluated in float64, its
      error reported beside the float32 plain version's own;
   3. the main path at full width: ``repro_torch.launch.train`` trains
@@ -53,9 +56,9 @@ Phases, each printing one JSON line:
      least squares, two logistic regressions, 24 workers): w* from
      ``solve_optimum``, σ², β² and ρ from ``core.variance_model``, then
      paired-draw curves from one ``DeviceDataset`` index list — oneshot,
-     minibatch, periodic 128, periodic 256 and one worker, 256 steps
+     minibatch, periodic 64, periodic 128 and one worker, 128 steps
      each, the objective every 64 steps — with their events, launches
-     (``opt_step`` 256; ``avg_disp`` 2 / 1 / 0 / 0), steady ms per step
+     (``opt_step`` 128; ``avg_disp`` 2 / 1 / 0 / 0), steady ms per step
      and normalized suboptimality; and one config run three ways over 256
      steps (indexed, staged from host batches, ``run_host``), bitwise
      equal, with their ms per step;
@@ -73,7 +76,7 @@ Phases, each printing one JSON line:
      keys, drawn on the card), prefill ms, decode ms per token, tokens/s
      and peak memory; the kernel path against ``impl="plain"`` on the card
      where the serve prefill launches a kernel (reported, not gated);
-     and the serve CLI once (``serve_run``, which phase 12 runs too);
+     and the serve CLI once (``serve_run``, which phases 12-13 run too);
   7. faults (``repro_torch.faults``, the plane passes' ``alive`` /
      ``umask`` paths, each one launch of its kernel's masked pass):
      card_check's fault sweep (dead, straggling and all-alive rows, and
@@ -115,7 +118,7 @@ Phases, each printing one JSON line:
      64 and grown back before 160 (curriculum 16) under a fault plan, on
      the card against the CPU port;
   9. telemetry (``repro_torch.telemetry``): smollm-360m at full width
-     (periodic K=2, 6 steps) through the CLI three times, plain, with
+     (periodic K=2, 4 steps) through the CLI three times, plain, with
      ``--telemetry`` and with ``--telemetry --profile-dir`` into a
      temporary directory (deleted after): the consensus bitwise the
      plain run's, the JSONL read back by ``RunLog`` into the returned
@@ -173,17 +176,30 @@ Phases, each printing one JSON line:
      16 experts top-2 at the published widths; 4) and
      llama4-maverick-400b-a17b at 2 of 48 (1 x 2048, 128 experts top-1
      and the shared expert; 2), 32 / 32 / 32 / 16 / 8 tokens generated,
-     decode launching nothing; the serve CLI once for gemma3-27b (``--batch
-     1 --gen 4``); then phi3.5-moe at its published widths cut to one
-     layer (P = 1.56e9) trained through ``launch/train.py``'s ``setup``
+     decode launching nothing; the serve CLI once for starcoder2-3b
+     (``--batch 1 --gen 4``); then phi3.5-moe at its published widths cut
+     to one layer (P = 1.56e9) trained through ``launch/train.py``'s
+     ``setup``
      (bf16, 2 workers, Momentum, periodic K=2, 4 steps; ``opt_step`` once
      a step, ``avg_disp`` once an event), twice, bitwise equal;
- 13. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+ 13. encoders and cross-attention (``phase_encdec``): served through
+     ``serve_run`` with the frames in the batch (``serve.frames``, as the
+     serve CLI draws them; bf16, random weights): whisper-small at its
+     published depth (12 encoder + 12 decoder layers, d 768), batch 16,
+     1500 frames, a prompt of 384 and 64 tokens generated (its 448 text
+     positions) — 24 ``flash_attention`` launches a prefill, 12 of them
+     unmasked (the encoder), cross-attention on the einsum path, decode
+     launching nothing; llama-3.2-vision-90b at its published widths cut
+     to 10 of its 100 layers (two periods of 4 self : 1 cross-only;
+     P = 1.07e10), batch 2, 1601 media tokens, a prompt of 2048, 16
+     tokens — 8 launches a prefill; the serve CLI once for whisper-small
+     (``--batch 2 --gen 4``); the phase's ``wall_s``;
+ 14. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
      masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-12;
+Every launch count is set to 0 just before a main-path run (phases 3-13;
 a spawned rank zeroes and reads its own) and read just after; the
 ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
@@ -223,17 +239,19 @@ RGLRU = dict(b=4, s=3072, w=2560)
 # rwkv6_scan at rwkv6-7b's prefill: batch, sequence, heads, head dim
 RWKV6 = dict(b=4, s=2048, h=64, n=64)
 # the convex suite of phase 5 (the paper's §3.1 protocol): steps per curve
-# (1024 until phase 7 needed the time, 512 until phase 12 did; phase 7's
-# paired curve takes as many), eval every SUITE_EVERY steps, SGD
+# (1024 until phase 7 needed the time, 512 until phase 12 did, 256 until
+# phase 13 did: the script must end within its limit on the slower hosts,
+# where the host-bound phases run 1.3-1.5x longer), its periodic curves
+# at periods of half and all of them, eval every SUITE_EVERY steps, SGD
 # at lr0 / (t - 1 + d) with lr0 = mult * d / mean ||x_j||², and the steps
 # of the indexed / staged / run_host comparison
-SUITE_STEPS, SUITE_EVERY = 256, 64
+SUITE_STEPS, SUITE_EVERY = 128, 64
 SUITE_LR_MULT, SUITE_LR_D = 0.8, 200.0
 HOST_STEPS = 256
 # phase 7's least squares under a fault plan: steps a run (256 until
 # phase 12 needed the time; the plan's last rejoin and its curriculum end
-# at step 136)
-FAULT_LS_STEPS = 160
+# at step 136), and of its paired periodic-128 curve
+FAULT_LS_STEPS, FAULT_CURVE_STEPS = 160, 256
 
 
 def emit(obj) -> None:
@@ -460,12 +478,30 @@ def flash_kernels(names) -> dict:
     return out
 
 
+def device_ms(fn, iters) -> float:
+    """Device-busy ms per call of ``fn`` under ``torch.profiler`` (the
+    union of its kernels' spans), after a warm-up: the kernels' own time,
+    where CUDA events around back-to-back calls also hold whatever host
+    time a call takes beyond its kernels'."""
+    import torch
+
+    from repro_torch.launch.profile import _breakdown, _profiler
+    fn()
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return _breakdown(prof, iters, 1.0)["device_busy_ms"]
+
+
 def sdpa_time(q, k, v, cuda_time, *, causal, window):
     """The library's yardstick for flash attention, timed but never used
     by the port: ``scaled_dot_product_attention`` on the same inputs (the
     key / value heads repeated to the query heads, the window as a
     boolean band mask), under the first backend that takes them. Returns
-    (ms, backend name, max |SDPA - flash_attention|)."""
+    (ms, backend name, max |SDPA - flash_attention|, device-busy ms
+    (:func:`device_ms`))."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -492,9 +528,11 @@ def sdpa_time(q, k, v, cuda_time, *, causal, window):
         with sdpa_kernel([backend]):
             ms = cuda_time(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, **kw), 5)
+            dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, **kw), 5)
         ours = flash_attention(q, k, v, causal=causal, window=window)
         diff = float((out.transpose(1, 2).float() - ours.float()).abs().max())
-        return ms, backend.name, diff
+        return ms, backend.name, diff, dev_ms
     raise RuntimeError("no scaled_dot_product_attention backend took the "
                        "inputs")
 
@@ -1537,7 +1575,7 @@ def phase_sharded(cx) -> dict:
     return out
 
 
-# ---- phases 6 and 12: serving at full width ---------------------------------
+# ---- phases 6, 12 and 13: serving at full width -------------------------
 #: phase 12's serving runs, the decoder-only zoo (bf16, random weights):
 #: the layers kept (None: the published depth; the MoE archs do not fit
 #: whole, 84 GB and 800 GB of bf16 weights, so their depth is cut and
@@ -1576,7 +1614,8 @@ def cut_depth(cfg, layers):
 
 def serve_run(cx, cfg, run) -> dict:
     """One arch served as ``launch/serve.py`` serves it: ``init_params``
-    (the reference's keys, drawn on the card) timed, a warm-up prefill,
+    (the reference's keys, drawn on the card) timed, the batch's frames
+    for an audio or vlm arch (``serve.frames``), a warm-up prefill,
     then the timed prefill and decode, each launch count held against
     ``run["launches"]`` (decode launches none), the peak memory; the
     plain path on the card (einsum attention, the associative scan),
@@ -1589,7 +1628,9 @@ def serve_run(cx, cfg, run) -> dict:
     from repro_torch.models import init_params
     dev, name = cx.dev, cfg.name
     batch, plen, gen = run["batch"], run["prompt"], run["gen"]
-    cx.sync()
+    cx.free()
+    # what earlier phases still hold: counted in the peak below
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device=dev)
     cx.sync()
@@ -1597,13 +1638,15 @@ def serve_run(cx, cfg, run) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
                            generator=torch.Generator().manual_seed(1)
                            ).to(dev)
+    extra = serve.frames(cfg, batch, 1, dev)
     # warm-up prefill (cuBLAS set-up, the kernels' first launches)
-    serve.prefill(cfg, params, prompt, max_len=gen)
+    serve.prefill(cfg, params, prompt, max_len=gen, batch_extra=extra)
     cx.free()
     torch.cuda.reset_peak_memory_stats(dev)
     cx.zero_counts()
     t0 = time.perf_counter()
-    logits, cache = serve.prefill(cfg, params, prompt, max_len=gen)
+    logits, cache = serve.prefill(cfg, params, prompt, max_len=gen,
+                                  batch_extra=extra)
     cx.sync()
     t_pre = time.perf_counter() - t0
     pre = cx.read_counts(run["launches"], f"serve {name} prefill")
@@ -1623,7 +1666,7 @@ def serve_run(cx, cfg, run) -> dict:
     cx.free()
     cx.zero_counts()
     plogits, pcache = serve.prefill(cfg, params, prompt, max_len=gen,
-                                    impl="plain")
+                                    impl="plain", batch_extra=extra)
     ptoks = serve.decode(cfg, params, plogits, pcache, max_len=gen)
     cx.read_counts({}, f"serve {name} plain")
     del pcache
@@ -1634,12 +1677,12 @@ def serve_run(cx, cfg, run) -> dict:
         # after a warm-up; its last logits against the serve prefill's
         # (kernel against the chunked path; reported)
         step = steps.make_prefill_step(cfg)
-        step(params, {"tokens": prompt})
+        step(params, {"tokens": prompt, **extra})
         cx.free()
         torch.cuda.reset_peak_memory_stats(dev)
         cx.zero_counts()
         t0 = time.perf_counter()
-        last = step(params, {"tokens": prompt})
+        last = step(params, {"tokens": prompt, **extra})
         cx.sync()
         t_step = time.perf_counter() - t0
         got = cx.read_counts(run["step_launches"], f"{name} prefill step")
@@ -1673,8 +1716,9 @@ def serve_run(cx, cfg, run) -> dict:
         decode_tokens_per_s=batch * gen / t_dec,
         end_to_end_tokens_per_s=batch * gen / (t_pre + t_dec),
         launches_prefill=pre, launches_decode=dec, peak_memory_gb=peak_gb,
+        resident_before_gb=resident_gb,
         tokens_first_row=toks[0, :12].tolist(), **out)
-    del params, prompt, logits, plogits, toks, ptoks
+    del params, prompt, extra, logits, plogits, toks, ptoks
     cx.free()
     return result
 
@@ -1738,7 +1782,7 @@ def zoo_train_run(cx) -> tuple:
 
 def phase_zoo(cx) -> dict:
     """phase 12: ZOO_SERVE's archs served (``serve_run``), the serve CLI
-    once for gemma3-27b (``--batch 1 --gen 4``), then the MoE training
+    once for starcoder2-3b (``--batch 1 --gen 4``), then the MoE training
     run twice, bitwise equal."""
     import torch
 
@@ -1755,11 +1799,12 @@ def phase_zoo(cx) -> dict:
                             wall_s=time.perf_counter() - t0)
     cx.zero_counts()
     t0 = time.perf_counter()
-    cli_toks = serve.main(["--arch", "gemma3-27b", "--batch", "1", "--gen",
-                           "4"])
+    cli_toks = serve.main(["--arch", "starcoder2-3b", "--batch", "1",
+                           "--gen", "4"])
     cli_s = time.perf_counter() - t0
-    cx.read_counts(ZOO_SERVE["gemma3-27b"]["launches"], "serve CLI gemma3")
-    check(tuple(cli_toks.shape) == (1, 4), "serve CLI gemma3 tokens")
+    cx.read_counts(ZOO_SERVE["starcoder2-3b"]["launches"],
+                   "serve CLI starcoder2")
+    check(tuple(cli_toks.shape) == (1, 4), "serve CLI starcoder2 tokens")
     cx.free()
     plane, first = zoo_train_run(cx)
     cx.free()
@@ -1769,7 +1814,7 @@ def phase_zoo(cx) -> dict:
     del plane, plane2
     cx.free()
     return {"phase": "zoo", "serve": served,
-            "serve_cli": {"arch": "gemma3-27b", "batch": 1, "gen": 4,
+            "serve_cli": {"arch": "starcoder2-3b", "batch": 1, "gen": 4,
                           "wall_s": cli_s},
             "moe_train": dict(first, second_wall_s=second["wall_s"],
                               second_step_ms=second["step_ms"],
@@ -1778,6 +1823,58 @@ def phase_zoo(cx) -> dict:
                         "trained at 1", "llama4-maverick-400b-a17b served "
                         "at 2 of 48 layers"],
             "wall_s": time.perf_counter() - t_zoo}
+
+
+# ---- phase 13: encoders and cross-attention --------------------------------
+#: phase 13's serving runs (bf16, random weights): the layers kept, batch,
+#: prompt, tokens generated and each serve prefill's kernel launches.
+#: whisper-small whole: 12 unmasked encoder layers and 12 causal decoder
+#: layers launch flash_attention, its cross-attention takes the einsum
+#: path; 384 + 64 tokens are its 448 published text positions.
+#: llama-3.2-vision-90b at its published widths cut to two periods of its
+#: 4 self : 1 cross-only pattern (whole it needs 175 GB of bf16 weights):
+#: 8 self-attention layers
+ENCDEC_SERVE = {
+    "whisper-small": dict(layers=None, batch=16, prompt=384, gen=64,
+                          launches={"flash_attention": 24}),
+    "llama-3.2-vision-90b": dict(layers=10, batch=2, prompt=2048, gen=16,
+                                 launches={"flash_attention": 8})}
+
+
+def phase_encdec(cx) -> dict:
+    """phase 13: ENCDEC_SERVE's archs served (``serve_run``, with the
+    frames in the batch), then the serve CLI once for whisper-small
+    (``--batch 2 --gen 4``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_ph = time.perf_counter()
+    served = {}
+    for arch, run in ENCDEC_SERVE.items():
+        cfg = cut_depth(get_config(arch), run["layers"])
+        t0 = time.perf_counter()
+        served[arch] = dict(
+            serve_run(cx, cfg, run), layers=cfg.num_layers,
+            published_layers=get_config(arch).num_layers,
+            encoder_layers=cfg.encoder_layers,
+            cross_layers=sum(s.cross_attn for s in cfg.layers),
+            memory_tokens=cfg.encoder_seq or cfg.num_media_tokens,
+            wall_s=time.perf_counter() - t0)
+    cx.zero_counts()
+    t0 = time.perf_counter()
+    cli_toks = serve.main(["--arch", "whisper-small", "--batch", "2",
+                           "--gen", "4"])
+    cli_s = time.perf_counter() - t0
+    cx.read_counts(ENCDEC_SERVE["whisper-small"]["launches"],
+                   "serve CLI whisper-small")
+    check(tuple(cli_toks.shape) == (2, 4), "serve CLI whisper tokens")
+    cx.free()
+    return {"phase": "encdec", "serve": served,
+            "serve_cli": {"arch": "whisper-small", "batch": 2, "gen": 4,
+                          "wall_s": cli_s},
+            "reduced": ["llama-3.2-vision-90b served at 10 of 100 layers "
+                        "(two periods of 4 self : 1 cross-only), published "
+                        "widths"],
+            "wall_s": time.perf_counter() - t_ph}
 
 
 def main() -> None:
@@ -2067,9 +2164,11 @@ def main() -> None:
         q, k, v = cc.flash_inputs(dev, shape, torch.bfloat16, seed=11)
         fkw = dict(causal=causal, window=window)
         k_ms = cuda_time(lambda: flash_attention(q, k, v, **fkw), 5)
+        k_dev_ms = device_ms(lambda: flash_attention(q, k, v, **fkw), 5)
         p_ms = cuda_time(lambda: ref.flash_attention_ref(q, k, v, **fkw), 2)
         free()
-        lib_ms, backend, lib_err = sdpa_time(q, k, v, cuda_time, **fkw)
+        lib_ms, backend, lib_err, lib_dev_ms = sdpa_time(q, k, v, cuda_time,
+                                                         **fkw)
         free()
         b_, s_, h_, hkv_, hd_ = shape
         cost = attention_cost(b_, s_, h_, hkv_, hd_, causal, window)
@@ -2079,7 +2178,8 @@ def main() -> None:
                library_max_abs_diff=lib_err,
                pairs_per_head=band_pairs(s_, causal, window),
                tflops=cost[1] / k_ms / 1e9,
-               library_tflops=cost[1] / lib_ms / 1e9)
+               library_tflops=cost[1] / lib_ms / 1e9,
+               device_ms=k_dev_ms, library_device_ms=lib_dev_ms)
         row = full[f"flash_attention/{arch}"]
         row["bound_share"] = row["bound_ms"] / k_ms
         del q, k, v
@@ -2420,8 +2520,9 @@ def main() -> None:
     # fuses its event into opt_step
     curves = {"oneshot": (AveragingSchedule("oneshot"), 0, 0),
               "minibatch": (AveragingSchedule("minibatch"), 0, SUITE_STEPS),
-              "periodic_128": (AveragingSchedule("periodic", phase_len=128),
-                               SUITE_STEPS // 128, SUITE_STEPS // 128),
+              f"periodic_{SUITE_STEPS // 2}": (
+                  AveragingSchedule("periodic", phase_len=SUITE_STEPS // 2),
+                  2, 2),
               f"periodic_{SUITE_STEPS}": (AveragingSchedule(
                   "periodic", phase_len=SUITE_STEPS), 1, 1)}
     suite = {}
@@ -2578,7 +2679,7 @@ def main() -> None:
     cx = SimpleNamespace(
         dev=dev, zero_counts=zero_counts, read_counts=read_counts, free=free,
         cuda_time=cuda_time, sync=lambda: torch.cuda.synchronize(dev),
-        common=common, workers=FULL_M, tele_steps=6, cnn_steps=CNN_STEPS,
+        common=common, workers=FULL_M, tele_steps=4, cnn_steps=CNN_STEPS,
         lemma_reps=LEMMA1_REPS)
     t_serve = time.perf_counter()
     served = {arch: serve_run(cx, get_config(arch), run)
@@ -2916,16 +3017,16 @@ def main() -> None:
     w_star = solve_optimum("ls", Xd, yd)
     f0, fstar = objective(torch.zeros(c.num_dims)), objective(w_star)
     idx_c = np.random.default_rng(0).integers(0, c.num_samples,
-                                              (SUITE_STEPS, mw))
+                                              (FAULT_CURVE_STEPS, mw))
     curve = {}
     for name, fp in (("plan", plan), ("no_plan", None)):
         zero_counts()
         _, hc_, _ = ls_run(AveragingSchedule("periodic", phase_len=128),
-                           "cuda", faults=fp, steps=SUITE_STEPS, idx_=idx_c,
-                           every=SUITE_EVERY,
+                           "cuda", faults=fp, steps=FAULT_CURVE_STEPS,
+                           idx_=idx_c, every=SUITE_EVERY,
                            eval_fn=lambda p_: objective(p_["w"]))
-        read_counts({"opt_step": SUITE_STEPS, "avg_disp": SUITE_STEPS // 128},
-                    f"curve {name}")
+        read_counts({"opt_step": FAULT_CURVE_STEPS,
+                     "avg_disp": FAULT_CURVE_STEPS // 128}, f"curve {name}")
         curve[name] = [(t, (v - fstar) / (f0 - fstar)) for t, v in
                        hc_["eval"]]
     del Xd, yd, w_star
@@ -2942,7 +3043,7 @@ def main() -> None:
                                     "rejoin:m=3@t=120",
                             "straggle_prob": 0.1, "rejoin_curriculum": 16,
                             **ls},
-          "curve_periodic_128": {"steps": SUITE_STEPS, "f0": f0,
+          "curve_periodic_128": {"steps": FAULT_CURVE_STEPS, "f0": f0,
                                  "f_star": fstar, **curve},
           "wall_s": time.perf_counter() - t_faults, "card": smi})
 
@@ -3175,7 +3276,10 @@ def main() -> None:
     # ---- 12. the decoder-only zoo -------------------------------------------
     emit(dict(phase_zoo(cx), card=smi))
 
-    # ---- 13. summary -------------------------------------------------------
+    # ---- 13. encoders and cross-attention ----------------------------------
+    emit(dict(phase_encdec(cx), card=smi))
+
+    # ---- 14. summary -------------------------------------------------------
     def line(name, src, replaces, row, fault=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -1,13 +1,13 @@
-"""Model configs: the reference package's dataclasses, registry cut to the
-architectures the port runs: the reference's eight decoder-only archs
-(every one but whisper-small and llama-3.2-vision-90b, whose encoder and
-cross-attention layers are not ported).
+"""Model configs: the reference package's dataclasses and its registry of
+ten architectures — eight decoder-only, the encoder-decoder whisper-small
+and the cross-attention VLM llama-3.2-vision-90b.
 
 The dataclasses keep every field of the reference's, so a config built
 here and one built there compare field for field; the port's model code
 implements the dense-attention, local-attention, RG-LRU and RWKV6
-time-mix / channel-mix blocks with dense, MoE and RWKV channel-mix FFNs
-(``models/transformer.py``).
+time-mix / channel-mix blocks with dense, MoE and RWKV channel-mix FFNs,
+cross-attention sublayers, mixer-less and FFN-less blocks, an encoder
+stack and learned positions (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -103,21 +103,31 @@ class ModelConfig:
         return -(-self.vocab_size // 256) * 256
 
     def num_params(self) -> int:
-        """Parameter count of the blocks the port runs: every leaf of
-        ``init_params`` but the final norm (left out, as the reference's
-        analytic count leaves it out). An RG-LRU block counts its
+        """Parameter count of every leaf of ``init_params`` but the final
+        norm (left out, as the reference's analytic count leaves it out).
+        A MoE FFN counts every expert, the router and the shared expert; a
+        cross-attention sublayer its four projections and its norm; an
+        encoder block its attention, dense FFN and two norms. Where the
+        reference's count differs: an RG-LRU block counts its
         block-diagonal gates ``wa``/``wi`` (2 W²/H), and an RWKV block
         its decay LoRA, token-shift mixes and per-channel vectors, which
         the reference's approximate count leaves out; layernorm counts
-        its bias. A MoE FFN counts every expert, the router and the
-        shared expert."""
+        its bias; a cross-attention block counts three norms, where the
+        reference counts two a block; learned positions count their
+        (max_seq_len, d) table and an encoder its final norm, both of
+        which the reference's count leaves out."""
         d = self.d_model
+        norm = (2 if self.norm == "layernorm" else 1) * d
+        attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+        mult = 3 if self.gated_mlp else 2
         n = self.padded_vocab * d  # embed
         if not self.tie_embeddings:
             n += self.padded_vocab * d
+        if self.pos_emb == "learned":
+            n += self.max_seq_len * d
         for spec in self.layers:
             if spec.mixer in ("attn", "attn_local"):
-                n += d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+                n += attn
             elif spec.mixer == "rglru":
                 w = self.rnn_width or d
                 # w_gate, w_x, w_out; conv taps + bias; wa, wi; lam
@@ -128,19 +138,22 @@ class ModelConfig:
                 # wr, wk, wv, wg, wo; the decay LoRA wA, wB; mu_r/k/v/w/g,
                 # w0, u, ln_out
                 n += 5 * d * d + 2 * d * lora + 8 * d
+            if spec.cross_attn:
+                n += attn + norm  # cross, norm_cross
             if spec.ffn == "dense":
-                mult = 3 if self.gated_mlp else 2
                 n += mult * d * self.d_ff
             elif spec.ffn == "moe":
-                mult = 3 if self.gated_mlp else 2
                 n += self.num_experts * mult * d * self.moe_d_ff
                 n += d * self.num_experts  # router
                 if self.shared_expert:
                     n += mult * d * self.moe_d_ff
             elif spec.ffn == "rwkv_cmix":
                 n += 2 * d * self.d_ff + d  # wk, wv; mu_k
-            # norm1, norm2: a scale, and a bias for layernorm
-            n += (4 if self.norm == "layernorm" else 2) * d
+            n += 2 * norm  # norm1, norm2
+        # encoder blocks: attention and a dense FFN; its final norm
+        n += self.encoder_layers * (attn + mult * d * self.d_ff + 2 * norm)
+        if self.encoder_layers:
+            n += norm
         return n
 
     def num_active_params(self) -> int:
@@ -158,7 +171,8 @@ class ModelConfig:
 
 ARCHS = ["smollm-360m", "recurrentgemma-2b", "rwkv6-7b", "starcoder2-3b",
          "minitron-8b", "gemma3-27b", "phi3.5-moe-42b-a6.6b",
-         "llama4-maverick-400b-a17b"]
+         "llama4-maverick-400b-a17b", "whisper-small",
+         "llama-3.2-vision-90b"]
 
 _MODULES = {"smollm-360m": "smollm_360m",
             "recurrentgemma-2b": "recurrentgemma_2b",
@@ -167,7 +181,9 @@ _MODULES = {"smollm-360m": "smollm_360m",
             "minitron-8b": "minitron_8b",
             "gemma3-27b": "gemma3_27b",
             "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
-            "llama4-maverick-400b-a17b": "llama4_maverick_400b"}
+            "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+            "whisper-small": "whisper_small",
+            "llama-3.2-vision-90b": "llama32_vision_90b"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

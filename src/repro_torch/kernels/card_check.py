@@ -863,7 +863,12 @@ FLASH_DTYPES = (torch.float32, torch.bfloat16)
 #: 5120), minitron-8b's (32 / 8, 2048), gemma3-27b's local and global
 #: layers (32 / 16, window 1024, batch 2 x 2048), phi3.5-moe's (32 / 8,
 #: 2048) and llama4-maverick's local layers (40 / 8, window 8192 past a
-#: prompt of 2048, batch 1); each as (shape, causal, window)
+#: prompt of 2048, batch 1); then the encoders and cross-attention
+#: archs' self-attention — whisper-small's encoder, unmasked over its
+#: 1500 frames (not a multiple of the bf16 kernel's 64-row box: a tail of
+#: 28) and its decoder's causal prompt of 384 (12 / 12 heads, head_dim
+#: 64, batch 16), llama-3.2-vision-90b's self-attention layers (64 / 8,
+#: head_dim 128, batch 2 x 2048); each as (shape, causal, window)
 FLASH_SERVE = {"recurrentgemma-2b": ((4, 3072, 10, 1, 256), True, 2048),
                "smollm-360m": ((4, 2048, 15, 5, 64), True, 0),
                "starcoder2-3b": ((4, 5120, 24, 2, 128), True, 4096),
@@ -872,7 +877,10 @@ FLASH_SERVE = {"recurrentgemma-2b": ((4, 3072, 10, 1, 256), True, 2048),
                "gemma3-27b-global": ((2, 2048, 32, 16, 128), True, 0),
                "phi3.5-moe-42b-a6.6b": ((4, 2048, 32, 8, 128), True, 0),
                "llama4-maverick-400b-a17b": ((1, 2048, 40, 8, 128), True,
-                                             8192)}
+                                             8192),
+               "whisper-small-encoder": ((16, 1500, 12, 12, 64), False, 0),
+               "whisper-small-decoder": ((16, 384, 12, 12, 64), True, 0),
+               "llama-3.2-vision-90b": ((2, 2048, 64, 8, 128), True, 0)}
 #: head dims whose bf16 tensor-core kernel (``flash_fwd_wgmma<hd>``) must
 #: build without register spills: those the served archs take (32 serves
 #: none)

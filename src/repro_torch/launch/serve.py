@@ -11,7 +11,12 @@ reference's dispatch with ``impl="kernel"``: attention runs the
 RWKV6 captures its state through the chunked WKV and launches no kernel
 (``rwkv6_scan`` runs in the cacheless prefill step,
 ``steps.make_prefill_step``); decode is plain PyTorch, as the reference's
-decode is plain jnp. Runs on CUDA unless ``--device cpu``, where the
+decode is plain jnp. An audio config (whisper-small) runs its encoder
+over ``batch_extra["audio"]`` frames in the prefill, its self-attention
+unmasked through the same kernel, and a vlm config cross-attends to
+``batch_extra["media"]``; the CLI draws either as the reference's CLI
+does, standard normal times 0.3 (``frames``), and cross-attention takes
+the einsum path. Runs on CUDA unless ``--device cpu``, where the
 kernels' plain versions run.
 
 Example:
@@ -19,6 +24,8 @@ Example:
       --batch 4 --prompt-len 8 --gen 24
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --batch 16 --prompt-len 384 --gen 64
 """
 from __future__ import annotations
 
@@ -47,13 +54,18 @@ def categorical(key, logits):
     return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
 
 
-def prefill(cfg, params, prompt, *, max_len: int, impl: str = "kernel"):
+def prefill(cfg, params, prompt, *, max_len: int, impl: str = "kernel",
+            batch_extra=None):
     """prompt: (B, P) int. One full-sequence forward with cache capture
     (the cache sized P + max_len; ``impl`` as ``models.forward`` takes
-    it). Returns (the last position's logits (B, 1, V), cache)."""
+    it), ``batch_extra`` ({"audio": frames} or {"media": embeddings}, as
+    the config's family needs) added to its batch. Returns (the last
+    position's logits (B, 1, V), cache)."""
     plen = prompt.shape[1]
-    logits, cache = forward(cfg, params, {"tokens": prompt}, impl=impl,
-                            return_cache=True, cache_len=plen + max_len)
+    logits, cache = forward(cfg, params, {"tokens": prompt,
+                                          **(batch_extra or {})},
+                            impl=impl, return_cache=True,
+                            cache_len=plen + max_len)
     # a copy, so that the full (B, P, V) logits are freed on return
     return logits[:, -1:].clone(), cache
 
@@ -80,12 +92,31 @@ def decode(cfg, params, logits, cache, *, max_len: int, greedy: bool = True,
 
 
 def generate(cfg, params, prompt, *, max_len: int, greedy: bool = True,
-             seed: int = 0, impl: str = "kernel"):
-    """prompt: (B, P) int -> (B, max_len) tokens: :func:`prefill` then
-    :func:`decode`, the production path."""
-    logits, cache = prefill(cfg, params, prompt, max_len=max_len, impl=impl)
+             seed: int = 0, impl: str = "kernel", batch_extra=None):
+    """prompt: (B, P) int -> (B, max_len) tokens: :func:`prefill` (with
+    ``batch_extra``) then :func:`decode`, the production path."""
+    logits, cache = prefill(cfg, params, prompt, max_len=max_len, impl=impl,
+                            batch_extra=batch_extra)
     return decode(cfg, params, logits, cache, max_len=max_len,
                   greedy=greedy, seed=seed)
+
+
+def frames(cfg, batch: int, seed: int, device) -> dict:
+    """The stubbed frontend's input the config's family needs, drawn on
+    ``device`` from ``seed`` in the config's dtype: {"audio": (B,
+    encoder_seq, d)} for audio, {"media": (B, num_media_tokens, d)} for
+    vlm, standard normal times 0.3 (the reference CLI's scale); {} for
+    the other families."""
+    if cfg.family == "audio":
+        name, n = "audio", cfg.encoder_seq
+    elif cfg.family == "vlm":
+        name, n = "media", cfg.num_media_tokens
+    else:
+        return {}
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, n, cfg.d_model), generator=gen, device=dev)
+    return {name: (x * 0.3).to(getattr(torch, cfg.dtype))}
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -105,8 +136,10 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def setup(args, ap):
-    """The run ``args`` asks for (``ap.error`` without its device): (config,
-    random params, random prompt (B, P)), both drawn from ``--seed``."""
+    """The run ``args`` asks for (``ap.error`` without its device, or
+    with a prompt and continuation past the config's ``max_seq_len``):
+    (config, random params, random prompt (B, P), the batch's frames
+    (:func:`frames`)), all drawn from ``--seed``."""
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -114,11 +147,14 @@ def setup(args, ap):
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.reduced:
         cfg = dataclasses.replace(cfg, dtype="float32")
+    if args.prompt_len + args.gen > cfg.max_seq_len:
+        ap.error(f"--prompt-len {args.prompt_len} + --gen {args.gen} runs "
+                 f"past {cfg.name}'s max_seq_len of {cfg.max_seq_len}")
     params = init_params(cfg, args.seed, device=device)
     gen = torch.Generator().manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen).to(device)
-    return cfg, params, prompt
+    return cfg, params, prompt, frames(cfg, args.batch, args.seed, device)
 
 
 def main(argv=None):
@@ -127,11 +163,12 @@ def main(argv=None):
     the generated tokens (B, gen)."""
     ap = make_parser()
     args = ap.parse_args(argv)
-    cfg, params, prompt = setup(args, ap)
+    cfg, params, prompt, extra = setup(args, ap)
 
     t0 = time.time()
     toks = generate(cfg, params, prompt, max_len=args.gen,
-                    greedy=not args.sample, seed=args.seed)
+                    greedy=not args.sample, seed=args.seed,
+                    batch_extra=extra)
     toks = toks.cpu()  # waits for the device
     dt = time.time() - t0
     print(f"[serve] {cfg.name}: batch={args.batch} prompt={args.prompt_len} "

@@ -10,7 +10,8 @@ from repro_torch.models import transformer as tfm
 
 def make_prefill_step(cfg: ModelConfig, *, impl: str = "kernel"):
     """(params, batch) -> the last position's fp32 logits (B, V), through
-    the cacheless full-sequence forward: with ``impl="kernel"`` every
+    the cacheless full-sequence forward of the whole batch (its "audio"
+    or "media" frames included): with ``impl="kernel"`` every
     mixer's kernel runs, ``rwkv6_scan`` included (the cache-capturing
     prefill of ``serve.prefill`` takes the chunked WKV instead)."""
     def prefill_step(params, batch):

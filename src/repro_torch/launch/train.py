@@ -281,6 +281,11 @@ def elastic_plan(args, ap) -> ElasticPlan | None:
 def setup(args, ap):
     """Validate ``args`` (``ap.error`` on a bad combination) and build the
     run: (config, engine, initial params, batch iterator factory)."""
+    family = get_config(args.arch).family
+    if family in ("audio", "vlm"):
+        ap.error(f"--arch {args.arch} ({family}) needs frames beside its "
+                 "tokens, and the training token stream carries no frames: "
+                 "it serves only (repro_torch.launch.serve)")
     if args.avg == "hierarchical":
         if args.inner_groups < 1 or args.workers % args.inner_groups:
             ap.error(f"--workers ({args.workers}) must be divisible by "

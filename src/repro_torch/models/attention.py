@@ -1,15 +1,16 @@
-"""GQA attention: training / prefill (full or sliding-window causal) and
-single-token decode against a KV cache — the counterpart of
-``repro.models.attention``.
+"""GQA attention: training / prefill (full or sliding-window causal, or
+unmasked for an encoder), single-token decode against a KV cache, and
+cross-attention over an encoder's or a vision stub's memory — the
+counterpart of ``repro.models.attention``.
 
 Two interchangeable compute paths for the full sequence (``impl``):
   - "plain":  einsum attention (the reference's ``impl="xla"``);
   - "kernel": ``repro_torch.kernels.flash_attention`` (the reference's
     ``impl="pallas"``): the CUDA kernel on the card, its plain twin on
     the CPU.
-Decode always takes the einsum path, as the reference's does. The
-reference's banded and cross-attention branches are not ported and
-raise.
+Cross-attention (queries and keys of different lengths) and decode
+always take the einsum path, as the reference's do. The reference's
+banded branch is not ported and raises.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
                                        rope_freqs)
 
 
-def init_attn(cfg: ModelConfig, key, device="cpu"):
+def init_attn(cfg: ModelConfig, key, device="cpu", cross: bool = False):
+    """wq, wk, wv, wo; a cross-attention sublayer (``cross``) has the same
+    four, its keys and values projected from the memory."""
     d, dt = cfg.d_model, cdtype(cfg)
     ks = rng.split(key, 4)
     return {
@@ -81,33 +84,43 @@ def make_mask(sq: int, sk: int, *, causal: bool, window: int = 0,
     return m
 
 
-def attention(cfg: ModelConfig, p, x, *, layer, impl="plain",
+def attention(cfg: ModelConfig, p, x, *, layer, kv_x=None, impl="plain",
               pos_offset: int = 0, return_kv: bool = False):
-    """Full-sequence self-attention (training / prefill): (B, S, d_model),
-    or (out, (k, v)) with the post-RoPE k / v when ``return_kv`` (prefill
+    """Full-sequence attention (training / prefill): (B, S, d_model), or
+    (out, (k, v)) with the post-RoPE k / v when ``return_kv`` (prefill
     cache capture). Query i sits at absolute position pos_offset + i.
-    ``impl="kernel"`` takes the flash_attention kernel, anything else the
-    einsum path (``forward`` checks the name)."""
+
+    ``kv_x``: the memory (B, Sm, d) that keys and values are projected
+    from (cross-attention: no RoPE, no mask, no window, always the einsum
+    path, as the reference reaches its kernel only for self-attention);
+    None: self-attention, where ``impl="kernel"`` takes the
+    flash_attention kernel and anything else the einsum path
+    (``forward`` checks the name)."""
     b, sq, _ = x.shape
+    self_attn = kv_x is None
+    src = x if self_attn else kv_x
+    sk = src.shape[1]
     q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
-    k = _split_heads(x @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
-    if cfg.pos_emb == "rope":
+    k = _split_heads(src @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(src @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
+    if self_attn and cfg.pos_emb == "rope":
         cos_k, sin_k = rope_freqs(cfg, torch.arange(sq, device=x.device))
         cos_q, sin_q = (rope_freqs(cfg, pos_offset + torch.arange(
             sq, device=x.device)) if pos_offset else (cos_k, sin_k))
         q = apply_rope(q, cos_q, sin_q)
         k = apply_rope(k, cos_k, sin_k)
-    window = cfg.sliding_window if layer.mixer == "attn_local" else 0
+    causal = layer.causal and self_attn
+    window = cfg.sliding_window if (layer.mixer == "attn_local"
+                                    and self_attn) else 0
     scale = 1.0 / np.sqrt(cfg.head_dim)
-    if impl == "kernel":
-        out = flash_attention(q, k, v, causal=layer.causal, window=window,
+    if impl == "kernel" and self_attn:
+        out = flash_attention(q, k, v, causal=causal, window=window,
                               scale=scale)
-    elif cfg.attn_banded and window > 0 and layer.causal and pos_offset == 0:
+    elif cfg.attn_banded and window > 0 and causal and pos_offset == 0:
         raise NotImplementedError("banded sliding-window attention "
                                   "(cfg.attn_banded) is not ported")
     else:
-        mask = make_mask(sq, sq, causal=layer.causal, window=window,
+        mask = make_mask(sq, sk, causal=causal, window=window,
                          q_offset=pos_offset, device=x.device)[None, None]
         out = _sdpa_xla(q, k, v, mask, scale, getattr(torch, cfg.score_dtype))
     out = out.reshape(b, sq, cfg.q_dim) @ p["wo"]
@@ -160,3 +173,24 @@ def decode_attention(cfg: ModelConfig, p, x, cache, pos: int, *, layer):
     mask = (kpos <= pos)[None, None, None, :]
     out = _sdpa_xla(q, ks, vs, mask, scale)
     return out.reshape(b, 1, cfg.q_dim) @ p["wo"], {"k": ck, "v": cv}
+
+
+def decode_cross_attention(cfg: ModelConfig, p, x, cache):
+    """Cross-attention of one token (B, 1, d) over the memory's K / V,
+    projected once at prefill and kept in ``cache`` as {"k", "v"}: (B,
+    Sm, Hkv, hd). Every memory position is seen."""
+    b = x.shape[0]
+    q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
+    sm = cache["k"].shape[1]
+    mask = torch.ones((1, 1, 1, sm), dtype=torch.bool, device=x.device)
+    out = _sdpa_xla(q, cache["k"], cache["v"], mask,
+                    1.0 / np.sqrt(cfg.head_dim))
+    return out.reshape(b, 1, cfg.q_dim) @ p["wo"]
+
+
+def cross_cache_from_memory(cfg: ModelConfig, p, memory):
+    """The cross-attention K / V of ``memory`` (B, Sm, d): {"k", "v"},
+    each (B, Sm, Hkv, hd)."""
+    k = _split_heads(memory @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(memory @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
+    return {"k": k, "v": v}

@@ -100,27 +100,40 @@ def apply_mlp(cfg: ModelConfig, p, x):
 # --------------------------------------------------------------------------
 
 def init_embed(cfg: ModelConfig, key, device="cpu"):
-    """The token table (V, d), and an untied unembedding (d, V) where the
-    config unties them."""
-    if cfg.pos_emb == "learned":
-        raise NotImplementedError(
-            "learned-position embeddings are not ported yet")
+    """The token table (V, d), an untied unembedding (d, V) where the
+    config unties them, and a learned-position table (max_seq_len, d)
+    where ``pos_emb`` is "learned" (fan-in on axis 1, as the token
+    table's)."""
     ks = rng.split(key, 3)
-    p = {"tok": dense_init(ks[0], (cfg.padded_vocab, cfg.d_model), 1,
-                           cdtype(cfg), device)}
+    dt = cdtype(cfg)
+    p = {"tok": dense_init(ks[0], (cfg.padded_vocab, cfg.d_model), 1, dt,
+                           device)}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(ks[1], (cfg.d_model, cfg.padded_vocab), 0,
-                                  cdtype(cfg), device)
+                                  dt, device)
+    if cfg.pos_emb == "learned":
+        p["pos"] = dense_init(ks[2], (cfg.max_seq_len, cfg.d_model), 1, dt,
+                              device)
     return p
 
 
-def embed(cfg: ModelConfig, p, tokens):
-    """Token embeddings (B, S, d)."""
+def embed(cfg: ModelConfig, p, tokens, pos_offset: int = 0):
+    """Token embeddings (B, S, d), plus the learned positions pos_offset
+    .. pos_offset + S - 1 where the config learns them; a position at or
+    past ``max_seq_len`` raises a ``ValueError`` (checked on the host,
+    before any indexing on the device)."""
     x = p["tok"][tokens]
     if cfg.family != "ssm":  # gemma-style sqrt(d) scaling for attn models
         # sqrt(d) rounded to the activation dtype first, as the reference
         # does; a Python scalar keeps the stream free of host copies
         x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype))
+    if cfg.pos_emb == "learned":
+        s = tokens.shape[-1]
+        if pos_offset < 0 or pos_offset + s > cfg.max_seq_len:
+            raise ValueError(
+                f"positions {pos_offset}..{pos_offset + s - 1} past the "
+                f"learned-position table of {cfg.max_seq_len}")
+        x = x + p["pos"][pos_offset:pos_offset + s]
     return x
 
 

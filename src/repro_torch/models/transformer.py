@@ -1,11 +1,13 @@
 """Model assembly: block stacks of dense attention, local (sliding-window)
-attention, RG-LRU and RWKV6 time-mix mixers with dense, mixture-of-experts
-or RWKV channel-mix FFNs; init, the full-sequence forward (training, and
-prefill with cache capture), the next-token loss (with the MoE auxiliary
-losses) and single-token decode with per-layer caches — the counterpart
-of ``repro.models.transformer``, over the same nested-dict params layout
-(so params convert 1:1, see ``repro_torch.convert``). Cross-attention
-layers and encoders are not ported yet and raise.
+attention, RG-LRU and RWKV6 time-mix mixers (or none) with dense,
+mixture-of-experts or RWKV channel-mix FFNs (or none), cross-attention
+sublayers over an encoder's output (whisper) or a vision stub's
+embeddings (the VLM), and the encoder stack; init, the full-sequence
+forward (training, and prefill with cache capture), the next-token loss
+(with the MoE auxiliary losses) and single-token decode with per-layer
+caches — the counterpart of ``repro.models.transformer``, over the same
+nested-dict params layout (so params convert 1:1, see
+``repro_torch.convert``).
 """
 from __future__ import annotations
 
@@ -21,96 +23,106 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import rwkv as rwkv_mod
 
-_MIXERS = ("attn", "attn_local", "rglru", "rwkv")
-_FFNS = ("dense", "moe", "rwkv_cmix")
 #: compute paths of the full-sequence forward: the reference's "xla" and
 #: "pallas"
 IMPLS = ("plain", "kernel")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for spec in cfg.layers:
-        if spec.mixer not in _MIXERS or spec.ffn not in _FFNS \
-                or spec.cross_attn:
-            raise NotImplementedError(
-                f"layer {spec} is not ported yet: repro_torch runs "
-                f"{_MIXERS} mixers with {_FFNS} FFNs; cross-attention "
-                "layers are ROADMAP queue 1, item 7 (c)")
-    if cfg.encoder_layers or cfg.family in ("audio", "vlm"):
-        raise NotImplementedError("encoder / media stacks are not ported "
-                                  "(ROADMAP queue 1, item 7 (c))")
+#: the encoder's blocks: unmasked self-attention and a dense FFN
+ENCODER_SPEC = LayerSpec(mixer="attn", causal=False)
 
 
 def _init_block(cfg: ModelConfig, spec: LayerSpec, key, device):
-    # the reference's four keys: mixer, cross-attention (not ported), FFN
+    # the reference's four keys: mixer, cross-attention, FFN (one unused)
     ks = rng.split(key, 4)
     p = {"norm1": L.init_norm(cfg, device)}
-    if spec.mixer == "rglru":
+    if spec.mixer in ("attn", "attn_local"):
+        p["mixer"] = attn_mod.init_attn(cfg, ks[0], device)
+    elif spec.mixer == "rglru":
         p["mixer"] = rec_mod.init_rglru(cfg, ks[0], device)
     elif spec.mixer == "rwkv":
         p["mixer"] = rwkv_mod.init_rwkv(cfg, ks[0], device)
-    else:
-        p["mixer"] = attn_mod.init_attn(cfg, ks[0], device)
+    if spec.cross_attn:
+        p["norm_cross"] = L.init_norm(cfg, device)
+        p["cross"] = attn_mod.init_attn(cfg, ks[1], device, cross=True)
     p["norm2"] = L.init_norm(cfg, device)
-    if spec.ffn == "rwkv_cmix":
-        p["ffn"] = rwkv_mod.init_rwkv_cmix(cfg, ks[2], device)
+    if spec.ffn == "dense":
+        p["ffn"] = L.init_mlp(cfg, ks[2], device)
     elif spec.ffn == "moe":
         p["ffn"] = moe_mod.init_moe(cfg, ks[2], device)
-    else:
-        p["ffn"] = L.init_mlp(cfg, ks[2], device)
+    elif spec.ffn == "rwkv_cmix":
+        p["ffn"] = rwkv_mod.init_rwkv_cmix(cfg, ks[2], device)
     return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     """Random params in the config's dtype (RG-LRU ``lam``, RWKV ``w0``,
     ``u`` and ``ln_out`` in float32) on ``device``: the reference's
-    ``init_params(cfg, PRNGKey(seed))``, split for split, drawn with
+    ``init_params(cfg, PRNGKey(seed))``, split for split (the encoder's
+    blocks from the keys after the decoder's), drawn with
     :mod:`repro_torch.rng` (within a few float32 ulps of its draws)."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     ks = rng.split(rng.PRNGKey(seed), cfg.num_layers + cfg.encoder_layers
                    + 2)
-    return {
+    params = {
         "embed": L.init_embed(cfg, ks[0], dev),
         "final_norm": L.init_norm(cfg, dev),
         "layers": [_init_block(cfg, spec, ks[1 + i], dev)
                    for i, spec in enumerate(cfg.layers)],
     }
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "layers": [_init_block(cfg, ENCODER_SPEC,
+                                   ks[1 + cfg.num_layers + i], dev)
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": L.init_norm(cfg, dev),
+        }
+    return params
 
 
 # --------------------------------------------------------------------------
 # Full-sequence block / forward (train & prefill)
 # --------------------------------------------------------------------------
 
-def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
+def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, memory, impl,
                  capture: int = 0):
     """Returns (x, aux, cache): aux the MoE FFN's auxiliary losses ({}
     for the other FFNs), cache the decode cache of this block when
     capture > 0, with the attention K/V padded to ``capture`` positions
-    (prefill). An RWKV layer's mixer and channel mix share one cache
-    dict."""
+    (prefill) and a cross-attention block's memory K/V. An RWKV layer's
+    mixer and channel mix share one cache dict."""
     cache, aux = {}, {}
-    h = L.apply_norm(cfg, p["norm1"], x)
-    if spec.mixer == "rglru":
-        if capture:
-            h, cache["rglru"] = rec_mod.apply_rglru(
-                cfg, p["mixer"], h, impl=impl, return_state=True)
+    if spec.mixer != "none":
+        h = L.apply_norm(cfg, p["norm1"], x)
+        if spec.mixer == "rglru":
+            if capture:
+                h, cache["rglru"] = rec_mod.apply_rglru(
+                    cfg, p["mixer"], h, impl=impl, return_state=True)
+            else:
+                h = rec_mod.apply_rglru(cfg, p["mixer"], h, impl=impl)
+        elif spec.mixer == "rwkv":
+            if capture:
+                h, cache["rwkv"] = rwkv_mod.apply_rwkv(
+                    cfg, p["mixer"], h, impl=impl, return_state=True)
+            else:
+                h = rwkv_mod.apply_rwkv(cfg, p["mixer"], h, impl=impl)
+        elif capture:
+            h, (k, v) = attn_mod.attention(cfg, p["mixer"], h, layer=spec,
+                                           impl=impl, return_kv=True)
+            pad = (0, 0, 0, 0, 0, capture - k.shape[1])
+            cache["attn"] = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
         else:
-            h = rec_mod.apply_rglru(cfg, p["mixer"], h, impl=impl)
-    elif spec.mixer == "rwkv":
+            h = attn_mod.attention(cfg, p["mixer"], h, layer=spec,
+                                   impl=impl)
+        x = x + h
+    if spec.cross_attn:
+        h = L.apply_norm(cfg, p["norm_cross"], x)
+        h = attn_mod.attention(cfg, p["cross"], h, layer=spec, kv_x=memory,
+                               impl=impl)
         if capture:
-            h, cache["rwkv"] = rwkv_mod.apply_rwkv(
-                cfg, p["mixer"], h, impl=impl, return_state=True)
-        else:
-            h = rwkv_mod.apply_rwkv(cfg, p["mixer"], h, impl=impl)
-    elif capture:
-        h, (k, v) = attn_mod.attention(cfg, p["mixer"], h, layer=spec,
-                                       impl=impl, return_kv=True)
-        pad = (0, 0, 0, 0, 0, capture - k.shape[1])
-        cache["attn"] = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-    else:
-        h = attn_mod.attention(cfg, p["mixer"], h, layer=spec, impl=impl)
-    x = x + h
+            cache["cross"] = attn_mod.cross_cache_from_memory(
+                cfg, p["cross"], memory)
+        x = x + h
+    if spec.ffn == "none":
+        return x, aux, cache
     h = L.apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "rwkv_cmix":
         if capture:  # the channel mix's token shift: its last normed input
@@ -123,19 +135,42 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p, x, impl,
     return x + h, aux, cache
 
 
-def _forward(cfg: ModelConfig, params, tokens, impl, capture: int):
+def encode(cfg: ModelConfig, params, memory_embed, impl="plain"):
+    """The encoder (whisper) over stubbed frame embeddings (B, T, d): its
+    blocks' unmasked self-attention (the flash_attention kernel with
+    ``impl="kernel"``) and dense FFNs, then its final norm; the input is
+    cast to the compute dtype first."""
+    x = memory_embed.to(L.cdtype(cfg))
+    for p in params["encoder"]["layers"]:
+        x, _, _ = _apply_block(cfg, ENCODER_SPEC, p, x, None, impl)
+    return L.apply_norm(cfg, params["encoder"]["final_norm"], x)
+
+
+def _get_memory(cfg: ModelConfig, params, batch, impl):
+    """What cross-attention attends to: the encoder's output over
+    ``batch["audio"]`` (family audio), ``batch["media"]`` in the compute
+    dtype (family vlm), else None."""
+    if cfg.family == "audio":
+        return encode(cfg, params, batch["audio"], impl)
+    if cfg.family == "vlm":
+        return batch["media"].to(L.cdtype(cfg))
+    return None
+
+
+def _forward(cfg: ModelConfig, params, batch, impl, capture: int):
     """(fp32 logits (B, S, V), the MoE auxiliary losses summed over the
     layers — {"load_balance", "router_z"}, 0.0 without MoE layers, as the
     reference's forward sums them — and, where ``capture`` > 0, the
     decode cache)."""
-    _check_ported(cfg)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    memory = _get_memory(cfg, params, batch, impl)
+    tokens = batch["tokens"]
     x = L.embed(cfg, params["embed"], tokens)
     aux_sum = {"load_balance": 0.0, "router_z": 0.0}
     caches = []
     for spec, p in zip(cfg.layers, params["layers"]):
-        x, aux, c = _apply_block(cfg, spec, p, x, impl, capture)
+        x, aux, c = _apply_block(cfg, spec, p, x, memory, impl, capture)
         caches.append(c)
         for k, v in aux.items():
             aux_sum[k] = aux_sum[k] + v
@@ -146,16 +181,17 @@ def _forward(cfg: ModelConfig, params, tokens, impl, capture: int):
 
 def forward(cfg: ModelConfig, params, batch, *, impl="plain",
             return_cache: bool = False, cache_len: int = 0):
-    """batch: {"tokens": (B, S) int}. Returns fp32 logits (B, S, V); with
+    """batch: {"tokens": (B, S) int, and "audio" (B, T, d) frames for an
+    audio config or "media" (B, T, d) embeddings for a vlm one}. Returns
+    fp32 logits (B, S, V); with
     ``return_cache`` (prefill) also a decode cache sized ``cache_len``
     (>= S), ready for :func:`decode_step`. ``impl``: "plain" (einsum
     attention, the associative scan, the chunked WKV) or "kernel" (the
     flash_attention and rglru_scan kernels, and rwkv6_scan where no cache
     is captured: the cache-capturing prefill takes the chunked WKV, as the
     reference's does)."""
-    tokens = batch["tokens"]
-    capture = max(cache_len, tokens.shape[1]) if return_cache else 0
-    logits, _, cache = _forward(cfg, params, tokens, impl, capture)
+    capture = max(cache_len, batch["tokens"].shape[1]) if return_cache else 0
+    logits, _, cache = _forward(cfg, params, batch, impl, capture)
     return (logits, cache) if return_cache else logits
 
 
@@ -167,7 +203,7 @@ def lm_loss(cfg: ModelConfig, params, batch):
     reference's dict, whose "ce" holds the loss with the auxiliary terms
     added, beside the summed "load_balance" and "router_z"."""
     tokens = batch["tokens"]
-    logits, aux, _ = _forward(cfg, params, tokens, "plain", 0)
+    logits, aux, _ = _forward(cfg, params, batch, "plain", 0)
     if "labels" in batch:
         labels = batch["labels"]
     else:
@@ -189,23 +225,31 @@ def lm_loss(cfg: ModelConfig, params, batch):
 # Decode (single token, per-layer caches)
 # --------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, memory=None,
+               params=None, device="cuda"):
     """The per-layer decode cache: {"pos": 0, "layers": [...]}, attention
     K/V of ``seq_len`` positions, RG-LRU state and conv history, RWKV wkv
     state and token-shift inputs (one dict for a layer's mixer and
-    channel mix)."""
-    _check_ported(cfg)
+    channel mix), and a cross-attention block's K/V projected from
+    ``memory`` (B, T, d) — the encoder's output or the media embeddings —
+    through ``params`` (as a serving runtime does at prefill)."""
     dt = L.cdtype(cfg)
     layers = []
-    for spec in cfg.layers:
+    for i, spec in enumerate(cfg.layers):
         c = {}
-        if spec.mixer == "rglru":
+        if spec.mixer in ("attn", "attn_local"):
+            c["attn"] = attn_mod.init_attn_cache(cfg, batch, seq_len, dt,
+                                                 device)
+        elif spec.mixer == "rglru":
             c["rglru"] = rec_mod.init_rglru_cache(cfg, batch, dt, device)
         elif spec.mixer == "rwkv":
             c["rwkv"] = rwkv_mod.init_rwkv_cache(cfg, batch, dt, device)
-        else:
-            c["attn"] = attn_mod.init_attn_cache(cfg, batch, seq_len, dt,
-                                                 device)
+        if spec.cross_attn:
+            if memory is None or params is None:
+                raise ValueError(f"layer {i} cross-attends: init_cache "
+                                 "needs memory= and params=")
+            c["cross"] = attn_mod.cross_cache_from_memory(
+                cfg, params["layers"][i]["cross"], memory)
         if spec.ffn == "rwkv_cmix" and "rwkv" not in c:
             c["rwkv"] = rwkv_mod.init_rwkv_cache(cfg, batch, dt, device)
         layers.append(c)
@@ -213,17 +257,24 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
 
 
 def _decode_block(cfg: ModelConfig, spec: LayerSpec, p, x, cache, pos):
-    h = L.apply_norm(cfg, p["norm1"], x)
-    if spec.mixer == "rglru":
-        h, cache["rglru"] = rec_mod.decode_rglru(cfg, p["mixer"], h,
-                                                 cache["rglru"])
-    elif spec.mixer == "rwkv":
-        h, cache["rwkv"] = rwkv_mod.decode_rwkv(cfg, p["mixer"], h,
-                                               cache["rwkv"])
-    else:
-        h, cache["attn"] = attn_mod.decode_attention(
-            cfg, p["mixer"], h, cache["attn"], pos, layer=spec)
-    x = x + h
+    if spec.mixer != "none":
+        h = L.apply_norm(cfg, p["norm1"], x)
+        if spec.mixer == "rglru":
+            h, cache["rglru"] = rec_mod.decode_rglru(cfg, p["mixer"], h,
+                                                     cache["rglru"])
+        elif spec.mixer == "rwkv":
+            h, cache["rwkv"] = rwkv_mod.decode_rwkv(cfg, p["mixer"], h,
+                                                   cache["rwkv"])
+        else:
+            h, cache["attn"] = attn_mod.decode_attention(
+                cfg, p["mixer"], h, cache["attn"], pos, layer=spec)
+        x = x + h
+    if spec.cross_attn:
+        h = L.apply_norm(cfg, p["norm_cross"], x)
+        x = x + attn_mod.decode_cross_attention(cfg, p["cross"], h,
+                                                cache["cross"])
+    if spec.ffn == "none":
+        return x, cache
     h = L.apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "rwkv_cmix":
         h, cache["rwkv"] = rwkv_mod.decode_rwkv_cmix(cfg, p["ffn"], h,
@@ -237,11 +288,13 @@ def _decode_block(cfg: ModelConfig, spec: LayerSpec, p, x, cache, pos):
 
 def decode_step(cfg: ModelConfig, params, tokens, cache):
     """tokens: (B, 1) int. Returns (logits (B, 1, V) fp32, new cache).
-    The attention K/V are written into the given cache's tensors in place
-    and the new cache shares them, so the given cache is consumed: a
-    caller that decodes twice from one cache copies it first."""
+    The token sits at position ``cache["pos"]`` (its learned position,
+    where the config learns them). The attention K/V are written into
+    the given cache's tensors in place and the new cache shares them, so
+    the given cache is consumed: a caller that decodes twice from one
+    cache copies it first."""
     pos = cache["pos"]
-    x = L.embed(cfg, params["embed"], tokens)
+    x = L.embed(cfg, params["embed"], tokens, pos_offset=pos)
     new_layers = []
     for spec, p, c in zip(cfg.layers, params["layers"], cache["layers"]):
         x, c = _decode_block(cfg, spec, p, x, dict(c), pos)

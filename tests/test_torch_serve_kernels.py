@@ -130,8 +130,9 @@ def _flash_p_in_bf16(q, k, v, *, causal, window):
 
 @pytest.mark.parametrize("shape,causal,window", [
     ((1, 1024, 2, 1, 256), True, 512), ((1, 1024, 3, 1, 64), True, 0),
-    ((1, 5120, 2, 1, 128), True, 4096)],
-    ids=["hd256-window512", "hd64-causal", "hd128-window4096"])
+    ((1, 5120, 2, 1, 128), True, 4096), ((1, 1500, 3, 3, 64), False, 0)],
+    ids=["hd256-window512", "hd64-causal", "hd128-window4096",
+         "hd64-unmasked1500"])
 def test_flash_p_in_bf16_within_serving_tolerance(shape, causal, window):
     """Rounding P to bf16 for the PV product, as the card's bf16 kernel
     does, keeps bf16 attention within ``card_check.FLASH_SERVE_TOL`` of

@@ -18,7 +18,9 @@ the reference's params carried over as numpy:
   ``forward(impl="pallas", return_cache=True)``, logits and every cache
   leaf within rtol / atol 1e-4 (``tests/test_torch_serve.py``'s); 4
   decode steps' logits within the same; 4 greedy tokens equal;
-- the serve and train CLIs with ``--device cpu --reduced``.
+- the serve and train CLIs with ``--device cpu --reduced``;
+- the banded branch (``attn_banded``, ROADMAP queue 1, item 7 (d))
+  refused on the einsum path.
 """
 import dataclasses
 
@@ -235,24 +237,16 @@ def test_cli_trains_on_cpu(arch, capsys):
                for t in tree_flatten(final)[0])
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
-def test_encoder_and_cross_attention_archs_stay_out(arch):
-    assert arch not in port_configs.ARCHS
-    with pytest.raises(KeyError, match="the port supports"):
-        port_configs.get_config(arch)
-
-
-@pytest.mark.parametrize("change", ["cross_attn", "encoder", "vlm"])
-def test_cross_attention_and_encoders_are_refused(change):
-    """What item 7 (c) of ROADMAP queue 1 still has to port raises, and
-    says where it is queued."""
-    cfg = port_configs.get_config("smollm-360m", reduced=True)
-    if change == "cross_attn":
-        cfg = dataclasses.replace(cfg, layers=tuple(
-            dataclasses.replace(s, cross_attn=True) for s in cfg.layers))
-    elif change == "encoder":
-        cfg = dataclasses.replace(cfg, encoder_layers=2)
-    else:
-        cfg = dataclasses.replace(cfg, family="vlm")
-    with pytest.raises(NotImplementedError, match=r"item 7 \(c\)"):
-        init_params(cfg, 0, device="cpu")
+@pytest.mark.parametrize("arch", ["gemma3-27b", "starcoder2-3b",
+                                  "recurrentgemma-2b"])
+def test_banded_attention_is_refused(arch):
+    """What ROADMAP queue 1, item 7 (d) still has to port raises: the
+    einsum path of a local layer under ``attn_banded``; the kernel path
+    takes flash_attention first, as the reference's dispatch does."""
+    cfg = dataclasses.replace(port_configs.get_config(arch, reduced=True),
+                              dtype="float32", attn_banded=True)
+    params = init_params(cfg, 0, device="cpu")
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
+    assert forward(cfg, params, batch, impl="kernel").shape[1] == 8
+    with pytest.raises(NotImplementedError, match="attn_banded"):
+        lm_loss(cfg, params, batch)

@@ -35,7 +35,8 @@ Phases, each printing one JSON line:
      error reported beside the float32 plain version's own;
   3. the main path at full width: ``repro_torch.launch.train`` trains
      smollm-360m (bf16, 4 workers, Momentum) — periodic K=2 (the coded
-     mean in ``avg_disp``), periodic K=2 over a ring (the coded mix in
+     mean in ``avg_disp``; 4 steps, 6 until phase 14 needed the time),
+     periodic K=2 over a ring (the coded mix in
      ``mix_disp``), minibatch, minibatch over a ring (``opt_step`` mode
      mix), periodic K=2 over a ring with the one_bit wire
      (``compressed_mix``), minibatch with the bf16 wire (the
@@ -92,7 +93,7 @@ Phases, each printing one JSON line:
      training at full
      width under ``--faults crash:m=1@t=3,rejoin:m=1@t=6
      --straggle-prob 0.25 --rejoin-curriculum 2`` (periodic K=2,
-     minibatch, ring + one_bit; 8 steps each, the last 2 under
+     minibatch, ring + one_bit; 8 steps each, the last one under
      ``torch.profiler``) beside the same runs without the plan: step
      ms, device-busy ms, peak memory, and their differences; the
      least squares of phase 4 (160 steps from a ``DeviceDataset``,
@@ -194,12 +195,31 @@ Phases, each printing one JSON line:
      P = 1.07e10), batch 2, 1601 media tokens, a prompt of 2048, 16
      tokens — 8 launches a prefill; the serve CLI once for whisper-small
      (``--batch 2 --gen 4``); the phase's ``wall_s``;
- 14. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+ 14. the tree and unfused carries, the training steps and the banded
+     branch (``phase_tree``; its budget, 45 s on a normal host, printed
+     first): (a) the CLI's ``--tree-engine`` and ``--no-fused-opt``
+     (periodic K=2, 4 steps) and ``--tree-engine`` over a ring with the
+     one_bit wire, each against phase 3's flat-native run of the same
+     argv: decisions, events and losses, the final params within one
+     bf16 ulp (``CARRY_TOL``, the worst element reported), the returned
+     state in the plane layout, the launches (``opt_step`` none in
+     either carry, ``avg_disp`` an event under ``--no-fused-opt``,
+     ``compressed_mix`` an event in the one_bit tree run, no plane kernel
+     in the plain tree run), step ms and peak memory; (b)
+     ``steps.make_phase_step`` at full width (2 steps and the average,
+     flat-native: ``opt_step`` x 2, ``avg_disp`` x 1) with remat off and
+     on, bitwise equal, against two ``make_train_step`` steps and
+     ``average_all`` (within ``CARRY_TOL``), and its peak memory with
+     and without remat at B 4 x REMAT_SEQ; (c) recurrentgemma-2b whole
+     (bf16), its cacheless plain prefill banded against masked at
+     BANDED_SHAPES: the last logits within BANDED_LOGIT_ATOL, ms, peaks
+     and the score count a head of each;
+ 15. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
      masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-13;
+Every launch count is set to 0 just before a main-path run (phases 3-14;
 a spawned rank zeroes and reads its own) and read just after; the
 ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
@@ -267,6 +287,21 @@ def bound_ms(nbytes: float, flops: float,
              peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def host_launch_us(dev, n: int = 20000) -> float:
+    """µs per launch of a tiny elementwise op on ``dev`` (host-bound):
+    the cost every eager launch pays in this process. A torch.profiler
+    session raises it for the rest of the process, so the phases after
+    one read slower host-bound steps."""
+    import torch
+    x = torch.zeros(16, device=dev)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for _ in range(n):
+        x = x + 1.0
+    torch.cuda.synchronize(dev)
+    return 1e6 * (time.perf_counter() - t) / n
 
 
 def steady_step_ms(phase_wall) -> float:
@@ -1154,7 +1189,7 @@ SHARD_LS_RUNS = {
 #: the CLI of phase 3's periodic run (smollm-360m, 4 workers, bf16)
 LM_ARGV = ["--arch", "smollm-360m", "--workers", "4", "--batch", "4",
            "--seq", "64", "--optimizer", "momentum", "--lr", "0.01",
-           "--device", "cuda", "--steps", "6", "--avg", "periodic",
+           "--device", "cuda", "--steps", "4", "--avg", "periodic",
            "--phase-len", "2"]
 
 
@@ -1877,6 +1912,270 @@ def phase_encdec(cx) -> dict:
             "wall_s": time.perf_counter() - t_ph}
 
 
+# ---- phase 14: the tree and unfused carries, steps, banded ----------------
+#: phase 14's budget on a normal host (s), printed before its first call
+TREE_BUDGET_S = 45.0
+#: the card tolerance of the flat and tree carries against the flat-native
+#: run, and of the phase step against two train steps and the average,
+#: stated before the first chip run: one bf16 ulp of each value (the CPU
+#: runs are bitwise; opt_step.cu and the event kernels match their plain
+#: versions bitwise on the card, so bitwise is expected there too, and the
+#: worst element is reported); losses rtol 1e-4
+CARRY_TOL = dict(rtol=2 ** -8, atol=1e-6)
+CARRY_LOSS_RTOL = 1e-4
+#: (b)'s longer sequence, where the activations a remat recomputes show in
+#: the peak: batch 4 x 1024 tokens a row, one step
+REMAT_SEQ = 1024
+#: (c): recurrentgemma-2b's cacheless prefill, banded against masked, at
+#: phase 6's serving shape (4 x 3072 over its 2048 window) and a
+#: long-document prompt of four windows; the last position's logits held
+#: within BANDED_LOGIT_ATOL (stated before the first run: five times the
+#: 0.10 that phase 6 measured between the kernel and plain prefills)
+BANDED_SHAPES = ((4, 3072), (1, 8192))
+BANDED_LOGIT_ATOL = 0.5
+
+
+def hold_close(what: str, got, want, dev) -> dict:
+    """``got`` against ``want`` (lists of tensors), leaf by leaf on
+    ``dev``: every element within CARRY_TOL (an ``allclose``), else the
+    check fails. Returns the largest |got - want|, the value it sits at,
+    and whether every leaf is bitwise equal."""
+    import torch
+    worst, at, bitwise, bad = 0.0, 0.0, True, 0
+    for g, w in zip(got, want):
+        g, w = g.to(dev), w.to(dev)
+        bitwise = bitwise and g.dtype == w.dtype and torch.equal(g, w)
+        gf, wf = g.float(), w.float()
+        d = (gf - wf).abs()
+        bad += int((d > CARRY_TOL["atol"]
+                    + CARRY_TOL["rtol"] * wf.abs()).sum())
+        if d.numel() and float(d.max()) > worst:
+            i = int(torch.argmax(d))
+            worst, at = float(d.reshape(-1)[i]), float(wf.reshape(-1)[i])
+        del g, w, gf, wf, d
+    check(bad == 0, f"{what}: {bad} elements outside {CARRY_TOL} (worst "
+          f"|diff| {worst} at {at})")
+    return dict(max_abs=worst, at_value=at, bitwise=bitwise)
+
+
+def phase_tree(cx) -> dict:
+    """phase 14: (a) the CLI's ``--tree-engine`` and ``--no-fused-opt``
+    carries at full width against phase 3's flat-native runs of the same
+    argv; (b) ``steps.make_phase_step`` (flat-native: opt_step x 2,
+    avg_disp x 1) with remat on and off, against two
+    ``make_train_step`` steps and the average, and both peaks at
+    REMAT_SEQ; (c) recurrentgemma-2b's banded prefill against the
+    masked one at BANDED_SHAPES."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import average_all, replicate
+    from repro_torch.core.flat import tree_flatten, tree_map
+    from repro_torch.data import token_stream
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    print(f"[phase 14] tree, steps and banded: budget {TREE_BUDGET_S:.0f} s "
+          "on a normal host", flush=True)
+    t_ph = time.perf_counter()
+    out = {"phase": "tree_steps_banded", "budget_s": TREE_BUDGET_S,
+           "carry_tol": CARRY_TOL,
+           # phase 3's runs, the baselines of (a), follow fewer
+           # torch.profiler sessions: the launch cost at both
+           "host_launch_us": dict(getattr(cx, "launch_us", {}),
+                                  phase_14=host_launch_us(cx.dev))}
+
+    # ---- (a) the carries through the CLI -------------------------------------
+    t0 = time.perf_counter()
+    pl2 = ["--avg", "periodic", "--phase-len", "2"]
+    carries = {}
+    for name, extra, base, expect in (
+            ("tree", ["--tree-engine"] + pl2, cx.lm_periodic, {}),
+            ("flat", ["--no-fused-opt"] + pl2, cx.lm_periodic,
+             {"avg_disp": 2}),
+            ("tree-ring-one_bit", ["--tree-engine"] + pl2 + [
+                "--topology", "ring", "--comm-dtype", "one_bit"],
+             cx.lm_one_bit, {"compressed_mix": 2})):
+        steps_n = base["steps"]
+        final, hist, state, wall = cx.train_run(
+            cx.common + ["--steps", str(steps_n)] + extra, None)
+        got = cx.read_counts(expect, f"carry {name}")
+        check(hist["averages"] == base["hist"]["averages"] == 2
+              and [t for t, _ in hist["dispersion"]]
+              == [t for t, _ in base["hist"]["dispersion"]],
+              f"carry {name}: decisions differ from the flat-native run")
+        losses = [v for _, v in hist["loss"]]
+        np.testing.assert_allclose(
+            losses, [v for _, v in base["hist"]["loss"]],
+            rtol=CARRY_LOSS_RTOL, err_msg=f"carry {name}: losses")
+        diff = hold_close(f"carry {name}: final params",
+                          tree_flatten(final)[0], base["final"], cx.dev)
+        check(state.opt_state is None and state.params is None
+              and tuple(state.plane.shape) == (FULL_M, FULL_P),
+              f"carry {name}: the returned state is not in the plane "
+              "layout")
+        carries[name] = dict(
+            steps=steps_n, averages=hist["averages"], launches=got,
+            loss_first=losses[0], loss_last=losses[-1],
+            losses_bitwise=losses == [v for _, v in base["hist"]["loss"]],
+            params_vs_flat_native=diff,
+            step_ms=steady_step_ms(hist["phase_wall"]),
+            flat_native_step_ms=base["step_ms"], wall_s=wall,
+            peak_memory_gb=torch.cuda.max_memory_allocated(cx.dev) / 1e9,
+            idle_share="not measured (a torch.profiler trace at this "
+                       "width is ~450 MB: phase 9)")
+        del final, hist, state
+        cx.free()
+    out["carries"] = dict(carries, wall_s=time.perf_counter() - t0)
+
+    # ---- (b) steps.make_phase_step at full width -----------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("smollm-360m")
+    params = init_params(cfg, 0, device=cx.dev)
+    opt = steps.make_optimizer()
+
+    def blocks(k, b, s):
+        st = [token_stream(cfg.vocab_size, b, s, seed=i)
+              for i in range(FULL_M)]
+        return {"tokens": torch.from_numpy(np.stack([np.stack(
+            [next(x) for x in st]) for _ in range(k)])).to(cx.dev)}
+
+    def workers():
+        wp = replicate(params, FULL_M)
+        return wp, opt.init(wp)
+
+    batches = blocks(2, 4, 64)
+    res = {}
+    for remat in (False, True):
+        phase = steps.make_phase_step(cfg, phase_len=2, avg="all", flat=True,
+                                      remat=remat)
+        wp, os_ = workers()
+        cx.zero_counts()
+        cx.sync()
+        t = time.perf_counter()
+        wp, os_, losses = phase(wp, os_, batches, 0)
+        cx.sync()
+        ms = 1e3 * (time.perf_counter() - t)
+        cx.read_counts({"opt_step": 2, "avg_disp": 1},
+                       f"phase step remat={remat}")
+        res[remat] = (tree_flatten(wp)[0], tree_flatten(os_)[0],
+                      losses.tolist(), ms)
+        del wp, os_
+        cx.free()
+    check(all(torch.equal(a, b) for a, b in zip(res[False][0], res[True][0]))
+          and all(torch.equal(a, b) for a, b in zip(res[False][1],
+                                                    res[True][1]))
+          and res[False][2] == res[True][2],
+          "phase step: remat on and off differ")
+    train = steps.make_train_step(cfg, remat=False)
+    wp, os_ = workers()
+    cx.zero_counts()
+    t = time.perf_counter()
+    tl = []
+    for k in range(2):
+        wp, os_, loss = train(wp, os_, tree_map(lambda x: x[k], batches),
+                              k + 1)
+        tl.append(float(loss))
+    wp = average_all(wp)
+    cx.sync()
+    train_ms = 1e3 * (time.perf_counter() - t)
+    cx.read_counts({}, "train steps")
+    np.testing.assert_allclose(tl, res[True][2], rtol=CARRY_LOSS_RTOL)
+    vs_train = hold_close("phase step vs train steps",
+                          res[True][0] + res[True][1],
+                          tree_flatten(wp)[0] + tree_flatten(os_)[0],
+                          cx.dev)
+    phase_ms = {"remat_off": res[False][3], "remat_on": res[True][3]}
+    del wp, os_, res
+    cx.free()
+    peaks = {}
+    long_batch = blocks(1, 4, REMAT_SEQ)
+    for remat in (False, True):
+        phase = steps.make_phase_step(cfg, phase_len=1, avg="all",
+                                      flat=True, remat=remat)
+        wp, os_ = workers()
+        cx.free()
+        torch.cuda.reset_peak_memory_stats(cx.dev)
+        base_gb = torch.cuda.memory_allocated(cx.dev) / 1e9
+        cx.zero_counts()
+        t = time.perf_counter()
+        wp, os_, losses = phase(wp, os_, long_batch, 0)
+        cx.sync()
+        cx.read_counts({"opt_step": 1, "avg_disp": 1},
+                       f"long phase step remat={remat}")
+        peaks[remat] = dict(peak_gb=torch.cuda.max_memory_allocated(cx.dev)
+                            / 1e9, resident_before_gb=base_gb,
+                            ms=1e3 * (time.perf_counter() - t),
+                            loss=float(losses[0]))
+        del wp, os_
+        cx.free()
+    check(peaks[False]["loss"] == peaks[True]["loss"],
+          "long phase step: remat on and off losses differ")
+    out["steps"] = dict(
+        phase_len=2, workers=FULL_M, batch=4, seq=64,
+        phase_ms=phase_ms,
+        remat_bitwise=True, phase_vs_train_steps=vs_train,
+        train_steps_plus_average_ms=train_ms,
+        remat_peak=dict(seq=REMAT_SEQ, batch=4, off=peaks[False],
+                        on=peaks[True]),
+        wall_s=time.perf_counter() - t0)
+    del params
+    cx.free()
+
+    # ---- (c) recurrentgemma-2b: banded against masked --------------------------
+    t0 = time.perf_counter()
+    rg = get_config("recurrentgemma-2b")
+    rparams = init_params(rg, 0, device=cx.dev)
+    banded = {}
+    for b, s in BANDED_SHAPES:
+        toks = torch.from_numpy(np.random.default_rng(s).integers(
+            0, rg.vocab_size, (b, s))).to(cx.dev)
+        row, logits = {}, {}
+        for band in (False, True):
+            step = steps.make_prefill_step(
+                dataclasses.replace(rg, attn_banded=band), impl="plain")
+            cx.zero_counts()
+            with torch.no_grad():
+                step(rparams, {"tokens": toks})  # warm-up
+                cx.free()
+                torch.cuda.reset_peak_memory_stats(cx.dev)
+                t = time.perf_counter()
+                # a copy: the step's last-position view would keep the
+                # whole (B, S, V) logits alive into the next run
+                logits[band] = step(rparams, {"tokens": toks}).float(
+                ).clone()
+                cx.sync()
+            ms = 1e3 * (time.perf_counter() - t)
+            cx.read_counts({}, f"plain prefill banded={band}")
+            row["banded" if band else "masked"] = dict(
+                ms=ms, peak_gb=torch.cuda.max_memory_allocated(cx.dev) / 1e9)
+        w = rg.sliding_window
+        c = min(w, s)
+        d = float((logits[True] - logits[False]).abs().max())
+        check(bool(torch.isfinite(logits[True]).all()) and
+              d <= BANDED_LOGIT_ATOL,
+              f"banded vs masked logits at {b} x {s}: max |diff| {d}")
+        row.update(
+            batch=b, seq=s, window=w,
+            scores_per_head=dict(masked=s * s,
+                                 banded=-(-s // c) * 2 * c * c,
+                                 ratio=-(-s // c) * 2 * c * c / (s * s)),
+            last_logits_max_abs_diff=d,
+            equal_argmax=float((logits[True].argmax(-1)
+                                == logits[False].argmax(-1)).float().mean()),
+            banded_over_masked_ms=row["banded"]["ms"] / row["masked"]["ms"])
+        banded[f"{b}x{s}"] = row
+        del logits
+        cx.free()
+    del rparams
+    cx.free()
+    out["banded"] = dict(banded, arch="recurrentgemma-2b", impl="plain",
+                         logit_atol=BANDED_LOGIT_ATOL,
+                         wall_s=time.perf_counter() - t0)
+    out["wall_s"] = time.perf_counter() - t_ph
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1975,7 +2274,8 @@ def main() -> None:
         check(sorted(wkv_hmma) == wkv_keys
               and all(c > 0 for c in wkv_hmma.values()),
               f"TF32 HMMA in rwkv6_chunk_mma's SASS: {wkv_hmma}")
-    emit({"phase": "build", "device": kind_name,
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+          "device": kind_name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "built": info["built"],
@@ -1987,6 +2287,7 @@ def main() -> None:
 
     # ---- 2. kernels against their plain versions ---------------------------
     # the sweep and its criteria: repro_torch.kernels.card_check
+    launch_us = {"before_phase_2": host_launch_us(dev)}
     t_phase = t0 = time.perf_counter()
     n_cases, err = cc.sweep(dev)
     sweep_s = time.perf_counter() - t0
@@ -2216,6 +2517,7 @@ def main() -> None:
 
     # ---- 3. the main path at full width (bf16 smollm-360m) ----------------
     from repro_torch.launch import train
+    launch_us["phase_3"] = host_launch_us(dev)
     t_phase = time.perf_counter()
 
     def train_run(argv, phase_len):
@@ -2238,7 +2540,7 @@ def main() -> None:
     common = ["--arch", "smollm-360m", "--workers", "4", "--batch", "4",
               "--seq", "64", "--optimizer", "momentum", "--lr", "0.01",
               "--device", "cuda"]
-    runs = {}
+    runs, lm_kept = {}, {}
     # every way the engine could reach the outer step's plain version,
     # counted: the coded outer event must launch avg_disp_outer instead
     from repro_torch.core import engine as engine_mod
@@ -2251,8 +2553,8 @@ def main() -> None:
     avg_mod.avg_disp_outer_ref = counted_outer_ref
     engine_mod._PLAIN_OPS["avg_disp_outer"] = counted_outer_ref
     for name, extra, phase_len, steps, events, expect in (
-            ("periodic", ["--avg", "periodic", "--phase-len", "2"], None, 6,
-             3, {"opt_step": 6, "avg_disp": 3}),
+            ("periodic", ["--avg", "periodic", "--phase-len", "2"], None, 4,
+             2, {"opt_step": 4, "avg_disp": 2}),
             ("periodic-ring", ["--avg", "periodic", "--phase-len", "2",
                                "--topology", "ring"], None, 4, 2,
              {"opt_step": 4, "mix_disp": 2}),
@@ -2297,9 +2599,10 @@ def main() -> None:
                   and torch.equal(prev, plane[0]),
                   f"{name}: the outer average off the grid or not "
                   "broadcast")
-        if name == "periodic":
-            # phase 11 (b) holds the sharded run against this one
-            lm_periodic = dict(
+        if name in ("periodic", "periodic-ring-one_bit"):
+            # phase 11 (b) holds the sharded run against the periodic
+            # one, phase 14 (a) the tree and flat carries against both
+            lm_kept[name] = dict(
                 final=[v.cpu() for v in
                        torch.utils._pytree.tree_leaves(final)],
                 hist=hist, steps=steps,
@@ -2318,7 +2621,9 @@ def main() -> None:
     avg_mod.avg_disp_outer_ref = ref.avg_disp_outer_ref
     engine_mod._PLAIN_OPS["avg_disp_outer"] = ref.avg_disp_outer_ref
     runs["periodic-outer"]["plain_outer_calls"] = plain_outer["calls"]
+    lm_periodic = lm_kept["periodic"]
     emit({"phase": "main_path_bf16", "arch": "smollm-360m",
+          "host_launch_us": launch_us,
           "params": FULL_P, "workers": FULL_M, **runs,
           "wall_s": time.perf_counter() - t_phase, "card": smi})
 
@@ -2822,8 +3127,8 @@ def main() -> None:
     part_s["full_width"] = time.perf_counter() - tp
     tp = time.perf_counter()
     # smollm-360m training at full width under the plan, beside the same
-    # runs without it: 6 unprofiled steps (the first phase warms up), then
-    # 2 under the profiler
+    # runs without it: 7 unprofiled steps (the first phase warms up), then
+    # 1 under the profiler (2 until phase 14 needed the time)
     plan_argv = ["--faults", "crash:m=1@t=3,rejoin:m=1@t=6",
                  "--straggle-prob", "0.25", "--rejoin-curriculum", "2"]
     fault_lm = {}
@@ -2848,7 +3153,7 @@ def main() -> None:
             data = batches()
             zero_counts()
             _, hist, state = engine.run(params, data, num_workers=4, seed=0,
-                                        steps=6, record_every=1,
+                                        steps=7, record_every=1,
                                         phase_len=2, return_state=True)
             torch.cuda.synchronize(dev)
             # kernels only: the device's busy time needs no host op
@@ -2856,7 +3161,7 @@ def main() -> None:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 _, hist2, state = engine.run(None, data, num_workers=4,
-                                             steps=2, state=state,
+                                             steps=1, state=state,
                                              record_every=1, phase_len=2,
                                              return_state=True)
                 torch.cuda.synchronize(dev)
@@ -2873,7 +3178,7 @@ def main() -> None:
             run = dict(step_ms=step_ms,
                        max_memory_gb=torch.cuda.max_memory_allocated(dev)
                        / 1e9, loss_last=losses[-1], launches=got,
-                       **{k: v for k, v in _breakdown(prof, 2, step_ms * 1e3)
+                       **{k: v for k, v in _breakdown(prof, 1, step_ms * 1e3)
                           .items() if k in ("device_busy_ms", "idle_share",
                                             "by_group_ms")})
             check(run["device_busy_ms"] > 0, f"faults {name}: no kernel "
@@ -3279,7 +3584,14 @@ def main() -> None:
     # ---- 13. encoders and cross-attention ----------------------------------
     emit(dict(phase_encdec(cx), card=smi))
 
-    # ---- 14. summary -------------------------------------------------------
+    # ---- 14. the tree and unfused carries, steps, banded ------------------
+    cx.train_run = train_run
+    cx.launch_us = launch_us
+    cx.lm_one_bit = lm_kept.pop("periodic-ring-one_bit")
+    emit(dict(phase_tree(cx), card=smi))
+    del cx.lm_one_bit, cx.lm_periodic
+
+    # ---- 15. summary -------------------------------------------------------
     def line(name, src, replaces, row, fault=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}.cu",

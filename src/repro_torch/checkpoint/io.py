@@ -313,6 +313,18 @@ def _present_fields(state) -> set:
     return out
 
 
+def _check_plane_layout(state, what: str) -> None:
+    """Checkpoints hold the plane layout: a state that keeps its params
+    or its optimizer state as a tree (a params tree FlatSpec cannot
+    embed, an optimizer state that rides no planes) is refused."""
+    if state.plane is None or getattr(state, "opt_state", None) is not None:
+        raise ValueError(
+            f"cannot {what} this EngineState: it keeps its params or its "
+            "optimizer state as a tree (leaves FlatSpec cannot embed, or "
+            "a state that is not float32 copies of the params), and the "
+            "port's checkpoints hold the (M, P) plane layout only")
+
+
 def save_engine_state(path: str, state, *, extra: dict | None = None,
                       elastic: bool = False):
     """Checkpoint a full ``repro_torch.core.EngineState`` in the
@@ -323,6 +335,7 @@ def save_engine_state(path: str, state, *, extra: dict | None = None,
     layout, or 5 for ``elastic`` saves, which also declare their
     optional fields. ``num_workers`` (the plane's rows) is always
     recorded."""
+    _check_plane_layout(state, "save")
     extra = dict(extra or {})
     present = _present_fields(state)
     extra[_NUM_WORKERS_KEY] = int(state.plane.shape[0])
@@ -401,6 +414,7 @@ def load_engine_state(path: str, like_state):
     them); a checkpoint without the field falls back to the reference's
     leaf-count sniff of v1 against v0. Every field the checkpoint lacks
     keeps ``like_state``'s value."""
+    _check_plane_layout(like_state, "load into")
     meta = _read_meta(path)
     extra = meta.get("extra") or {}
     got_m = extra.get(_NUM_WORKERS_KEY)

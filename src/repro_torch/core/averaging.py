@@ -26,6 +26,14 @@ The PyTorch engine decides on the host, once per step, so the
 transition below runs on numpy float32 / int32 scalars with the same
 operation order as the reference: for the same dispersion stream the
 codes and the :class:`SchedState` agree bit for bit.
+
+The tree operators :func:`average_all`, :func:`average_inner` and
+:func:`worker_dispersion` (the engine's ``tree`` carry, ``LocalSGD``,
+``launch.steps``) act on every leaf's leading worker axis in float32
+and cast back to the leaf dtype. Their means sum the rows in row order
+and divide by the row count, the plane twins' arithmetic
+(:mod:`repro_torch.kernels.ref`), so a tree event and a plane event
+agree bit for bit column by column.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import rng
-from repro_torch.core.flat import tree_map
+from repro_torch.core.flat import tree_flatten, tree_map
 
 _F32, _I32 = np.float32, np.int32
 
@@ -236,6 +244,51 @@ class AveragingSchedule:
             comm_spent=_I32(s.comm_spent + int(avg)),
             since_avg=_I32(0) if avg else _I32(s.since_avg + 1))
         return code, new
+
+
+# --------------------------------------------------------------------------
+# Tree operators (worker axis = leading dim 0 of every leaf)
+# --------------------------------------------------------------------------
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """A worker-axis leaf as (M, n) float32 rows."""
+    return x.float().reshape(x.shape[0], -1)
+
+
+def average_all(worker_tree):
+    """Mean over the worker axis, broadcast back — the paper's operator
+    (a new tree: every leaf a fresh (M, ...) tensor)."""
+    from repro_torch.kernels.ref import _div, _row_sum
+
+    def avg(x):
+        glob = _div(_row_sum(_rows(x)), x.shape[0]).to(x.dtype)
+        return glob.reshape(x.shape[1:]).expand(x.shape).contiguous()
+    return tree_map(avg, worker_tree)
+
+
+def average_inner(worker_tree, inner_groups: int):
+    """Hierarchical inner average: the M workers as ``inner_groups``
+    contiguous groups, each row the mean of its group only."""
+    from repro_torch.kernels.ref import _group_means
+
+    def avg(x):
+        m = x.shape[0]
+        if inner_groups < 1 or m % inner_groups:
+            raise ValueError(f"inner_groups={inner_groups} must divide "
+                             f"the {m} workers")
+        gm = _group_means(_rows(x), inner_groups).to(x.dtype)
+        return gm.expand(inner_groups, m // inner_groups, gm.shape[-1]) \
+            .reshape(x.shape).contiguous()
+    return tree_map(avg, worker_tree)
+
+
+def worker_dispersion(worker_tree) -> torch.Tensor:
+    """Mean squared distance of workers from their average — the paper's
+    E||w_i - w̄||² diagnostic (Eq. 4): per leaf a float32 sum, the leaves
+    added in flatten order (a 0-dim float32 tensor)."""
+    from repro_torch.kernels.ref import _plane_dispersion
+    return sum(_plane_dispersion(_rows(x))
+               for x in tree_flatten(worker_tree)[0])
 
 
 @dataclass(frozen=True)

@@ -101,6 +101,37 @@ no device tensor the phase does not read anyway, and the trained state
 never consumes it, so telemetry on vs off is bitwise.
 :meth:`PhaseEngine.run` flushes it into structured records when handed
 a ``sink``.
+
+Beside the flat-native carry, the engine runs the reference's two
+further carries (``PhaseEngine(flat=, fused_opt=)``), picked per phase
+as the reference's ``_phase`` picks them:
+
+* ``flat`` (``fused_opt=False``, or an optimizer without the plane
+  protocol): the params plane, each step unpacked to the params tree,
+  one :func:`make_worker_step` (the per-row gradients and the optimizer's
+  tree-mapped ``apply``) and packed again; the optimizer state rides as
+  its tree. The dispersion and every event are the flat-native carry's
+  plane passes: ``avg_disp``, ``mix_disp``, ``avg_disp_outer`` and
+  ``compressed_mix`` on the card.
+* ``tree`` (``flat=False``, or a params tree with leaves
+  :meth:`FlatSpec.supports` refuses): the params tree itself, the tree
+  averages of :mod:`repro_torch.core.averaging`,
+  :func:`repro_torch.topology.mix_tree` and the ``*_tree`` helpers of
+  :mod:`repro_torch.faults` (plain torch, as the reference's are jnp
+  outside its kernels); a compressed event packs the plane around the
+  event alone and runs ``compressed_mix``.
+
+The three agree bit for bit on the CPU where the update and the event
+arithmetic are elementwise the same (the tree ``apply`` is the plane
+update's operations, the tree means the plane means' row sums); only
+the dispersion's float32 sum runs per leaf in the tree carry. Between
+phases an :class:`EngineState` is always in the flat-native layout (the
+plane and the state planes) when the tree embeds, so ``return_state``,
+checkpoints and elastic resizes take every carry; a tree that does not
+embed keeps its ``params`` (and an optimizer state that rides no planes
+its ``opt_state``) as trees, which neither checkpoints nor resizes
+take. A mesh runs the flat-native carry only, as the reference's
+sharded phase does.
 """
 from __future__ import annotations
 
@@ -116,11 +147,12 @@ import torch
 from repro_torch import faults as faults_mod
 from repro_torch import rng
 from repro_torch.core.averaging import (AveragingSchedule, OuterOptimizer,
-                                        SchedState)
+                                        SchedState, average_inner,
+                                        worker_dispersion)
 from repro_torch.core.compress import (Compression, encode_decode,
                                        row_uniforms, wire_row_bytes)
-from repro_torch.core.flat import (FlatSpec, tree_flatten, tree_map,
-                                   tree_unflatten)
+from repro_torch.core.flat import (FlatOptSpec, FlatSpec, tree_flatten,
+                                   tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
 from repro_torch.faults import FaultPlan, FaultState
 from repro_torch.kernels._build import MAX_WORKERS
@@ -128,13 +160,14 @@ from repro_torch.kernels.avg_disp import (avg_disp, avg_disp_outer,
                                           compressed_mix,
                                           compressed_mix_plain, mix_disp)
 from repro_torch.kernels.opt_step import opt_step
-from repro_torch.kernels.ref import (_div, _row_sum, avg_disp_outer_ref,
-                                     mix_disp_ref, opt_step_ref,
-                                     plane_average_ref, round_to_codes)
+from repro_torch.kernels.ref import (_div, _plane_dispersion, _row_sum,
+                                     avg_disp_outer_ref, mix_disp_ref,
+                                     opt_step_ref, plane_average_ref,
+                                     round_to_codes)
 from repro_torch.sharding.specs import mesh_worker_axes, shard_engine_state
 from repro_torch.telemetry import metrics as tele_metrics
 from repro_torch.telemetry.events import init_history, make_record
-from repro_torch.topology import MIX_KINDS, Topology, comm_bytes
+from repro_torch.topology import MIX_KINDS, Topology, comm_bytes, mix_tree
 
 KERNEL_IMPLS = ("auto", "ref", "cuda")
 COLLECTIVES = ("psum", "gather")
@@ -146,6 +179,89 @@ _KERNEL_OPS = {"opt_step": opt_step, "avg_disp": avg_disp,
 _PLAIN_OPS = {"opt_step": opt_step_ref, "avg_disp": plane_average_ref,
               "mix_disp": mix_disp_ref, "avg_disp_outer": avg_disp_outer_ref,
               "compressed_mix": compressed_mix_plain}
+
+
+# --------------------------------------------------------------------------
+# Worker-axis utilities (leading axis = worker index on every leaf)
+# --------------------------------------------------------------------------
+
+def replicate(tree, num_workers: int):
+    """Every leaf with a leading worker axis of ``num_workers`` copies
+    (all workers start at w_0, as the paper prescribes); new tensors."""
+    return tree_map(lambda x: x[None].expand(
+        (num_workers,) + tuple(x.shape)).contiguous(), tree)
+
+
+def unreplicate(tree):
+    """Worker 0's leaves."""
+    return tree_map(lambda x: x[0], tree)
+
+
+def consensus(tree):
+    """The paper's final estimate: every leaf's worker mean (rows summed
+    in order in float32, the plane twins' arithmetic), in its dtype."""
+    def mean(x):
+        r = x.float().reshape(x.shape[0], -1)
+        return _div(_row_sum(r), r.shape[0]).reshape(x.shape[1:]).to(
+            x.dtype)
+    return tree_map(mean, tree)
+
+
+def tree_stack(trees):
+    """Stack a list of per-step batches into one (K, ...) block."""
+    trees = list(trees)
+    return tree_map(lambda *xs: torch.stack([torch.as_tensor(x)
+                                             for x in xs]),
+                    trees[0], *trees[1:])
+
+
+def _detached(aux):
+    return tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor)
+                    else a, aux)
+
+
+def make_worker_step(loss_fn: Callable, optimizer) -> Callable:
+    """The local-SGD step (paper Eq. 3) of the ``flat`` and ``tree``
+    carries, ``LocalSGD`` and ``launch.steps.make_train_step``: the
+    reference's vmapped ``value_and_grad`` + ``optimizer.apply``.
+
+    For each worker row: the row's leaves copied with ``requires_grad``
+    (floating leaves only), the loss, ``backward()``, the leaf grads —
+    the per-row autograd loop of :func:`make_plane_step`, so the same
+    numbers; then ONE ``optimizer.apply`` over the stacked (M, ...)
+    grads (elementwise, so the same as M row updates).
+
+    Returns step_fn(worker_params, opt_state, batch, step, rngs=None)
+    -> (worker_params, opt_state, losses (M,) f32, per-row aux list);
+    ``batch`` leaves carry the worker axis first, ``rngs[i]`` (if given)
+    goes to row i's loss."""
+    def grads_fn(worker_params, batch, rngs=None):
+        leaves, td = tree_flatten(worker_params)
+        m = leaves[0].shape[0]
+        per_leaf = [[] for _ in leaves]
+        losses, auxes = [], []
+        for i in range(m):
+            row = [x[i].detach().clone().requires_grad_(
+                x.is_floating_point()) for x in leaves]
+            loss, aux = loss_fn(tree_unflatten(td, row),
+                                tree_map(lambda b: b[i], batch),
+                                None if rngs is None else rngs[i])
+            loss.backward()
+            for acc, r in zip(per_leaf, row):
+                acc.append(torch.zeros_like(r) if r.grad is None
+                           else r.grad)
+            losses.append(loss.detach().float())
+            auxes.append(_detached(aux))
+        grads = tree_unflatten(td, [torch.stack(g) for g in per_leaf])
+        return torch.stack(losses), auxes, grads
+
+    def step_fn(worker_params, opt_state, batch, step, rngs=None):
+        losses, auxes, grads = grads_fn(worker_params, batch, rngs)
+        worker_params, opt_state = optimizer.apply(worker_params, grads,
+                                                   opt_state, step)
+        return worker_params, opt_state, losses, auxes
+
+    return step_fn
 
 
 def make_plane_step(loss_fn: Callable, spec: FlatSpec) -> Callable:
@@ -202,6 +318,13 @@ class EngineState(NamedTuple):
     outer_state: tuple = ()  # (prev_avg, vel) (P,) f32, or ()
     resid: Any = None    # (M, P) f32 error-feedback residual, or None
     fault: Any = ()      # FaultState (host numpy rows) under a fault plan
+    # the tree forms (module note): the worker params tree, leaves (M,
+    # ...), where FlatSpec cannot embed it (spec and plane None; the
+    # outer state then holds trees too), and inside a tree-carry phase
+    params: Any = None
+    # the optimizer state tree where it rides no planes (opt_planes ()),
+    # and inside a flat- or tree-carry phase
+    opt_state: Any = None
 
 
 @dataclass(frozen=True, eq=False)
@@ -220,7 +343,11 @@ class PhaseEngine:
     stragglers (:mod:`repro_torch.faults`, module note); ``telemetry``:
     the metrics plane (module note); ``mesh`` / ``collective``: the
     worker rows split over the ranks of a
-    :class:`~repro_torch.launch.mesh.WorkerMesh` (module note)."""
+    :class:`~repro_torch.launch.mesh.WorkerMesh` (module note);
+    ``flat`` / ``fused_opt``: the carry (module note) — the flat-native
+    planes by default, the ``flat`` carry with ``fused_opt=False`` (or
+    an optimizer with ``init`` / ``apply`` and no plane protocol), the
+    ``tree`` carry with ``flat=False``."""
     loss_fn: Callable
     optimizer: Any
     schedule: AveragingSchedule
@@ -233,9 +360,23 @@ class PhaseEngine:
     telemetry: bool = False
     mesh: Any = None
     collective: str = "psum"
+    flat: bool = True
+    fused_opt: bool = True
 
     def __post_init__(self):
         dev = resolve_device(self.device)
+        if not self._plane_opt() and not callable(
+                getattr(self.optimizer, "apply", None)):
+            raise TypeError(
+                f"{type(self.optimizer).__name__} speaks neither the plane "
+                "protocol (plane_kind / plane_hypers / plane_scalars) nor "
+                "the tree one (init / apply)")
+        if self.mesh is not None and not (self.flat and self.fused_opt
+                                          and self._plane_opt()):
+            raise ValueError(
+                "sharded runs carry the flat-native (M, P) planes: they "
+                "need flat=True, fused_opt=True and a plane-protocol "
+                "optimizer (SGD / Momentum / AdamW)")
         if self.collective not in COLLECTIVES:
             raise ValueError(f"collective must be one of {COLLECTIVES}, "
                              f"got {self.collective!r}")
@@ -258,10 +399,7 @@ class PhaseEngine:
             raise ValueError(
                 f"kernel_impl='cuda' launches the CUDA kernels, which a "
                 f"{dev.type} engine cannot — use 'auto' or 'ref' there")
-        if getattr(self.optimizer, "plane_kind", None) is None:
-            raise TypeError(
-                f"{type(self.optimizer).__name__} does not speak the plane "
-                "protocol (plane_kind / plane_hypers / plane_scalars)")
+
         if not isinstance(self.schedule, AveragingSchedule):
             raise TypeError("schedule must be a repro_torch "
                             "AveragingSchedule")
@@ -276,6 +414,22 @@ class PhaseEngine:
     @property
     def _dev(self) -> torch.device:
         return resolve_device(self.device)
+
+    def _plane_opt(self) -> bool:
+        return getattr(self.optimizer, "plane_kind", None) is not None
+
+    def carry(self, state: EngineState) -> str:
+        """The carry a phase of ``state`` runs, as the reference names it:
+        ``"tree"`` with ``flat=False`` or a tree without a plane;
+        ``"flat"`` with ``fused_opt=False``, an optimizer without the
+        plane protocol or a state that rides no planes; else
+        ``"flat_native"``."""
+        if state.plane is None or not self.flat:
+            return "tree"
+        if (not self.fused_opt or not self._plane_opt()
+                or state.opt_state is not None):
+            return "flat"
+        return "flat_native"
 
     def _op(self, name: str) -> Callable:
         """The plane pass ``name`` under ``kernel_impl``."""
@@ -409,12 +563,25 @@ class PhaseEngine:
         self._check_workers(num_workers)
         dev = self._dev
         params = tree_map(lambda x: x.to(dev), params)
+        key, dec_key = rng.split(rng.PRNGKey(seed))
+        if not FlatSpec.supports(params):
+            return self._init_tree(params, num_workers, key, dec_key)
         spec = FlatSpec.of(params, worker_axis=False)
         full = spec.pack1(params).expand(num_workers, spec.width)
         r0, r1 = self._row_range(num_workers)
         plane = full[r0:r1].contiguous()
-        opt_planes = tuple(torch.zeros_like(plane)
-                           for _ in range(self.optimizer.state_planes))
+        opt_state = None
+        if self._plane_opt():
+            opt_planes = tuple(torch.zeros_like(plane)
+                               for _ in range(self.optimizer.state_planes))
+        else:
+            # the optimizer's own init; its state rides planes where it
+            # is S float32 copies of the params tree
+            opt_state = self.optimizer.init(spec.unpack(plane))
+            ospec = FlatOptSpec.of(spec, opt_state)
+            opt_planes = ()
+            if ospec is not None:
+                opt_planes, opt_state = ospec.pack(opt_state), None
         codes = spec.rounding_codes(device=dev)
         outer_state = ()
         if self.outer is not None:
@@ -423,12 +590,106 @@ class PhaseEngine:
                 avg = round_to_codes(avg, codes)
             outer_state = (avg, torch.zeros_like(avg))
         resid = torch.zeros_like(plane) if self._comp() else None
-        key, dec_key = rng.split(rng.PRNGKey(seed))
         fault = (faults_mod.init_fault_state(r1 - r0)
                  if self._faults() is not None else ())
         return EngineState(spec, plane, opt_planes, codes, key, dec_key, 0,
                            self.schedule.init_sched_state(), outer_state,
-                           resid, fault)
+                           resid, fault, opt_state=opt_state)
+
+    def _init_tree(self, params, num_workers: int, key, dec_key):
+        """:meth:`init` for a params tree FlatSpec cannot embed: the
+        state holds the worker tree and the optimizer's state tree (the
+        reference's ``EngineState``), the outer state as trees."""
+        if self._comp() is not None:
+            raise ValueError(
+                "compressed communication encodes averaging events on "
+                "the flat (M, P) plane, but this params tree has leaves "
+                "FlatSpec cannot embed in float32 — use the f32 wire "
+                "for such trees")
+        if self.mesh is not None:
+            raise ValueError("sharded runs carry the (M, P) plane, which "
+                             "this params tree (leaves FlatSpec cannot "
+                             "embed) has none of")
+        wp = replicate(params, num_workers)
+        outer_state = ()
+        if self.outer is not None:
+            avg = consensus(wp)
+            outer_state = (avg, self.outer.init(avg))
+        fault = (faults_mod.init_fault_state(num_workers)
+                 if self._faults() is not None else ())
+        return EngineState(None, None, (), None, key, dec_key, 0,
+                           self.schedule.init_sched_state(), outer_state,
+                           None, fault, params=wp,
+                           opt_state=self.optimizer.init(wp))
+
+    # ---- the carries' state forms -------------------------------------------
+    @staticmethod
+    def _state_rows(state: EngineState) -> int:
+        """The worker rows a state holds."""
+        if state.plane is not None:
+            return int(state.plane.shape[0])
+        return int(tree_flatten(state.params)[0][0].shape[0])
+
+    @staticmethod
+    def _state_cols(state: EngineState) -> int:
+        """P: the columns of the plane, or the tree's per-row entries."""
+        if state.spec is not None:
+            return state.spec.width
+        return sum(math.prod(x.shape[1:])
+                   for x in tree_flatten(state.params)[0])
+
+    @staticmethod
+    def _state_device(state: EngineState) -> torch.device:
+        if state.plane is not None:
+            return state.plane.device
+        return tree_flatten(state.params)[0][0].device
+
+    def _opt_layout(self, spec: FlatSpec) -> FlatOptSpec:
+        """The optimizer state's plane layout over ``spec``: its ``init``
+        run on meta tensors gives the tree structure."""
+        meta = spec.unpack(torch.empty((1, spec.width), device="meta"))
+        return FlatOptSpec.of(spec, self.optimizer.init(meta))
+
+    def _enter_carry(self, state: EngineState, carry: str) -> EngineState:
+        """``state`` in the form ``carry``'s steps take: the optimizer
+        state as its tree (flat and tree), and the params and the outer
+        state as trees (tree)."""
+        if carry == "flat_native":
+            return state
+        spec = state.spec
+        opt = state.opt_state
+        if opt is None:
+            opt = self._opt_layout(spec).unpack(state.opt_planes)
+        state = state._replace(opt_planes=(), opt_state=opt)
+        if carry == "flat" or state.params is not None:
+            return state
+        outer = state.outer_state
+        if outer != ():
+            outer = (spec.unpack1(outer[0]),
+                     spec.unpack1(outer[1], dtypes=torch.float32))
+        return state._replace(plane=None, params=spec.unpack(state.plane),
+                              outer_state=outer)
+
+    @staticmethod
+    def _leave_carry(state: EngineState) -> EngineState:
+        """A carry's state back in the flat-native layout, where the tree
+        embeds (bit for bit: packing is exact); the optimizer state into
+        planes where it is S float32 copies of the params tree."""
+        spec = state.spec
+        if spec is None:
+            return state
+        if state.params is not None:
+            outer = state.outer_state
+            if outer != ():
+                outer = (spec.pack1(outer[0]), spec.pack1(outer[1]))
+            state = state._replace(plane=spec.pack(state.params),
+                                   params=None, outer_state=outer)
+        ospec = (FlatOptSpec.of(spec, state.opt_state)
+                 if state.opt_state is not None else None)
+        if ospec is not None:
+            state = state._replace(opt_planes=ospec.pack(state.opt_state),
+                                   opt_state=None)
+        return state
 
     # ---- the sharded plane -------------------------------------------------
     def _row_range(self, num_workers: int) -> tuple[int, int]:
@@ -439,7 +700,7 @@ class PhaseEngine:
 
     def _global_m(self, state: EngineState) -> int:
         """The run's worker count M of a (possibly sharded) state."""
-        m = int(state.plane.shape[0])
+        m = self._state_rows(state)
         return m if self.mesh is None else m * self.mesh.size
 
     def shard_state(self, state: EngineState,
@@ -561,13 +822,15 @@ class PhaseEngine:
 
     # ---- one step ----------------------------------------------------------
     def _fault_transition(self, state: EngineState, step: int):
-        """The fault plan's step: the new fault state, ``(mix, umask)``,
-        the straggle-aware discount (or None) and the telemetry's
+        """The fault plan's step: the state with its rejoining rows
+        warm-started, the new fault state, ``(mix, umask)``, the
+        straggle-aware discount (or None) and the telemetry's
         ``(n_alive, n_straggle)`` of the full plane, counted from the
-        rows the transition drew; a rejoining row is warm-started in
-        place, before the step's gradient, from the previous step's
-        mixing cohort (rounded to the codes), its state planes and
-        residual zeroed."""
+        rows the transition drew. A rejoining row restarts, before the
+        step's gradient, from the previous step's mixing cohort (rounded
+        to the codes; in place on a plane, :func:`~repro_torch.faults.
+        warm_start_tree` on a tree), its optimizer state and residual
+        zeroed."""
         fp = self._faults()
         fst = (state.fault if isinstance(state.fault, FaultState)
                else faults_mod.init_fault_state(fp.num_workers))
@@ -576,15 +839,26 @@ class PhaseEngine:
                                                      state.dec_key)
         rows = faults_mod.rows_where(rejoined)
         if rows:
-            self._warm_start(state, rows, faults_mod.masked_mean(
-                state.plane, fp.mix_at(alive_prev, step - 1)))
+            mix_prev = fp.mix_at(alive_prev, step - 1)
+            if state.plane is not None:
+                self._warm_start(state, rows, faults_mod.masked_mean(
+                    state.plane, mix_prev))
+            else:
+                state = state._replace(params=faults_mod.warm_start_tree(
+                    state.params, mix_prev, rejoined))
+                if state.resid is not None:
+                    for i in rows:
+                        state.resid[i].zero_()
+            if state.opt_state is not None:
+                state = state._replace(opt_state=faults_mod.zero_rows_tree(
+                    state.opt_state, rejoined))
         dscale = (fp.disp_scale(mix, state.dec_key, step)
                   if self.schedule.straggle_aware else None)
         # the scripted liveness and, of it, the rows that straggle: the
         # alive rows outside the update mask (0/1 values: exact in f32)
         n_alive = np.sum(fst.alive, dtype=np.float32)
         occ = (n_alive, n_alive - np.sum(umask, dtype=np.float32))
-        return fst, (mix, umask), dscale, occ
+        return state, fst, (mix, umask), dscale, occ
 
     @staticmethod
     def _warm_start(state: EngineState, rows, glob):
@@ -612,7 +886,8 @@ class PhaseEngine:
         fst, fmask, dscale = state.fault, None, None
         occ = (state.plane.shape[0], 0.0)
         if self._faults() is not None:
-            fst, fmask, dscale, occ = self._fault_transition(state, step)
+            state, fst, fmask, dscale, occ = self._fault_transition(state,
+                                                                    step)
         alive = None if fmask is None else fmask[0]
         losses, _, gplane = grads_fn(state.plane, batch, out=gbuf)
         scal = self.optimizer.plane_scalars(step)
@@ -656,6 +931,109 @@ class PhaseEngine:
             return torch.mean(losses)
         a = torch.from_numpy(alive).to(losses.device)
         return torch.sum(losses * a) / torch.sum(a)
+
+    # ---- one step of the flat and tree carries ------------------------------
+    def _apply_all_average(self, wp, outer_c):
+        """The all-worker mean of a worker tree broadcast back; with the
+        outer optimizer the mean is its target and the stepped average
+        is broadcast. Returns (tree, outer state)."""
+        m = tree_flatten(wp)[0][0].shape[0]
+        avg = consensus(wp)
+        if self.outer is not None and outer_c != ():
+            avg, vel = self.outer.apply(outer_c[0], avg, outer_c[1])
+            outer_c = (avg, vel)
+        return replicate(avg, m), outer_c
+
+    def _tree_average(self, wp, outer_c, scope: str, W=None, alive=None):
+        """One averaging event on the worker tree (the reference's
+        ``_tree_average``): the (group) mean, the ``W`` mix or the outer
+        step, masked over ``alive`` under faults. Returns (tree, outer
+        state)."""
+        inner = max(self.schedule.inner_groups, 1)
+        if alive is not None:
+            if scope == "all" and W is not None:
+                return faults_mod.masked_mix_tree(wp, W, alive), outer_c
+            groups = inner if scope == "inner" else self._all_groups()
+            return faults_mod.masked_average_all_tree(
+                wp, alive, groups=groups), outer_c
+        if scope == "inner":
+            return average_inner(wp, inner), outer_c
+        if W is not None:
+            return mix_tree(wp, W), outer_c
+        if self._all_groups() > 1:
+            return average_inner(wp, self._all_groups()), outer_c
+        return self._apply_all_average(wp, outer_c)
+
+    def _step_unfused(self, state: EngineState, batch, wstep):
+        """One step of the ``flat`` or ``tree`` carry (the reference's
+        non-native scan body): the fault transition, :func:`make_worker_step`
+        on the params tree (unpacked from the plane in the flat carry and
+        packed again), rows outside the update mask kept, the Eq. 4
+        dispersion, the decision, and the event — the plane passes in the
+        flat carry, the tree averages in the tree carry, the compressed
+        event on the plane in both. Returns what :meth:`_step` returns."""
+        sched = self.schedule
+        step = state.step + 1
+        key = rng.split(state.key)[0]
+        dec = state.dec_key
+        tree = state.plane is None
+        spec = state.spec
+        fst, fmask, dscale = state.fault, None, None
+        m = self._state_rows(state)
+        occ = (m, 0.0)
+        if self._faults() is not None:
+            state, fst, fmask, dscale, occ = self._fault_transition(state,
+                                                                    step)
+        alive = None if fmask is None else fmask[0]
+        wp = state.params if tree else spec.unpack(state.plane)
+        wp_new, opt, losses, _ = wstep(wp, state.opt_state, batch, step)
+        if fmask is not None:
+            # rows outside the update mask keep their params AND their
+            # optimizer state
+            opt = faults_mod.select_rows_tree(opt, state.opt_state,
+                                              fmask[1])
+        params = plane = None
+        if tree:
+            params = (wp_new if fmask is None else
+                      faults_mod.select_rows_tree(wp_new, wp, fmask[1]))
+            disp = (worker_dispersion(params) if alive is None else
+                    faults_mod.masked_dispersion_tree(params, alive))
+        else:
+            plane = spec.pack(wp_new)
+            if fmask is not None:
+                faults_mod.keep_rows_(plane, state.plane, fmask[1])
+            disp = (_plane_dispersion(plane) if alive is None else
+                    faults_mod.masked_dispersion(plane, alive))
+        del wp, wp_new
+        disp = float(disp)
+        code, sst = sched.decision_state(
+            step, state.sched, disp, dec,
+            event_cost=self._sched_event_cost(self._state_cols(state), m),
+            disp_scale=dscale)
+        outer_c, resid = state.outer_state, state.resid
+        if sched.kind == "minibatch" or code:
+            scope = "inner" if code == 1 else "all"
+            W = self._event_W(step, dec) if scope == "all" else None
+            if self._comp() is not None:
+                # the wire encodes the plane: a tree packs around the
+                # event alone
+                pl = spec.pack(params) if tree else plane
+                pl, resid = self._compressed_plane_event(
+                    state, pl, resid, scope, step, W, alive)
+                if tree:
+                    params = spec.unpack(pl)
+                else:
+                    plane = pl
+            elif tree:
+                params, outer_c = self._tree_average(params, outer_c, scope,
+                                                     W, alive)
+            else:
+                plane, outer_c = self._plane_avg_event(
+                    state, plane, outer_c, scope, W, alive)
+        state = state._replace(plane=plane, params=params, opt_state=opt,
+                               key=key, step=step, sched=sst,
+                               outer_state=outer_c, resid=resid, fault=fst)
+        return state, self._mean_loss(losses, alive), disp, code, occ
 
     # ---- one sharded step ---------------------------------------------------
     def _step_gather(self, state: EngineState, batch, grads_fn, gbuf):
@@ -874,7 +1252,11 @@ class PhaseEngine:
         those host values. With a mesh each step is
         :meth:`_step_gather` or :meth:`_step_psum`; under ``psum`` the
         ranks' per-worker losses are gathered once, at the phase's
-        end."""
+        end. The ``flat`` and ``tree`` carries run
+        :meth:`_phase_unfused`."""
+        carry = self.carry(state)
+        if carry != "flat_native":
+            return self._phase_unfused(state, batches, carry)
         grads_fn = make_plane_step(self.loss_fn, state.spec)
         m, p = self._global_m(state), state.plane.shape[1]
         step_fn = self._step
@@ -897,6 +1279,30 @@ class PhaseEngine:
                 torch.stack([x for x, _ in losses], dim=1))
             losses = [self._mean_loss(per[:, k], a)
                       for k, (_, a) in enumerate(losses)]
+        return state, self._traces(losses, disps, codes, occs, p, m)
+
+    def _phase_unfused(self, state: EngineState, batches, carry: str):
+        """:meth:`_phase` of the ``flat`` or ``tree`` carry: the state in
+        the carry's form, one :meth:`_step_unfused` a batch, the state
+        back in the flat-native layout."""
+        wstep = make_worker_step(self.loss_fn, self.optimizer)
+        m, p = self._state_rows(state), self._state_cols(state)
+        state = self._enter_carry(state, carry)
+        losses, disps, codes, occs = [], [], [], []
+        for batch in batches:
+            state, loss, disp, code, occ = self._step_unfused(state, batch,
+                                                              wstep)
+            losses.append(loss)
+            disps.append(disp)
+            codes.append(code)
+            occs.append(occ)
+        state = self._leave_carry(state)
+        return state, self._traces(losses, disps, codes, occs, p, m)
+
+    def _traces(self, losses, disps, codes, occs, p: int, m: int) -> dict:
+        """The phase's per-step traces as host lists (one device fetch for
+        the losses), with telemetry its ``metrics`` accumulator, folded
+        from those host values."""
         loss_h = torch.stack(losses).tolist() if losses else []
         trace = {"loss": loss_h, "dispersion": disps, "avg_code": codes}
         if self.telemetry:
@@ -909,7 +1315,7 @@ class PhaseEngine:
                     event_bytes_all=eb_all, event_bytes_inner=eb_inner,
                     n_alive=n_alive, n_straggle=n_straggle)
             trace["metrics"] = acc
-        return state, trace
+        return trace
 
     def _rows(self, state: EngineState):
         """The ``[r0, r1)`` rows of the full batches this rank keeps, or
@@ -931,7 +1337,7 @@ class PhaseEngine:
         plane's device): the block is copied to the device once, and
         each step's (M, B, ...) or (M, ...) batch is gathered there
         (``index_select``); then the same step as :meth:`run_phase`."""
-        dev = state.plane.device
+        dev = self._state_device(state)
         for a in tree_flatten(arrays)[0]:
             if a.device != dev:
                 raise ValueError(f"the dataset lives on {a.device}, the "
@@ -977,6 +1383,10 @@ class PhaseEngine:
             r0, r1 = self._row_range(self._global_m(state))
             mix = fp.mix_at(state.fault.alive, state.step, row0=r0,
                             num_rows=r1 - r0)
+        if plane is None:  # a tree FlatSpec cannot embed
+            if mix is not None:
+                return faults_mod.masked_mean_tree(state.params, mix)
+            return consensus(state.params)
         if self.mesh is None:
             if mix is not None:
                 return state.spec.unpack1(faults_mod.masked_mean(plane, mix))
@@ -993,6 +1403,8 @@ class PhaseEngine:
         from the ranks."""
         if self.mesh is not None:
             return state.spec.unpack(self.mesh.all_gather_rows(state.plane))
+        if state.plane is None:
+            return tree_map(lambda x: x.clone(), state.params)
         return tree_map(lambda x: x.clone(), state.spec.unpack(state.plane))
 
     def _sync(self):

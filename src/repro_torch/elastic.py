@@ -208,6 +208,12 @@ class ElasticPlan:
 # --------------------------------------------------------------------------
 
 def _state_m(state) -> int:
+    if state.plane is None or getattr(state, "opt_state", None) is not None:
+        raise ValueError(
+            "elastic resizes repack the (M, P) planes; this EngineState "
+            "keeps its params or its optimizer state as a tree (leaves "
+            "FlatSpec cannot embed, or a state that is not float32 copies "
+            "of the params)")
     return int(state.plane.shape[0])
 
 

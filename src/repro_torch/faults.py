@@ -30,6 +30,14 @@ plane kernels take the masks as 64-bit row words and mask their one
 pass themselves (of these primitives only :func:`degraded_matrix` goes
 to a kernel, as the mixing matrix).
 
+The pytree twins (:func:`select_rows_tree`, :func:`zero_rows_tree`,
+:func:`masked_mean_tree`, :func:`masked_dispersion_tree`,
+:func:`warm_start_tree`, :func:`masked_average_all_tree`,
+:func:`masked_mix_tree`) serve the engine's ``tree`` carry: per leaf,
+in float32 and cast back, with the plane primitives' sums, so a tree
+event and a plane event agree bit for bit column by column (the
+dispersion to rounding: its sums run per leaf).
+
 A trivial plan (no events, no straggles, no windows) is lowered away by
 the engine, so an all-alive plan is the no-fault engine bit for bit.
 """
@@ -476,3 +484,92 @@ def zero_rows(x, mask) -> torch.Tensor:
     for i in rows_where(mask):
         out[i].zero_()
     return out
+
+
+# --------------------------------------------------------------------------
+# Pytree twins (the engine's tree carry): leaves with the worker axis first
+# --------------------------------------------------------------------------
+
+def _tree_map(fn, tree, *rest):
+    from repro_torch.core.flat import tree_map
+    return tree_map(fn, tree, *rest)
+
+
+def _leaf_rows(x: torch.Tensor) -> torch.Tensor:
+    """A worker-axis leaf as (M, n) float32 rows."""
+    return x.float().reshape(x.shape[0], -1)
+
+
+def select_rows_tree(new_tree, old_tree, mask):
+    """:func:`select_rows` on every leaf: rows with ``mask > 0`` from
+    ``new_tree``, the others from ``old_tree`` (new tensors)."""
+    return _tree_map(lambda n, o: select_rows(n, o, mask), new_tree,
+                     old_tree)
+
+
+def zero_rows_tree(tree, mask):
+    """:func:`zero_rows` on every leaf (new tensors)."""
+    return _tree_map(lambda x: zero_rows(x, mask), tree)
+
+
+def masked_mean_tree(tree, alive):
+    """Per-leaf exact mean over the alive rows in float32, cast back to
+    the leaf dtype: leaves (M, ...) -> (...)."""
+    return _tree_map(
+        lambda x: masked_mean(_leaf_rows(x), alive).reshape(x.shape[1:])
+        .to(x.dtype), tree)
+
+
+def masked_dispersion_tree(tree, alive) -> torch.Tensor:
+    """Tree twin of :func:`masked_dispersion`: the alive rows' squared
+    distances from their mean summed per leaf in float32, the leaves
+    added in flatten order, over the alive count (0-dim float32)."""
+    from repro_torch.core.flat import tree_flatten
+    rows = rows_where(alive)
+
+    def leaf(x):
+        r = _leaf_rows(x)
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=r.device)
+        d = r.index_select(0, idx) - masked_mean(r, alive)
+        return torch.sum(d * d)
+    return _per(sum(leaf(x) for x in tree_flatten(tree)[0]), len(rows))
+
+
+def warm_start_tree(tree, alive_prev, rejoined):
+    """The ``rejoined`` rows take the mean over ``alive_prev`` (the
+    previous step's mixing cohort, the rejoiner itself outside it), in
+    the leaf dtype; the other rows keep theirs (new tensors)."""
+    mean = masked_mean_tree(tree, alive_prev)
+    return _tree_map(
+        lambda x, g: select_rows(g.expand(x.shape), x, rejoined), tree,
+        mean)
+
+
+def masked_average_all_tree(tree, alive, *, groups: int = 1):
+    """Masked averaging event on a tree: alive rows take the exact
+    (group) mean over the alive rows (of their group), cast to the leaf
+    dtype; dead rows keep their stale params."""
+    def leaf(x):
+        r = _leaf_rows(x)
+        if groups > 1:
+            out = masked_group_mean(r, alive, groups)
+        else:
+            out = masked_mean(r, alive)[None].expand(r.shape)
+        out = out.reshape(x.shape).to(x.dtype)
+        return select_rows(out, x, alive)
+    return _tree_map(leaf, tree)
+
+
+def masked_mix_tree(tree, W, alive):
+    """Masked gossip mix on a tree: ``W`` degraded over the alive rows
+    (:func:`degraded_matrix`) mixes every leaf's rows with the plane
+    twin's arithmetic, cast to the leaf dtype; dead rows keep their
+    stale params."""
+    from repro_torch.kernels.ref import _mix
+
+    def leaf(x):
+        wm = degraded_matrix(torch.as_tensor(W).to(x.device, torch.float32),
+                             alive)
+        out = _mix(wm, _leaf_rows(x)).reshape(x.shape).to(x.dtype)
+        return select_rows(out, x, alive)
+    return _tree_map(leaf, tree)

@@ -1,7 +1,8 @@
 """Where a training step's time goes, on the card.
 
 Takes the training CLI's flags (``repro_torch.launch.train``; the fault
-flags too, so a step under ``--faults`` is profiled the same way), runs
+flags too, so a step under ``--faults`` is profiled the same way, and
+``--tree-engine`` / ``--no-fused-opt`` for the engine's carries), runs
 ``--warmup`` steps, times ``--profile-steps`` more without the profiler,
 then profiles as many again under ``torch.profiler`` (CPU + CUDA
 activities) and prints one JSON line. Give ``--profile-steps`` a
@@ -97,6 +98,8 @@ def main(argv=None):
         "arch": args.arch, "workers": args.workers, "batch": args.batch,
         "seq": args.seq, "avg": args.avg, "topology": args.topology,
         "comm_dtype": args.comm_dtype, "kernel_impl": args.kernel_impl,
+        "carry": ("tree" if args.tree_engine else
+                  "flat" if args.no_fused_opt else "flat_native"),
         "prefetch": prefetch, "profiled_steps": n,
         "averages": hist["averages"],
         "device": torch.cuda.get_device_name(0),

@@ -21,7 +21,11 @@ rendered by ``python -m repro_torch.telemetry.report PATH``;
 ``--profile-dir DIR`` traces the run with ``torch.profiler``. Runs on
 CUDA unless ``--device cpu``; ``--kernel-impl ref`` takes the kernels'
 plain versions on the card and ``--no-prefetch`` stages the batches in
-line, for comparison.
+line, for comparison. ``--tree-engine`` and ``--no-fused-opt`` pick the
+engine's ``tree`` and ``flat`` carries (``PhaseEngine(flat=,
+fused_opt=)``); ``--scan-unroll`` is the reference's scan unroll, which
+the port's Python loop has no use for: accepted and recorded, so the
+reference's command lines run unchanged.
 
 ``--shard`` splits the worker rows over the ranks ``torchrun`` starts
 (:mod:`repro_torch.launch.mesh`; a plain ``python -m`` is a world of
@@ -190,6 +194,20 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefetch", action="store_true",
                     help="stage phase blocks in line instead of via the "
                          "double-buffered prefetch thread")
+    ap.add_argument("--tree-engine", action="store_true",
+                    help="carry the params pytree through the phase "
+                         "instead of the default flat (M, P) plane (the "
+                         "tree averages; compressed events pack around "
+                         "the event)")
+    ap.add_argument("--no-fused-opt", action="store_true",
+                    help="disable the flat-native fused optimizer planes: "
+                         "per-step pack/unpack around the tree-mapped "
+                         "optimizer, the events still the plane kernels")
+    ap.add_argument("--scan-unroll", type=int, default=1,
+                    help="the reference's lax.scan unroll; the port runs "
+                         "a phase as a Python loop, so it is accepted, "
+                         "recorded in the [train] engine line and changes "
+                         "nothing")
     ap.add_argument("--shard", action="store_true",
                     help="split the (M, P) plane's worker rows over the "
                          "ranks torchrun starts (NCCL on CUDA, gloo on "
@@ -383,6 +401,11 @@ def setup(args, ap):
     if args.kernel_impl == "cuda" and device.type != "cuda":
         ap.error(f"--kernel-impl cuda launches the CUDA kernels, which "
                  f"--device {args.device} cannot")
+    if args.scan_unroll < 0:
+        ap.error(f"--scan-unroll must be >= 0, got {args.scan_unroll}")
+    if args.shard and (args.tree_engine or args.no_fused_opt):
+        ap.error("--shard carries the flat-native (M, P) planes: drop "
+                 "--tree-engine / --no-fused-opt")
     if args.shard:
         _init_ranks(device)
 
@@ -437,7 +460,13 @@ def setup(args, ap):
                          topology=topology, compression=compression,
                          kernel_impl=args.kernel_impl, faults=faults,
                          telemetry=bool(args.telemetry), mesh=mesh,
-                         collective=args.collective)
+                         collective=args.collective,
+                         flat=not args.tree_engine,
+                         fused_opt=not args.no_fused_opt)
+    carry = ("tree" if args.tree_engine else
+             "flat" if args.no_fused_opt else "flat_native")
+    _say(f"[train] engine: carry={carry}, scan_unroll={args.scan_unroll} "
+         "(a Python loop per phase: recorded only)")
     if faults is not None and not faults.is_trivial:
         crashes = sum(ev.kind == "crash" for ev in faults.events)
         rejoins = sum(ev.kind == "rejoin" for ev in faults.events)

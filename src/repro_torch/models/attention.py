@@ -9,13 +9,17 @@ Two interchangeable compute paths for the full sequence (``impl``):
     ``impl="pallas"``): the CUDA kernel on the card, its plain twin on
     the CPU.
 Cross-attention (queries and keys of different lengths) and decode
-always take the einsum path, as the reference's do. The reference's
-banded branch is not ported and raises.
+always take the einsum path, as the reference's do. Under
+``cfg.attn_banded`` a sliding-window causal self-attention of the einsum
+path runs band-wise (:func:`_banded_attention`), under the reference's
+condition; the kernel path takes ``flash_attention`` first, as the
+reference's dispatch does.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import rng
 from repro_torch.configs import ModelConfig
@@ -70,6 +74,36 @@ def _sdpa_xla(q, k, v, mask, scale, score_dtype=torch.float32):
     return out.reshape(b, sq, h, hd)
 
 
+def _banded_attention(q, k, v, *, window: int, scale, score_dtype):
+    """Sliding-window causal attention computed band-wise (the
+    reference's ``_banded_attention``): with the chunk c = min(window,
+    S), queries padded to a multiple of c and keys and values padded by
+    one chunk on the left, query chunk i sees the static 2c-key slice
+    [i c, i c + 2c) of the padded keys (absolute positions (i - 1) c to
+    (i + 1) c - 1) under the band mask, through :func:`_sdpa_xla`. The
+    scores a head moves are ceil(S / c) · 2c² instead of the masked
+    path's S², so the band pays past S = 2 · window."""
+    b, s, h, hd = q.shape
+    c = min(window, s)
+    s_pad = -(-s // c) * c
+    qp = F.pad(q, (0, 0, 0, 0, 0, s_pad - s))
+    kp = F.pad(k, (0, 0, 0, 0, c, s_pad - s))
+    vp = F.pad(v, (0, 0, 0, 0, c, s_pad - s))
+    ar_q = torch.arange(c, device=q.device)[:, None]
+    ar_k = torch.arange(2 * c, device=q.device)[None, :]
+    outs = []
+    for i in range(s_pad // c):
+        qpos = i * c + ar_q                 # absolute query positions
+        kpos = (i - 1) * c + ar_k           # absolute key positions
+        msk = ((kpos <= qpos) & (kpos > qpos - window) & (kpos >= 0)
+               & (qpos < s))
+        outs.append(_sdpa_xla(qp[:, i * c:(i + 1) * c],
+                              kp[:, i * c:i * c + 2 * c],
+                              vp[:, i * c:i * c + 2 * c],
+                              msk[None, None], scale, score_dtype))
+    return torch.cat(outs, dim=1)[:, :s]
+
+
 def make_mask(sq: int, sk: int, *, causal: bool, window: int = 0,
               q_offset: int = 0, device="cpu"):
     """Boolean mask (sq, sk), True = attend. q position i maps to absolute
@@ -113,16 +147,18 @@ def attention(cfg: ModelConfig, p, x, *, layer, kv_x=None, impl="plain",
     window = cfg.sliding_window if (layer.mixer == "attn_local"
                                     and self_attn) else 0
     scale = 1.0 / np.sqrt(cfg.head_dim)
+    score_dt = getattr(torch, cfg.score_dtype)
     if impl == "kernel" and self_attn:
         out = flash_attention(q, k, v, causal=causal, window=window,
                               scale=scale)
-    elif cfg.attn_banded and window > 0 and causal and pos_offset == 0:
-        raise NotImplementedError("banded sliding-window attention "
-                                  "(cfg.attn_banded) is not ported")
+    elif (cfg.attn_banded and window > 0 and causal and self_attn
+          and sq == sk and pos_offset == 0):
+        out = _banded_attention(q, k, v, window=window, scale=scale,
+                                score_dtype=score_dt)
     else:
         mask = make_mask(sq, sk, causal=causal, window=window,
                          q_offset=pos_offset, device=x.device)[None, None]
-        out = _sdpa_xla(q, k, v, mask, scale, getattr(torch, cfg.score_dtype))
+        out = _sdpa_xla(q, k, v, mask, scale, score_dt)
     out = out.reshape(b, sq, cfg.q_dim) @ p["wo"]
     if return_kv:
         return out, (k, v)

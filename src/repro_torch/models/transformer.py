@@ -11,8 +11,11 @@ nested-dict params layout (so params convert 1:1, see
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
 from repro_torch.configs import LayerSpec, ModelConfig
@@ -157,20 +160,35 @@ def _get_memory(cfg: ModelConfig, params, batch, impl):
     return None
 
 
-def _forward(cfg: ModelConfig, params, batch, impl, capture: int):
+def _forward(cfg: ModelConfig, params, batch, impl, capture: int,
+             remat: bool = False):
     """(fp32 logits (B, S, V), the MoE auxiliary losses summed over the
     layers — {"load_balance", "router_z"}, 0.0 without MoE layers, as the
     reference's forward sums them — and, where ``capture`` > 0, the
-    decode cache)."""
+    decode cache). ``remat`` checkpoints each decoder block
+    (``torch.utils.checkpoint``, non-reentrant: the block's activations
+    are recomputed in the backward pass), the reference's per-block
+    ``jax.checkpoint``; the same operations run, so losses and gradients
+    are bitwise those without it."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    if remat and capture:
+        raise ValueError("prefill cache capture is a no-remat path")
     memory = _get_memory(cfg, params, batch, impl)
     tokens = batch["tokens"]
     x = L.embed(cfg, params["embed"], tokens)
     aux_sum = {"load_balance": 0.0, "router_z": 0.0}
     caches = []
     for spec, p in zip(cfg.layers, params["layers"]):
-        x, aux, c = _apply_block(cfg, spec, p, x, memory, impl, capture)
+        if remat:
+            # the block's static arguments bound by keyword: only the
+            # params, the activations and the memory pass through
+            block = functools.partial(_apply_block, cfg=cfg, spec=spec,
+                                      impl=impl, capture=0)
+            x, aux, c = checkpoint(block, p=p, x=x, memory=memory,
+                                   use_reentrant=False)
+        else:
+            x, aux, c = _apply_block(cfg, spec, p, x, memory, impl, capture)
         caches.append(c)
         for k, v in aux.items():
             aux_sum[k] = aux_sum[k] + v
@@ -195,15 +213,36 @@ def forward(cfg: ModelConfig, params, batch, *, impl="plain",
     return (logits, cache) if return_cache else logits
 
 
-def lm_loss(cfg: ModelConfig, params, batch):
+def _requires_grad(params) -> bool:
+    from repro_torch.core.flat import tree_flatten
+    return any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in tree_flatten(params)[0])
+
+
+def lm_loss(cfg: ModelConfig, params, batch, *, impl: str = "plain",
+            remat: bool = False):
     """Next-token cross-entropy, plus the MoE auxiliary losses where the
     config has experts (``router_aux_coef`` x load balance + 1e-3 x router
     z, each over the MoE layers); labels default to the shifted tokens,
     positions with label < 0 are masked. Returns (loss, metrics): the
     reference's dict, whose "ce" holds the loss with the auxiliary terms
-    added, beside the summed "load_balance" and "router_z"."""
+    added, beside the summed "load_balance" and "router_z".
+
+    ``remat`` checkpoints each block (:func:`_forward`). ``impl="kernel"``
+    runs the forward through the kernels and is a forward-only loss: the
+    kernels have no backward, as the reference's have none (``jax.grad``
+    through its Pallas ``flash_attention`` or ``rglru_scan`` fails in
+    ``_pallas_call_jvp_rule``), so a loss whose params require grad under
+    grad mode is refused."""
+    if (impl == "kernel" and torch.is_grad_enabled()
+            and _requires_grad(params)):
+        raise NotImplementedError(
+            "lm_loss(impl='kernel') is forward-only: the kernels have no "
+            "backward (the reference's Pallas kernels have none either: "
+            "jax.grad through them fails in _pallas_call_jvp_rule) — "
+            "train with impl='plain', or evaluate under torch.no_grad()")
     tokens = batch["tokens"]
-    logits, aux, _ = _forward(cfg, params, batch, "plain", 0)
+    logits, aux, _ = _forward(cfg, params, batch, impl, 0, remat)
     if "labels" in batch:
         labels = batch["labels"]
     else:

@@ -7,6 +7,14 @@ callable ``lr`` receives the 1-indexed step as ``np.float32``, so
 reference's traced int32 step does, and the per-step scalars match the
 reference bit for bit. They are handed to the kernel by value — no
 device round trip per step.
+
+``apply(params, grads, state, step)`` is the reference's tree-mapped
+update (the engine's ``flat`` and ``tree`` carries, ``LocalSGD`` and
+``launch.steps``): each leaf computed in float32 and cast back to its
+dtype, with the operations of the plane twin
+(``repro_torch.kernels.ref.plane_update_ref``) in its order and on the
+same float32 scalars, so on float32 leaves the two agree bit for bit and
+a bf16/f16 leaf's cast is the plane's rounding code.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.flat import tree_map
+from repro_torch.core.flat import tree_flatten, tree_map
 
 
 class schedules:
@@ -50,6 +58,20 @@ def _lr_at(lr, step):
     return np.float32(lr(np.float32(step)) if callable(lr) else lr)
 
 
+def _lr_tensor(lr, step, like):
+    """The step's learning rate as the 0-dim float32 tensor the plane
+    twin multiplies by (``plane_scalars(step)[0]``), on ``like``'s
+    device."""
+    return _scalars(_lr_at(lr, step))[0].to(like.device)
+
+
+def _first_leaf(tree):
+    leaves = tree_flatten(tree)[0]
+    if not leaves:
+        raise ValueError("apply needs a params tree with leaves")
+    return leaves[0]
+
+
 def _zeros_like_f32(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
@@ -64,6 +86,13 @@ class SGD:
 
     def init(self, params):
         return ()
+
+    def apply(self, params, grads, state, step):
+        """(new params, state): ``p - lr * g`` in float32, cast back."""
+        lr = _lr_tensor(self.lr, step, _first_leaf(params))
+        new = tree_map(lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
+                       params, grads)
+        return new, state
 
     def plane_hypers(self) -> dict:
         """Static hyperparameters for the fused plane update."""
@@ -86,6 +115,17 @@ class Momentum:
 
     def init(self, params):
         return _zeros_like_f32(params)
+
+    def apply(self, params, grads, state, step):
+        """(new params, new velocity): ``v = mu v + g``, then ``p - lr v``
+        (Nesterov: ``p - lr (g + mu v)``) in float32, cast back."""
+        lr = _lr_tensor(self.lr, step, _first_leaf(params))
+        vel = tree_map(lambda g, v: self.mu * v + g.float(), grads, state)
+        new = tree_map(
+            lambda p, g, v: (p.float() - lr * (
+                g.float() + self.mu * v if self.nesterov else v)).to(p.dtype),
+            params, grads, vel)
+        return new, vel
 
     def plane_hypers(self) -> dict:
         return {"mu": self.mu, "nesterov": self.nesterov}

@@ -259,6 +259,22 @@ class Topology:
         return torch.tensor(self.matrix, dtype=torch.float32, device=device)
 
 
+def mix_tree(worker_tree, W):
+    """Apply the mixing matrix along the worker axis of every leaf — the
+    tree twin of ``W @ plane``: each leaf's rows in float32, mixed with
+    the plane twin's arithmetic (:func:`repro_torch.kernels.ref._mix`:
+    each output row summed over j in order, one rounded multiply and add
+    a term), cast back to the leaf dtype."""
+    from repro_torch.core.flat import tree_map
+    from repro_torch.kernels.ref import _mix
+
+    def mx(x):
+        w = torch.as_tensor(W).to(x.device, torch.float32)
+        out = _mix(w, x.float().reshape(x.shape[0], -1))
+        return out.reshape(x.shape).to(x.dtype)
+    return tree_map(mx, worker_tree)
+
+
 def comm_bytes(topology: Topology, events: int, p: int,
                wire: str = "f32") -> int:
     """Bytes ONE worker puts on the wire for ``events`` averaging events

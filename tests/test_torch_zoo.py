@@ -19,8 +19,8 @@ the reference's params carried over as numpy:
   leaf within rtol / atol 1e-4 (``tests/test_torch_serve.py``'s); 4
   decode steps' logits within the same; 4 greedy tokens equal;
 - the serve and train CLIs with ``--device cpu --reduced``;
-- the banded branch (``attn_banded``, ROADMAP queue 1, item 7 (d))
-  refused on the einsum path.
+- the banded branch (``attn_banded``) against the reference's banded
+  forward and the port's masked path (rtol / atol 1e-4).
 """
 import dataclasses
 
@@ -240,13 +240,32 @@ def test_cli_trains_on_cpu(arch, capsys):
 @pytest.mark.parametrize("arch", ["gemma3-27b", "starcoder2-3b",
                                   "recurrentgemma-2b"])
 def test_banded_attention_is_refused(arch):
-    """What ROADMAP queue 1, item 7 (d) still has to port raises: the
-    einsum path of a local layer under ``attn_banded``; the kernel path
-    takes flash_attention first, as the reference's dispatch does."""
-    cfg = dataclasses.replace(port_configs.get_config(arch, reduced=True),
-                              dtype="float32", attn_banded=True)
-    params = init_params(cfg, 0, device="cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
-    assert forward(cfg, params, batch, impl="kernel").shape[1] == 8
-    with pytest.raises(NotImplementedError, match="attn_banded"):
-        lm_loss(cfg, params, batch)
+    """The banded branch (``attn_banded``), which this test once held
+    refused and which now runs (the name is kept so the case is followed
+    across the port's history): a local layer's sliding window (16 over S = 64) computed band-wise,
+    against the reference's banded forward at the tolerance of its own
+    ``test_banded_equals_naive`` (rtol / atol 1e-4) and against the
+    port's masked path; the loss and its gradients through it; the
+    kernel path takes flash_attention first, as the reference's dispatch
+    does."""
+    jcfg = reduced_f32(arch, sliding_window=16, attn_banded=True)
+    assert "attn_local" in [s.mixer for s in jcfg.layers]
+    params = jax.tree.map(np.asarray, jax_init(jcfg, jax.random.PRNGKey(0)))
+    toks = np.random.default_rng(3).integers(
+        0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    jl, _ = jax_forward(jcfg, params, {"tokens": jnp.asarray(toks)})
+    cfg = dataclasses.replace(_port_cfg(arch), sliding_window=16,
+                              attn_banded=True)
+    tparams = params_from_jax(params, device="cpu")
+    batch = {"tokens": torch.from_numpy(toks).long()}
+    got = forward(cfg, tparams, batch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jl), **TOL)
+    masked = forward(dataclasses.replace(cfg, attn_banded=False), tparams,
+                     batch)
+    np.testing.assert_allclose(got.numpy(), masked.numpy(), **TOL)
+    jloss, _ = jax_lm_loss(jcfg, params, {"tokens": jnp.asarray(toks)})
+    loss, _ = lm_loss(cfg, tparams, batch)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    assert forward(cfg, tparams, batch, impl="kernel").shape[1] == 64
+
+

@@ -210,16 +210,30 @@ Phases, each printing one JSON line:
      flat-native: ``opt_step`` x 2, ``avg_disp`` x 1) with remat off and
      on, bitwise equal, against two ``make_train_step`` steps and
      ``average_all`` (within ``CARRY_TOL``), and its peak memory with
-     and without remat at B 4 x REMAT_SEQ; (c) recurrentgemma-2b whole
+     and without remat at B 4 x REMAT_SEQ (and the allocator's growth
+     while that call's arguments are built); (c) recurrentgemma-2b whole
      (bf16), its cacheless plain prefill banded against masked at
      BANDED_SHAPES: the last logits within BANDED_LOGIT_ATOL, ms, peaks
      and the score count a head of each;
- 15. summary: a ``kernels`` line over all eight kernels (``opt_step``,
+ 15. the dry run, the roofline and the examples (``phase_dryrun``; its
+     budget, 40 s on a normal host, printed first): (a)
+     ``examples/quickstart_torch.py`` on the card and then with
+     ``--device cpu`` at QUICKSTART_STEPS a schedule: the same averages,
+     ``opt_step`` a step and ``avg_disp`` a periodic event, the eval
+     losses within QUICKSTART_EVAL_RTOL; (b) phase 14 (b)'s long phase
+     step counted on ``meta`` by ``repro_torch.roofline.count_step``:
+     flops, bytes, 6ND, the lower bound against the time phase 14
+     measured (``bound_share`` at most BOUND_SHARE_MAX) and ``mfu``, the
+     counted argument bytes within ARG_BYTES_RTOL of the allocator's
+     growth; (c) ``python -m repro_torch.launch.dryrun`` for one row
+     (smollm-360m, train_4k, one pod) in a subprocess over torch's fake
+     process group: exit 0 and the row's keys;
+ 16. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
      masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
-Every launch count is set to 0 just before a main-path run (phases 3-14;
+Every launch count is set to 0 just before a main-path run (phases 3-15;
 a spawned rank zeroes and reads its own) and read just after; the
 ``kernels`` line sums those runs. Any failed
 check raises, so the script exits non-zero without the ``ok`` line; it
@@ -229,6 +243,7 @@ also refuses to run without a CUDA device. All of its work happens under
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -2089,11 +2104,23 @@ def phase_tree(cx) -> dict:
     del wp, os_, res
     cx.free()
     peaks = {}
+    # the allocator's growth while the call's batch, worker params and
+    # optimizer state are built: phase 15 (b) holds the counted argument
+    # bytes against it. Earlier steps leave reference cycles holding
+    # planes, which a collection inside the window would free: collect
+    # first, and none in the window
+    gc.collect()
+    gc.disable()
+    alloc0 = torch.cuda.memory_allocated(cx.dev)
     long_batch = blocks(1, 4, REMAT_SEQ)
+    arg_growth = None
     for remat in (False, True):
         phase = steps.make_phase_step(cfg, phase_len=1, avg="all",
                                       flat=True, remat=remat)
         wp, os_ = workers()
+        if arg_growth is None:
+            arg_growth = torch.cuda.memory_allocated(cx.dev) - alloc0
+            gc.enable()
         cx.free()
         torch.cuda.reset_peak_memory_stats(cx.dev)
         base_gb = torch.cuda.memory_allocated(cx.dev) / 1e9
@@ -2111,6 +2138,9 @@ def phase_tree(cx) -> dict:
         cx.free()
     check(peaks[False]["loss"] == peaks[True]["loss"],
           "long phase step: remat on and off losses differ")
+    peaks[False]["argument_growth_bytes"] = arg_growth
+    cx.long_step = dict(ms=peaks[False]["ms"], workers=FULL_M, batch=4,
+                        seq=REMAT_SEQ, argument_growth_bytes=arg_growth)
     out["steps"] = dict(
         phase_len=2, workers=FULL_M, batch=4, seq=64,
         phase_ms=phase_ms,
@@ -2172,6 +2202,177 @@ def phase_tree(cx) -> dict:
     out["banded"] = dict(banded, arch="recurrentgemma-2b", impl="plain",
                          logit_atol=BANDED_LOGIT_ATOL,
                          wall_s=time.perf_counter() - t0)
+    out["wall_s"] = time.perf_counter() - t_ph
+    return out
+
+
+# ---- phase 15: the dry run, the roofline and the examples ------------------
+#: phase 15's budget on a normal host (s), printed before its first call
+DRYRUN_BUDGET_S = 40.0
+#: (a)'s steps a schedule: the example's STEPS (60) cut to 20 before the
+#: first chip run, as its CPU twin alone would pass the budget (37 s for
+#: 60 steps at one thread on a 2-core sandbox)
+QUICKSTART_STEPS = 20
+#: (a): the final eval losses on the card against the CPU (f32
+#: throughout, TF32 off). Stated from the first chip runs, which read them
+#: equal (relative difference 0.0 for all three schedules, two calls);
+#: 1e-5 leaves room for another cuBLAS summation order
+QUICKSTART_EVAL_RTOL = 1e-5
+#: (b): the counted bound may not exceed the measured time by more than
+#: this share (a bound the card beats means the count is wrong), and the
+#: counted argument bytes must be within this share of the allocator's
+#: growth. The first chip run read the growth 0.58% above the count: a
+#: block carved from a cached segment takes the remainder when under
+#: 1 MB is left, so memory_allocated runs above the tensors' bytes
+BOUND_SHARE_MAX = 1.05
+ARG_BYTES_RTOL = 0.01
+#: (c): the dry-run row the card's machine writes
+DRYRUN_ARGV = ["--arch", "smollm-360m", "--shape", "train_4k", "--mesh",
+               "single"]
+DRYRUN_ROW_KEYS = ("arch", "shape", "mesh", "avg", "chips", "phase_steps",
+                   "count_s", "model_flops", "variant", "collectives",
+                   "flops_per_device", "bytes_per_device",
+                   "collective_bytes_per_device", "compute_s", "memory_s",
+                   "collective_s", "bottleneck", "step_time_lower_bound_s",
+                   "useful_flop_fraction", "mem_argument_size_in_bytes",
+                   "mem_output_size_in_bytes")
+
+
+def phase_dryrun(cx) -> dict:
+    """phase 15: (a) ``examples/quickstart_torch.py`` on the card, then on
+    the CPU (QUICKSTART_STEPS a schedule): the same averages, the
+    launches (``opt_step`` a step, ``avg_disp`` a periodic event), the
+    eval losses within QUICKSTART_EVAL_RTOL; (b) phase 14 (b)'s long
+    phase step counted on ``meta`` (``roofline.count_step``) against the
+    time phase 14 measured for it: its bound's share of that time within
+    BOUND_SHARE_MAX, its mfu, and its counted argument bytes against the
+    allocator's growth; (c) one row of ``repro_torch.launch.dryrun`` in a
+    subprocess (one thread), started first and read last: it runs beside
+    (a) and (b) on the host's other cores."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.roofline import (HW, count_step, model_flops,
+                                      roofline_report)
+    print(f"[phase 15] dry run, roofline and examples: budget "
+          f"{DRYRUN_BUDGET_S:.0f} s on a normal host", flush=True)
+    t_ph = time.perf_counter()
+    out = {"phase": "dryrun_roofline_examples", "budget_s": DRYRUN_BUDGET_S}
+
+    # ---- (c) started first, read last: the dry run needs no card ----------
+    tmp = tempfile.TemporaryDirectory()
+    rows_path = Path(tmp.name) / "rows.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t_c = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV,
+         "--out", str(rows_path)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # ---- (a) the quickstart on the card, then on the CPU -----------------
+        t0 = time.perf_counter()
+        spec = importlib.util.spec_from_file_location(
+            "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+        qs = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(qs)
+        qs.STEPS = QUICKSTART_STEPS
+        cx.zero_counts()
+        tc = time.perf_counter()
+        card = qs.main([])
+        cx.sync()
+        card_s = time.perf_counter() - tc
+        got = cx.read_counts({"opt_step": 3 * QUICKSTART_STEPS,
+                              "avg_disp": QUICKSTART_STEPS // 10},
+                             "quickstart on the card")
+        tc = time.perf_counter()
+        cpu = qs.main(["--device", "cpu"])
+        cpu_s = time.perf_counter() - tc
+        rel = {}
+        for name in card:
+            check(card[name]["averages"] == cpu[name]["averages"],
+                  f"quickstart {name}: averages {card[name]['averages']} on "
+                  f"the card, {cpu[name]['averages']} on the CPU")
+            a, b = card[name]["eval_loss"], cpu[name]["eval_loss"]
+            rel[name] = abs(a - b) / abs(b)
+        check(max(rel.values()) <= QUICKSTART_EVAL_RTOL,
+              f"quickstart eval losses card vs CPU: {rel}")
+        out["quickstart"] = dict(
+            steps=QUICKSTART_STEPS, launches=got,
+            averages={n: r["averages"] for n, r in card.items()},
+            eval_loss_card={n: r["eval_loss"] for n, r in card.items()},
+            eval_loss_cpu={n: r["eval_loss"] for n, r in cpu.items()},
+            eval_loss_rel_diff=rel, eval_rtol=QUICKSTART_EVAL_RTOL,
+            card_s=card_s, cpu_s=cpu_s, wall_s=time.perf_counter() - t0)
+        cx.free()
+
+        # ---- (b) phase 14 (b)'s long phase step, counted -------------------
+        t0 = time.perf_counter()
+        ls = cx.long_step
+        cfg = get_config("smollm-360m")
+        opt = steps.make_optimizer()
+        wp, os_ = steps.abstract_worker_state(cfg, opt, ls["workers"])
+        batch = {"tokens": steps.sds((1, ls["workers"], ls["batch"],
+                                      ls["seq"]), torch.int32)}
+        fn = steps.make_phase_step(cfg, phase_len=1, avg="all", flat=True,
+                                   remat=False, kernel_impl="ref")
+        counts = count_step(fn, wp, os_, batch, 0)
+        mf = model_flops(cfg, ShapeConfig(
+            "phase14b-long", "train", ls["seq"],
+            ls["workers"] * ls["batch"]), training=True)
+        rep = roofline_report(counts, model_flops=mf)
+        measured_s = ls["ms"] / 1e3
+        share = rep["step_time_lower_bound_s"] / measured_s
+        mfu = mf / (measured_s * HW().peak_flops)
+        arg = rep["mem_argument_size_in_bytes"]
+        growth = ls["argument_growth_bytes"]
+        print(f"[phase 15] counted flops {counts.flops:.6e} bytes "
+              f"{counts.bytes:.6e} model_flops {mf:.6e}; bound "
+              f"{rep['step_time_lower_bound_s'] * 1e3:.3f} ms "
+              f"({rep['bottleneck']}), phase 14 (b) measured "
+              f"{ls['ms']:.3f} ms: bound_share {share:.4f}, mfu {mfu:.4f}",
+              flush=True)
+        check(share <= BOUND_SHARE_MAX,
+              f"roofline: the bound {rep['step_time_lower_bound_s']} s "
+              f"exceeds the measured {measured_s} s (share {share})")
+        check(abs(arg - growth) <= ARG_BYTES_RTOL * growth,
+              f"roofline: counted argument bytes {arg} against the "
+              f"allocator's growth {growth}")
+        out["roofline"] = dict(
+            step="phase 14 (b) long phase step: smollm-360m, M 4, B 4 x "
+                 "1024, phase_len 1, remat off, flat-native",
+            flops=counts.flops, bytes=counts.bytes, ops=counts.ops,
+            model_flops=mf, bottleneck=rep["bottleneck"],
+            compute_s=rep["compute_s"], memory_s=rep["memory_s"],
+            step_time_lower_bound_s=rep["step_time_lower_bound_s"],
+            measured_ms=ls["ms"], bound_share=share, mfu=mfu,
+            useful_flop_fraction=rep["useful_flop_fraction"],
+            mem_argument_size_in_bytes=arg, argument_growth_bytes=growth,
+            argument_rel_diff=(arg - growth) / growth,
+            mem_output_size_in_bytes=rep["mem_output_size_in_bytes"],
+            count_s=counts.seconds, wall_s=time.perf_counter() - t0)
+
+        # ---- (c) the dry-run row -------------------------------------------
+        t0 = time.perf_counter()
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0,
+          f"dryrun exited {proc.returncode}: {stderr[-2000:]}")
+    rows = [json.loads(ln) for ln in rows_path.read_text().splitlines()]
+    tmp.cleanup()
+    check(len(rows) == 1 and all(k in rows[0] for k in DRYRUN_ROW_KEYS),
+          f"dryrun row: {rows}")
+    out["dryrun"] = dict(argv=DRYRUN_ARGV, row=rows[0],
+                         torch=torch.__version__,
+                         waited_s=time.perf_counter() - t0,
+                         wall_s=time.perf_counter() - t_c)
     out["wall_s"] = time.perf_counter() - t_ph
     return out
 
@@ -3591,7 +3792,10 @@ def main() -> None:
     emit(dict(phase_tree(cx), card=smi))
     del cx.lm_one_bit, cx.lm_periodic
 
-    # ---- 15. summary -------------------------------------------------------
+    # ---- 15. the dry run, the roofline and the examples --------------------
+    emit(dict(phase_dryrun(cx), card=smi))
+
+    # ---- 16. summary -------------------------------------------------------
     def line(name, src, replaces, row, fault=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}.cu",

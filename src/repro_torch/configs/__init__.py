@@ -7,7 +7,9 @@ here and one built there compare field for field; the port's model code
 implements the dense-attention, local-attention, RG-LRU and RWKV6
 time-mix / channel-mix blocks with dense, MoE and RWKV channel-mix FFNs,
 cross-attention sublayers, mixer-less and FFN-less blocks, an encoder
-stack and learned positions (``models/transformer.py``).
+stack and learned positions (``models/transformer.py``). The dry run's
+input shapes (``ShapeConfig``, ``SHAPES``, ``get_shape``) and
+``long_context_variant`` are the reference's too.
 """
 from __future__ import annotations
 
@@ -102,6 +104,15 @@ class ModelConfig:
         kept so parameters convert 1:1)."""
         return -(-self.vocab_size // 256) * 256
 
+    def supports_long_decode(self) -> bool:
+        """True if every mixer is sub-quadratic at decode time (recurrent
+        state, sliding window, or a local:global mix where global layers
+        are O(S) per decoded token)."""
+        for spec in self.layers:
+            if spec.mixer == "attn_local" and self.sliding_window <= 0:
+                return False
+        return self.encoder_layers == 0 or self.family != "audio"
+
     def num_params(self) -> int:
         """Parameter count of every leaf of ``init_params`` but the final
         norm (left out, as the reference's analytic count leaves it out).
@@ -169,6 +180,24 @@ class ModelConfig:
         return self.num_params() - moe_layers * dead
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the dry run: a training step, a prefill or a
+    decode step of ``global_batch`` sequences of ``seq_len`` tokens."""
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
 ARCHS = ["smollm-360m", "recurrentgemma-2b", "rwkv6-7b", "starcoder2-3b",
          "minitron-8b", "gemma3-27b", "phi3.5-moe-42b-a6.6b",
          "llama4-maverick-400b-a17b", "whisper-small",
@@ -191,6 +220,26 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; the port supports {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.make_reduced() if reduced else mod.make_config()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """The sliding-window variant ``long_500k`` runs on dense archs: every
+    global attention layer made local, over the config's window or 8,192
+    positions, the name suffixed ``+swa``. Archs whose mixers are all
+    sub-quadratic already are returned unchanged."""
+    if all(s.mixer in ("rglru", "rwkv", "attn_local", "none")
+           for s in cfg.layers):
+        return cfg
+    window = cfg.sliding_window or 8_192
+    new_layers = tuple(
+        replace(s, mixer="attn_local") if s.mixer == "attn" else s
+        for s in cfg.layers)
+    return replace(cfg, layers=new_layers, sliding_window=window,
+                   name=cfg.name + "+swa")
 
 
 def reduce_config(cfg: ModelConfig, num_layers: int = 2,

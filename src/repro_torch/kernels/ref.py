@@ -103,12 +103,14 @@ def _masked_event(q: torch.Tensor, alive, groups: int,
 def round_to_codes(x: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Round each column of ``x`` through its original dtype (codes from
     ``FlatSpec.rounding_codes``: 0 f32, 1 bf16, 2 f16) and back to f32,
-    round-to-nearest-even. ``codes`` broadcasts over leading axes."""
+    round-to-nearest-even. ``codes`` broadcasts over leading axes. On
+    ``meta`` tensors, whose codes hold no values, both roundings run (a
+    dry run counts them both)."""
     out = x
     is_bf, is_f16 = codes == 1.0, codes == 2.0
-    if bool(is_bf.any()):
+    if codes.is_meta or bool(is_bf.any()):
         out = torch.where(is_bf, x.to(torch.bfloat16).float(), out)
-    if bool(is_f16.any()):
+    if codes.is_meta or bool(is_f16.any()):
         out = torch.where(is_f16, x.to(torch.float16).float(), out)
     return out
 

@@ -21,11 +21,18 @@ The mesh's collectives (:meth:`WorkerMesh.all_reduce_`,
 run over its process group. NCCL takes CUDA tensors (host arrays go to
 the mesh's device first); gloo takes CPU tensors and CUDA tensors
 directly, staging the latter through the host itself. Each
-collective's calls, seconds and bytes add up in
+collective's calls, seconds and bytes (also by dtype) add up in
 ``WorkerMesh.read_stats()[name]`` (``all_reduce``, ``all_gather``,
 ``broadcast``): a collective on CUDA tensors is timed by a pair of CUDA
 events on the current stream, read only when the stats are (no host
 synchronization in the step), one on the host by the host's clock.
+
+On torch's ``fake`` backend (``dist.init_process_group("fake", ...)``
+with ``torch.testing._internal.distributed.fake_pg.FakeStore``) one
+process stands for every rank: the collectives move no data, ``meta``
+tensors included, and the stats count what each call would send. The
+dry run (:mod:`repro_torch.launch.dryrun`) builds the production mesh
+so.
 """
 from __future__ import annotations
 
@@ -98,12 +105,16 @@ class WorkerMesh:
 
     def _timed(self, name: str, t: torch.Tensor, nbytes: int, op):
         """``op()``, with its call and ``nbytes`` added to
-        ``stats[name]``; its time by CUDA events on ``t``'s stream (kept
+        ``stats[name]`` (and to ``stats[name]["dtype_bytes"]`` under
+        ``t``'s dtype, so a reader can price f32 payloads apart from
+        encoded ones); its time by CUDA events on ``t``'s stream (kept
         until :meth:`read_stats`) or by the host's clock."""
         st = self.stats.setdefault(name, dict(calls=0, seconds=0.0,
-                                              bytes=0))
+                                              bytes=0, dtype_bytes={}))
         st["calls"] += 1
         st["bytes"] += nbytes
+        dt = str(t.dtype).removeprefix("torch.")
+        st["dtype_bytes"][dt] = st["dtype_bytes"].get(dt, 0) + nbytes
         if not t.is_cuda:
             t0 = time.perf_counter()
             out = op()

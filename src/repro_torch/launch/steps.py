@@ -1,8 +1,13 @@
-"""Step functions for training, prefill and decode: the counterparts of
-``repro.launch.steps``'s ``make_optimizer``, ``make_train_step``,
-``make_phase_step``, ``make_prefill_step`` and ``make_decode_step``.
-(The reference's abstract input specs, which only its dry run lowers,
-are not on this path.)
+"""Step functions and abstract inputs for training, prefill and decode:
+the counterparts of ``repro.launch.steps``.
+
+The abstract inputs (``sds``, ``input_specs``, ``abstract_params``,
+``abstract_worker_state``, ``abstract_cache``) are ``meta`` tensors:
+shapes and dtypes, no data and no device, which is what the dry run
+(:mod:`repro_torch.launch.dryrun`) counts a step on. The params come from
+``init_params(device="meta")``, whose draws hash nothing on ``meta``
+(:mod:`repro_torch.rng`), so a full-width tree of any arch builds in
+well under a second.
 
 The training steps take worker trees (every leaf with the worker axis
 first): ``make_train_step`` is one local step of every worker through
@@ -14,22 +19,105 @@ flat-NATIVE, as the engine's default carry does: the params and the
 optimizer state as (W, P) planes, the gradients from
 :func:`repro_torch.core.make_plane_step`, each step one ``opt_step``
 pass and the average one ``avg_disp`` pass — the CUDA kernels on the
-card, their plain versions on the CPU.
+card, their plain versions on the CPU, or the plain versions on any
+device (``meta`` too) with ``kernel_impl="ref"``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, ShapeConfig
 from repro_torch.core.averaging import average_all, average_inner
 from repro_torch.core.engine import make_plane_step, make_worker_step
 from repro_torch.core.flat import FlatOptSpec, FlatSpec, tree_map
 from repro_torch.kernels.avg_disp import avg_disp
 from repro_torch.kernels.opt_step import opt_step
+from repro_torch.kernels.ref import opt_step_ref, plane_average_ref
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import cdtype
 from repro_torch.optim import Momentum
 
 AVGS = ("all", "inner", "none")
+#: the plane passes of ``make_phase_step``: "auto" the wrappers (kernel on
+#: CUDA tensors, plain version on CPU tensors), "ref" the plain versions
+#: on any device
+KERNEL_IMPLS = {"auto": (opt_step, avg_disp),
+                "ref": (opt_step_ref, plane_average_ref)}
+
+
+# --------------------------------------------------------------------------
+# Abstract inputs (meta tensors)
+# --------------------------------------------------------------------------
+
+def sds(shape, dtype) -> torch.Tensor:
+    """An abstract array: a ``meta`` tensor of ``shape`` and ``dtype`` (a
+    torch dtype or its name)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                num_workers: int = 0) -> dict:
+    """Abstract model inputs for one step.
+
+    train:   {"tokens": (W, B/W, S)} (+ audio/media per family)
+    prefill: {"tokens": (B, S)}      (+ audio/media)
+    decode:  {"tokens": (B, 1)}      (cache is built separately)
+    """
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        if not (num_workers > 0 and b % num_workers == 0):
+            raise ValueError(f"a train shape needs num_workers > 0 dividing "
+                             f"its batch: {(b, num_workers)}")
+        lead = (num_workers, b // num_workers)
+    elif shape.kind == "prefill":
+        lead = (b,)
+    else:
+        lead = (b,)
+        s = 1  # decode: one new token
+    batch = {"tokens": sds(lead + (s,), torch.int32)}
+    dt = cdtype(cfg)
+    if cfg.family == "audio":
+        batch["audio"] = sds(lead + (cfg.encoder_seq, cfg.d_model), dt)
+    if cfg.family == "vlm":
+        batch["media"] = sds(lead + (cfg.num_media_tokens, cfg.d_model), dt)
+    return batch
+
+
+def abstract_params(cfg: ModelConfig):
+    """The port's params tree on ``meta`` (no draw runs)."""
+    return tfm.init_params(cfg, 0, device="meta")
+
+
+def abstract_worker_state(cfg: ModelConfig, optimizer, num_workers: int):
+    """(worker_params, opt_state) on ``meta``: every params leaf with a
+    leading worker axis of ``num_workers``, and the optimizer's state of
+    that tree."""
+    wp = tree_map(lambda x: sds((num_workers,) + tuple(x.shape), x.dtype),
+                  abstract_params(cfg))
+    return wp, optimizer.init(wp)
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode cache on ``meta`` (``init_cache``'s tree; ``pos`` the
+    Python int 0); a cross-attention block's K/V projected from a stub
+    memory of the encoder's or the media's length."""
+    b = shape.global_batch
+    p = abstract_params(cfg)
+    mem = None
+    if cfg.family == "audio":
+        mem = sds((b, cfg.encoder_seq, cfg.d_model), cdtype(cfg))
+    if cfg.family == "vlm":
+        mem = sds((b, cfg.num_media_tokens, cfg.d_model), cdtype(cfg))
+    with torch.no_grad():
+        return tfm.init_cache(cfg, b, shape.seq_len, memory=mem, params=p,
+                              device="meta")
+
+
+# --------------------------------------------------------------------------
+# Steps
+# --------------------------------------------------------------------------
 
 
 def make_optimizer():
@@ -69,7 +157,8 @@ def make_train_step(cfg: ModelConfig, *, impl: str = "plain",
 def make_phase_step(cfg: ModelConfig, *, phase_len: int,
                     impl: str = "plain", remat: bool = True,
                     avg: str = "all", inner_groups: int = 0,
-                    optimizer=None, flat: bool = False):
+                    optimizer=None, flat: bool = False,
+                    kernel_impl: str = "auto"):
     """``phase_len`` local steps over a stacked (K, W, ...) batch block,
     then the phase-end average ("all" | "inner" | "none").
 
@@ -78,13 +167,19 @@ def make_phase_step(cfg: ModelConfig, *, phase_len: int,
     params plane is unpacked around the tree-mapped step and the average
     is the plain plane mean (no rounding codes: the unpack casts the
     mean to the leaf dtypes). Without ``flat`` the phase is the worker
-    tree's, with the tree averages.
+    tree's, with the tree averages. ``kernel_impl`` picks the plane
+    passes (:data:`KERNEL_IMPLS`): "ref" runs the plain versions on any
+    device, as the dry run needs on ``meta``.
 
     Returns phase_step(worker_params, opt_state, batches, step0) ->
     (worker_params, opt_state, per-step mean losses (K,)); ``step0`` is
     the number of steps completed before the phase."""
     if avg not in AVGS:
         raise ValueError(f"avg must be one of {AVGS}, got {avg!r}")
+    if kernel_impl not in KERNEL_IMPLS:
+        raise ValueError(f"kernel_impl must be one of {tuple(KERNEL_IMPLS)}"
+                         f", got {kernel_impl!r}")
+    step_op, avg_op = KERNEL_IMPLS[kernel_impl]
     opt = optimizer or make_optimizer()
     loss_fn = _lm_loss_fn(cfg, impl=impl, remat=remat)
     wstep = make_worker_step(loss_fn, opt)
@@ -110,7 +205,7 @@ def make_phase_step(cfg: ModelConfig, *, phase_len: int,
             step = step0 + k + 1
             if native:
                 ls, _, gplane = grads_fn(plane, batch)
-                plane, carry_s, _ = opt_step(
+                plane, carry_s, _ = step_op(
                     plane, gplane, carry_s, opt.plane_scalars(step),
                     kind=opt.plane_kind, mode="none", codes=codes,
                     **opt.plane_hypers())
@@ -121,11 +216,11 @@ def make_phase_step(cfg: ModelConfig, *, phase_len: int,
             losses.append(torch.mean(ls))
         if native:
             if avg != "none":
-                plane, _ = avg_disp(plane, groups=groups, codes=codes)
+                plane, _ = avg_op(plane, groups=groups, codes=codes)
             wp, os = spec.unpack(plane), opt_spec.unpack(carry_s)
         elif flat:
             if avg != "none":
-                carry_p, _ = avg_disp(carry_p, groups=groups)
+                carry_p, _ = avg_op(carry_p, groups=groups)
             wp, os = spec.unpack(carry_p), carry_s
         else:
             wp, os = carry_p, carry_s

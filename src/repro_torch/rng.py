@@ -33,6 +33,12 @@ it needs the same bits, so this module re-implements the pieces of
                           (key, sub = split(key); stable sort by
                           random_bits(sub, (n,)))
 
+On ``device="meta"`` the draws hash nothing: ``random_bits`` and
+``truncated_normal`` return an empty ``meta`` tensor of the draw's shape
+and dtype (the other draws map those bits on ``meta``), so an init run
+on ``meta`` (the dry run's abstract params) builds its tree of shapes
+without the threefry work.
+
 A key is a (2,) int64 tensor holding two uint32 words. The key
 operations (``split``, ``fold_in``) hash a handful of counters, so they
 run the same hash on Python ints, which costs microseconds per call
@@ -102,11 +108,22 @@ def fold_in(key, data: int) -> torch.Tensor:
                         dtype=torch.int64)
 
 
+def _meta(shape, dtype, device):
+    """The draw's empty ``meta`` tensor when ``device`` is ``meta``, else
+    None."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+    return None
+
+
 def random_bits(key, shape, *, device=None, start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32 words as int64) on
     ``device``. ``start`` offsets the flat counter: the block
     ``[start, start + prod(shape))`` of the draw over a larger shape, so
     a long row can be drawn in chunks."""
+    m = _meta(shape, torch.int64, device)
+    if m is not None:
+        return m
     k1, k2 = _words(key)
     n = math.prod(shape)
     i = torch.arange(start, start + n, dtype=torch.int64, device=device)
@@ -273,6 +290,9 @@ def truncated_normal(key, lower, upper, shape, *,
     the temporaries stay bounded whatever the shape. The bounds are
     those of :data:`_ERF_AT` (the inits' -2, 2)."""
     a, b = _erf32(lower), _erf32(upper)
+    m = _meta(shape, torch.float32, device)
+    if m is not None:
+        return m
     lo = float(np.nextafter(np.float32(lower), np.float32(np.inf)))
     hi = float(np.nextafter(np.float32(upper), np.float32(-np.inf)))
     sqrt2 = float(np.float32(np.sqrt(2)))

@@ -409,10 +409,16 @@ def test_port_and_chip_smoke_import_no_jax():
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
-        f"{str(ROOT / 'chip_smoke.py')!r})\n"
-        "mod = importlib.util.module_from_spec(spec)\n"
-        "spec.loader.exec_module(mod)\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun\n"
+        "print('INITIALIZED', dist.is_initialized())\n"
+        "for name, path in [('chip_smoke', "
+        f"{str(ROOT / 'chip_smoke.py')!r})] + [\n"
+        "        (f, f'examples/{f}.py') for f in ('quickstart_torch', "
+        "'serve_lm_torch', 'train_cnn_e2e_torch')]:\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith(('jax.', 'jaxlib', 'repro.')) or n == 'repro')\n"
         "print('BAD', bad)\n")
@@ -420,6 +426,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "INITIALIZED False" in out.stdout, out.stdout
 
 
 def _run_smoke(cwd):

@@ -4,6 +4,12 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Phases, each printing one JSON line:
+  0. the port's static pass (``phase_static``; its budget, 10 s, printed
+     first), before any build: ``python -m repro_torch.analysis --format
+     json`` in a subprocess from the script's root must exit 0 with
+     ``"ok": true``; the rule counts, the baseline's entries by rule and
+     the kernels ``kernel-twin`` discovers, which the summary holds
+     against the kernels the card ran;
   1. card + build: the device, ``nvidia-smi`` name and power limit, and
      the build of every CUDA kernel under src/repro_torch/kernels/csrc/;
      the bf16 flash kernel's (``flash_fwd_wgmma``) registers and spills
@@ -230,7 +236,9 @@ Phases, each printing one JSON line:
      process group: exit 0 and the row's keys;
  16. summary: a ``kernels`` line over all eight kernels (``opt_step``,
      ``avg_disp``, ``mix_disp`` and ``compressed_mix`` also with their
-     masked pass's ``fault_ms`` and ``fault_bound_ms``), the card, then
+     masked pass's ``fault_ms`` and ``fault_bound_ms``), whose names must
+     be the set phase 0 discovered, each launched on the main path and
+     held against its plain version in this call; the card, then
      ``{"ok": true, "device": ...}`` as the last line.
 
 Every launch count is set to 0 just before a main-path run (phases 3-15;
@@ -2206,6 +2214,44 @@ def phase_tree(cx) -> dict:
     return out
 
 
+# ---- phase 0: the port's static pass ----------------------------------------
+#: phase 0's budget (s), printed before it runs: the pass takes about 4 s
+#: on a 2-core CPU sandbox
+STATIC_BUDGET_S = 10.0
+
+
+def phase_static() -> dict:
+    """phase 0: ``python -m repro_torch.analysis --format json`` in a
+    subprocess from the script's root (exit 0, ``"ok": true``), then the
+    kernels its ``kernel-twin`` rule discovers, read in this process
+    (the pass imports only the standard library)."""
+    import os
+    from collections import Counter
+
+    from repro_torch.analysis import RepoModel
+    from repro_torch.analysis.rules.kernel_twin import discover_kernels
+
+    print(f"[phase 0] static analysis: budget {STATIC_BUDGET_S:.0f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--format", "json"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0,
+          f"static analysis exited {proc.returncode}: "
+          f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    check(report["ok"] is True and not report["stale_baseline"],
+          f"static analysis not ok: {report['counts']}")
+    kernels = sorted(n for _, n, _ in discover_kernels(RepoModel.load(ROOT)))
+    return {"phase": "static_analysis", "budget_s": STATIC_BUDGET_S,
+            "rules": report["rules"], "counts": report["counts"],
+            "baseline_by_rule": dict(sorted(Counter(
+                f["rule"] for f in report["accepted"]).items())),
+            "kernels": kernels, "wall_s": time.perf_counter() - t0}
+
+
 # ---- phase 15: the dry run, the roofline and the examples ------------------
 #: phase 15's budget on a normal host (s), printed before its first call
 DRYRUN_BUDGET_S = 40.0
@@ -2414,6 +2460,10 @@ def main() -> None:
         check(got == want, f"{what}: launches {got}, want {want}")
         add_counts(got)
         return got
+
+    # ---- 0. the static pass, before any build ------------------------------
+    static = phase_static()
+    emit(static)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3809,7 +3859,7 @@ def main() -> None:
             out.update(fault_ms=fault["ms"], fault_bound_ms=fault["bound_ms"])
         return out
 
-    emit({"kernels": [
+    summary = [
         line("opt_step", "opt_step", "src/repro/kernels/opt_step.py:185",
              full["opt_step/none"], ff["opt_step/fault-none-codes"]),
         line("avg_disp", "avg_disp", "src/repro/kernels/avg_disp.py:156",
@@ -3831,7 +3881,18 @@ def main() -> None:
         line("rglru_scan", "rglru_scan", "src/repro/kernels/rglru_scan.py:46",
              full["rglru_scan/recurrentgemma-2b"]),
         line("rwkv6_scan", "rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:47",
-             full["rwkv6_scan/rwkv6-7b"])]})
+             full["rwkv6_scan/rwkv6-7b"])]
+    # the static registry against what the card ran: the discovered
+    # kernels, each launched on the main path and held against its plain
+    # version in this call
+    names = sorted(k["name"] for k in summary)
+    check(names == static["kernels"], f"kernels line {names} is not the "
+          f"set phase 0 discovered, {static['kernels']}")
+    for k in summary:
+        check(k["launches"] >= 1 and math.isfinite(k["max_abs_err"]),
+              f"{k['name']}: launches {k['launches']}, max_abs_err "
+              f"{k['max_abs_err']}")
+    emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind_name,
                                  "count": torch.cuda.device_count()}})

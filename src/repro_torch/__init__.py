@@ -8,6 +8,13 @@ are hand-written CUDA kernels (``kernels/csrc/``); everything else is
 eager PyTorch. Entry points run on the card (``device="cuda"``) unless
 the caller asks for the CPU, where the kernels' plain versions run.
 """
-from repro_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # lazy: ``repro_torch.device`` loads torch, and ``repro_torch.analysis``
+    # must import where torch is not installed
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

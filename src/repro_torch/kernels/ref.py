@@ -377,3 +377,20 @@ def rwkv6_scan_ref(r, k, v, log_w, u, dtype=torch.float32):
                                  S + u[None, :, :, None] * kv)
         S = w[:, t, :, :, None] * S + kv
     return out
+
+
+# Kernel-twin registry: maps every public CUDA kernel under
+# ``repro_torch.kernels`` to the plain PyTorch version(s) that define its
+# semantics, the keys of ``repro.kernels.ref.TWINS``. Checked by the
+# ``kernel-twin`` rule of ``repro_torch.analysis``: a kernel without a
+# registered twin, an equivalence test and a ``card_check`` sweep fails it.
+TWINS = {
+    "avg_disp": "plane_average_ref",
+    "mix_disp": "mix_disp_ref",
+    "avg_disp_outer": "avg_disp_outer_ref",
+    "compressed_mix": ("compressed_avg_ref", "compressed_mix_ref"),
+    "opt_step": "opt_step_ref",
+    "flash_attention": "flash_attention_ref",
+    "rglru_scan": "rglru_scan_ref",
+    "rwkv6_scan": "rwkv6_scan_ref",
+}

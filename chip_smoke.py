@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
      (tensor-core) instructions counted in the SASS by ``cuobjdump``
      where the toolkit or Triton has one, each head dim needing some; the
      same for ``rwkv6_scan``'s ``rwkv6_chunk_mma`` per head dim and input
-     type (no spills at 64, TF32 ``HMMA`` in each instantiation);
+     type (no spills at 64, TF32 ``HMMA`` in each instantiation); the
+     registers and spills of each of ``avg_disp_cols``' 40
+     instantiations, none spilling up to 32 workers;
   2. kernels vs plain: ``opt_step`` (modes none / mean / group / mix and
      the wire path), ``avg_disp``, ``mix_disp``, ``avg_disp_outer`` and
      ``compressed_mix`` against their plain PyTorch versions over the
@@ -27,7 +29,13 @@ Phases, each printing one JSON line:
      ``avg_disp`` mean, ``mix_disp`` ring mix and ``avg_disp_outer``
      outer step of the LM plane too),
      bitwise reproducible across two runs, timed with CUDA events beside
-     their memory bound; then
+     their memory bound (``avg_disp``'s one launch an event
+     (``card_check.avg_sweep``; each timed plane held by
+     ``check_avg_event``: one launch a call, the finisher's ticket back
+     at 0), its full-width rows, the CNN's plane and the least squares'
+     24 x 1024 plane split by ``call_split``: device µs, the host path,
+     and at the CNN's plane one trace's kernels a call (one, no
+     ``sum_partials``)); then
      ``flash_attention``, ``rglru_scan`` and ``rwkv6_scan`` over
      card_check's serving sweep (the JAX suite's shapes in float32 and
      bfloat16, and the serving shapes) and timed at the serving shapes
@@ -147,7 +155,9 @@ Phases, each printing one JSON line:
      from the CPU's state (``CNN_LOSS_RTOL``, ``CNN_PLANE_TOL``,
      ``CNN_FLIP_FRAC``), a free-running card run beside them reported;
      ``opt_step`` and ``avg_disp`` held against their plain versions
-     and timed at the CNN's plane beside their bounds; one batch's
+     and timed at the CNN's plane beside their bounds (``avg_disp``
+     split by ``call_split``: its device µs and host path beside the
+     CUDA-event ms); one batch's
      gradients against float64 (``conv_gradients``: the port's im2col
      convolution gated, ``F.conv2d`` with and without cuDNN reported);
      the final train loss and test error per schedule and the paper's
@@ -524,6 +534,19 @@ def rwkv6_kernels(names) -> dict:
     return out
 
 
+def avg_disp_kernels(names) -> dict:
+    """{"<MAXM>-<V>-<masked>-<codes>": mangled name} of avg_disp.cu's
+    sweeps (``avg_disp_cols<MAXM, V, MASKED, CODES>``) among ``names``."""
+    import re
+    out = {}
+    for n in names:
+        m = re.search(r"avg_disp_colsILi(\d+)ELi(\d+)ELb([01])ELb([01])E",
+                      n)
+        if m:
+            out["-".join(m.groups())] = n
+    return out
+
+
 def flash_kernels(names) -> dict:
     """{head dim: mangled name} of the bf16 tensor-core flash kernels
     (``flash_fwd_wgmma<hd>``) among ``names``."""
@@ -551,6 +574,92 @@ def device_ms(fn, iters) -> float:
             fn()
         torch.cuda.synchronize()
     return _breakdown(prof, iters, 1.0)["device_busy_ms"]
+
+
+def cuda_time(fn, iters) -> float:
+    """ms per call of ``fn`` with CUDA events, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def call_split(fn, iters, prof_iters, trace=False) -> dict:
+    """One call of ``fn`` on the card split: ``ms``, :func:`cuda_time`
+    over ``iters`` back-to-back calls (a call's host path sits inside it
+    wherever that path outlasts its kernels); ``host_us``, the host clock
+    over ``iters`` calls with no synchronization between them (the Python
+    path to the launches); ``device_us``, CUDA events around
+    ``prof_iters`` calls queued behind a spin kernel (``torch.cuda._sleep``)
+    that holds the stream until every call is enqueued, so that the card
+    runs them back to back with no host time between; and with ``trace``,
+    ``torch.profiler`` over ``prof_iters`` calls read by ``_breakdown``:
+    ``kernels_per_call``, ``busy_us`` (the union of their spans) and the
+    top kernels' ms a call by name."""
+    import torch
+    out = {"ms": cuda_time(fn, iters)}
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    out["host_us"] = 1e6 * (time.perf_counter() - t) / iters
+    torch.cuda.synchronize()
+    # about 2e3 cycles a µs (1.98 GHz at most): hold the stream 2x the
+    # enqueue plus 10 ms, and check that it still held after it; a host
+    # stall longer than that (the host's cores are shared) voids the
+    # reading, which is taken again behind a spin twice as long
+    spin_us = 2 * prof_iters * out["host_us"] + 1e4
+    for _ in range(3):
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        torch.cuda._sleep(int(2e3 * spin_us))
+        b.record()
+        for _ in range(prof_iters):
+            fn()
+        c.record()
+        held = not b.query()
+        torch.cuda.synchronize()
+        if held:
+            break
+        spin_us *= 2
+    check(held, f"the spin kernel ({a.elapsed_time(b):.3f} ms) ended "
+          f"before {prof_iters} calls were enqueued, three times")
+    out["device_us"] = 1e3 * b.elapsed_time(c) / prof_iters
+    if not trace:
+        return out
+    from repro_torch.launch.profile import _breakdown, _profiler
+    with _profiler() as prof:
+        for _ in range(prof_iters):
+            fn()
+        torch.cuda.synchronize()
+    got = _breakdown(prof, prof_iters, out["device_us"])
+    # the launches themselves are held without the profiler (launch
+    # counts, the finisher's ticket); a session with no device record at
+    # all is the profiler's failure to record, not a kernel's
+    check(got["kernels_per_step"] > 0,
+          f"torch.profiler recorded no device activity over {prof_iters} "
+          "calls (no CUPTI kernel record reached the trace)")
+    return dict(out, kernels_per_call=got["kernels_per_step"],
+                busy_us=1e3 * got["device_busy_ms"],
+                kernel_ms=dict(got["top_kernels"]))
+
+
+#: avg_disp_cols<MAXM, V, MASKED, CODES>: V in {4, 2, 1} at MAXM 4 and 8,
+#: {2, 1} at 16, 1 at 32 and 64 (csrc/avg_disp.cu's kMaxCols), x 2 x 2
+AVG_DISP_INSTANTIATIONS = (3 + 3 + 2 + 1 + 1) * 4
+#: avg_disp's small planes: the §3.2 CNN's (traced: one kernel a call, no
+#: sum_partials) and the paper's least squares, groups 1 and the
+#: hierarchical event's 4: (M, P, groups, trace)
+AVG_SPLIT_PLANES = {
+    "cnn-g1": (4, 1663370, 1, True),
+    "ls-g1": (24, 1024, 1, False),
+    "ls-g4": (24, 1024, 4, False),
+}
 
 
 def sdpa_time(q, k, v, cuda_time, *, causal, window):
@@ -1135,11 +1244,17 @@ def phase_paper_cnn(cx) -> dict:
         kernels["opt_step"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                    bound_by=b_by, max_abs_err=err_opt)
         err_avg = cc.check_avg_disp("avg_disp/cnn", xk.clone(), 1)
-        k_ms = cx.cuda_time(lambda: avg_disp(xk, groups=1), 200)
+        # the event split: CUDA events per call (ms), the host path, the
+        # device time of calls queued back to back (phase 2 traces the
+        # same plane's kernels)
+        split = call_split(lambda: avg_disp(xk, groups=1), 200, 50)
+        k_ms = split.pop("ms")
         p_ms = cx.cuda_time(lambda: ref.plane_average_ref(x, groups=1), 20)
         b_ms, b_by = bound_ms(*avg_disp_cost(m, p_width))
         kernels["avg_disp"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                   bound_by=b_by, max_abs_err=err_avg)
+                                   bound_by=b_by, max_abs_err=err_avg,
+                                   device_bound_share=b_ms * 1e3
+                                   / split["device_us"], **split)
         del xk, sk
     del x, g, st
     cx.free()
@@ -2525,6 +2640,20 @@ def main() -> None:
         check(sorted(wkv_hmma) == wkv_keys
               and all(c > 0 for c in wkv_hmma.values()),
               f"TF32 HMMA in rwkv6_chunk_mma's SASS: {wkv_hmma}")
+    # avg_disp.cu's 40 instantiations (MAXM 4..64 x columns a thread x
+    # MASKED x CODES): registers and spills of each (key MAXM-V-MASKED-
+    # CODES)
+    ptx_avg = {r["kernel"]: r for r in info["ptxas"]["avg_disp"]}
+    avg_regs = {key: {k: ptx_avg[n][k] for k in
+                      ("registers", "spill_stores", "spill_loads")}
+                for key, n in sorted(avg_disp_kernels(ptx_avg).items())}
+    check(len(avg_regs) == AVG_DISP_INSTANTIATIONS,
+          f"avg_disp_cols instantiations in ptxas: {sorted(avg_regs)}")
+    # up to 32 workers (every plane the main path gives it) none spills
+    for key, r in avg_regs.items():
+        check(int(key.split("-")[0]) > 32
+              or r["spill_stores"] == r["spill_loads"] == 0,
+              f"avg_disp_cols<{key}> spills: {r}")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "device": kind_name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -2533,7 +2662,8 @@ def main() -> None:
           "flash_fwd_wgmma_ptxas": flash_regs,
           "flash_fwd_wgmma_hgmma": hgmma,
           "rwkv6_chunk_mma_ptxas": wkv_regs,
-          "rwkv6_chunk_mma_tf32_hmma": wkv_hmma, "cuobjdump": tool,
+          "rwkv6_chunk_mma_tf32_hmma": wkv_hmma,
+          "avg_disp_cols_ptxas": avg_regs, "cuobjdump": tool,
           "ptxas": info.get("ptxas", {})})
 
     # ---- 2. kernels against their plain versions ---------------------------
@@ -2541,19 +2671,11 @@ def main() -> None:
     launch_us = {"before_phase_2": host_launch_us(dev)}
     t_phase = t0 = time.perf_counter()
     n_cases, err = cc.sweep(dev)
+    # avg_disp.cu's one-launch design: column widths, ragged and narrow
+    # planes, the CNN's, the persistent grid's span, the cached scratch
+    n_avg, avg_res = cc.avg_sweep(dev)
+    err["avg_disp"] = max(err["avg_disp"], avg_res["avg_disp"])
     sweep_s = time.perf_counter() - t0
-
-    def cuda_time(fn, iters):
-        """ms per call of ``fn`` with CUDA events, after one warm-up."""
-        fn()
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
 
     def free():
         torch.cuda.synchronize()
@@ -2640,12 +2762,19 @@ def main() -> None:
     del u, r
     free()
 
-    def time_event(name, kname, check_fn, run_k, run_p, cost, lib=None):
+    def time_event(name, kname, check_fn, run_k, run_p, cost, lib=None,
+                   split=False):
         """A full-width ``avg_disp`` / ``mix_disp`` call: checked, then
-        timed beside its plain version (and ``lib``, one PyTorch call)."""
+        timed beside its plain version (and ``lib``, one PyTorch call);
+        ``split``: the kernel's time as :func:`call_split` splits it."""
         err[kname] = max(err[kname], check_fn())
         free()
-        k_ms = cuda_time(run_k, 10)
+        extra = {}
+        if split:
+            extra = call_split(run_k, 10, 5)
+            k_ms = extra.pop("ms")
+        else:
+            k_ms = cuda_time(run_k, 10)
         free()
         p_ms = cuda_time(run_p, 3)
         free()
@@ -2653,18 +2782,19 @@ def main() -> None:
         if lib is not None:
             lib_ms = cuda_time(lib, 10)
             free()
-        record(name, k_ms, p_ms, cost, library_ms=lib_ms)
+        record(name, k_ms, p_ms, cost, library_ms=lib_ms, **extra)
 
     # f32 means and group means, then the coded mean of the LM plane's
-    # periodic event (bf16 codes)
+    # periodic event (bf16 codes); each held as one launch a call
+    # (check_avg_event) and split into device and host
     for grp, cd in ((1, None), (2, None), (1, codes)):
         tag = f"g{grp}" + ("-codes" if cd is not None else "")
         time_event(f"avg_disp/{tag}", "avg_disp",
-                   lambda: cc.check_avg_disp(f"avg_disp/full-{tag}", x, grp,
-                                             cd),
+                   lambda: cc.check_avg_event(f"avg_disp/full-{tag}", x, grp,
+                                              cd)[0],
                    lambda: avg_disp(x, groups=grp, codes=cd),
                    lambda: ref.plane_average_ref(x, groups=grp, codes=cd),
-                   avg_disp_cost(FULL_M, FULL_P, cd is not None))
+                   avg_disp_cost(FULL_M, FULL_P, cd is not None), split=True)
     # the ring mix, f32 and coded; one PyTorch call for the mix (not the
     # dispersion, nor the rounding): W @ x in full f32
     for cd in (None, codes):
@@ -2700,6 +2830,27 @@ def main() -> None:
         del pv
     del x, prev, vel, codes
     free()
+    # avg_disp at the §3.2 CNN's plane and the paper's least-squares
+    # plane (24 x 1024: groups 1 and the hierarchical inner event's 4),
+    # held and split as above; the CNN's traced once: one kernel a call,
+    # no sum_partials
+    small_planes = {}
+    for name, (m_, p_, grp, trace) in AVG_SPLIT_PLANES.items():
+        xl = cc.make_inputs(dev, m_, p_, "sgd", seed=9)[0]
+        e, grid = cc.check_avg_event(f"avg_disp/{name}", xl, grp)
+        err["avg_disp"] = max(err["avg_disp"], e)
+        row = call_split(lambda: avg_disp(xl, groups=grp), 200, 50,
+                         trace=trace)
+        check(not trace or (row["kernels_per_call"] == 1 and not any(
+            "sum_partials" in k for k in row["kernel_ms"])),
+            f"avg_disp/{name}: {row.get('kernel_ms')} a call")
+        b_ms, b_by = bound_ms(*avg_disp_cost(m_, p_))
+        row["plain_ms"] = cuda_time(
+            lambda: ref.plane_average_ref(xl, groups=grp), 50)
+        small_planes[f"avg_disp/{name}"] = dict(
+            M=m_, P=p_, grid=grid, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=e, **row)
+        del xl
 
     # the serving kernels: card_check's sweep, then each timed at its
     # serving shape beside its bound, its plain version and (flash
@@ -2758,12 +2909,14 @@ def main() -> None:
     del wkv_in
     free()
     emit({"phase": "kernels_vs_plain", "sweep_cases": n_cases,
+          "avg_sweep_cases": n_avg, "avg_disp_grids": avg_res["grids"],
           "serve_sweep_cases": n_serve, "sweep_s": sweep_s,
           "serve_sweep_s": serve_sweep_s, "max_abs_err": err,
           "serve_max_abs_err": serve_err,
           "flash_serve_tol": dict(zip(("atol", "rtol"), cc.FLASH_SERVE_TOL)),
           "rwkv6_tol": dict(zip(("atol", "rtol"), cc.RWKV6_TOL)),
           "full_width": {"M": FULL_M, "P": FULL_P, **full},
+          "small_planes": small_planes,
           "wall_s": time.perf_counter() - t_phase, "card": smi})
 
     # ---- 3. the main path at full width (bf16 smollm-360m) ----------------

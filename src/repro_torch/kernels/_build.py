@@ -52,7 +52,7 @@ SIGNATURES = {
                   _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _I, _ULL,
                   _ULL, _P]),
     "avg_disp": ("avg_disp_launch",
-                 [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _ULL, _P]),
+                 [_P, _P, _P, _P, _I, _P, _P, _I, _LL, _I, _I, _ULL, _P]),
     "mix_disp": ("mix_disp_launch",
                  [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _ULL, _P]),
     "avg_disp_outer": ("avg_disp_outer_launch",

@@ -20,7 +20,10 @@ plain version in ``repro_torch.kernels.ref``. A CUDA tensor a kernel
 cannot take raises. ``avg_disp_outer``, and ``avg_disp`` / ``mix_disp``
 without ``alive``, return new tensors; ``compressed_mix`` and the
 masked events update the plane (and the residual) in place on the card
-(a full-width plane is 5.8 GB).
+(a full-width plane is 5.8 GB). An ``avg_disp`` event is ONE launch,
+its dispersion's cross-block sum included (``csrc/avg_disp.cu``), on
+scratch made once for each stream; the other three sum their
+dispersion partials in a second launch (``sum_partials``).
 
 ``codes`` ((P,) f32 rounding codes, ``FlatSpec.rounding_codes``) round
 the event's output per column through the leaf dtype, as the plain
@@ -42,6 +45,8 @@ the plain versions (``compressed_mix``'s one_bit: within one ulp of its
 row scale).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -68,7 +73,8 @@ def _check_plane(what: str, plane) -> None:
 
 
 def _scratch(plane):
-    """(dispersion partials, dispersion) for a column sweep."""
+    """(dispersion partials, dispersion) for a column sweep of
+    ``mix_disp.cu``, ``avg_disp_outer.cu`` or ``compressed_mix.cu``."""
     p = plane.shape[1]
     return (torch.empty(-(-p // 256), dtype=torch.float32,
                         device=plane.device),
@@ -109,31 +115,76 @@ def avg_disp(plane, *, groups: int = 1, codes=None, alive=None):
 
 def _card_avg(plane, *, groups, codes, alive):
     """One ``avg_disp.cu`` launch on the card's tensors (module note);
-    counts it in ``avg_disp.launches``. Returns (plane, dispersion)."""
+    counts it in ``avg_disp.launches``. Returns (plane, dispersion): the
+    dispersion a fresh 0-dim tensor (callers keep it)."""
     what = "avg_disp"
     _check_plane(what, plane)
     alive_bits = _event_checks(what, plane, codes, alive)
     out = plane if alive_bits is not None else torch.empty_like(plane)
-    dpart, disp = _scratch(plane)
-    err = _avg_launch(plane, out, codes, dpart, disp, groups=groups,
+    disp = torch.empty((), dtype=torch.float32, device=plane.device)
+    err = _avg_launch(plane, out, codes, disp, groups=groups,
                       alive_bits=alive_bits)
     _build.check(err, what)
     avg_disp.launches += 1
     return out, disp
 
 
-def _avg_launch(plane, out, codes, dpart, disp, *, groups,
-                alive_bits) -> int:
-    """``avg_disp_launch`` on the current stream (``alive_bits`` None:
-    unmasked). Returns its ``cudaError_t``."""
+#: the most 256-thread blocks an SM holds resident (2048 threads an SM on
+#: sm_80 / sm_90): ``avg_disp.cu``'s grid is at most this many a SM
+_AVG_BLOCKS_PER_SM = 8
+#: (device index, stream) -> (float64 partials, ticket): the scratch of
+#: ``avg_disp.cu``'s launches on that stream
+_avg_scratch: dict = {}
+
+
+def _stream_scratch(dev, stream: int):
+    """``avg_disp.cu``'s scratch for launches on ``stream`` of ``dev``: a
+    float64 partial for each block of the largest grid the card holds
+    resident, and the finisher's ticket (an int32 counter, 0 between
+    launches). Made at the stream's
+    first launch and kept: one stream's launches run in order, so they
+    share it; no two streams do."""
+    key = (dev.index, stream)
+    got = _avg_scratch.get(key)
+    if got is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        got = _avg_scratch[key] = (
+            torch.empty(sms * _AVG_BLOCKS_PER_SM, dtype=torch.float64,
+                        device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    return got
+
+
+def _avg_launch(plane, out, codes, disp, *, groups, alive_bits) -> int:
+    """``avg_disp_launch`` on the current stream of the plane's device
+    (``alive_bits`` None: unmasked), with the stream's cached scratch.
+    Returns its ``cudaError_t``."""
+    dev = plane.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _avg_launch(plane, out, codes, disp, groups=groups,
+                               alive_bits=alive_bits)
     m, p = plane.shape
     lib = _build.library("avg_disp")
-    with torch.cuda.device(plane.device):
-        return lib.avg_disp_launch(
-            plane.data_ptr(), out.data_ptr(),
-            codes.data_ptr() if codes is not None else None,
-            dpart.data_ptr(), disp.data_ptr(), m, p, groups,
-            int(alive_bits is not None), alive_bits or 0, _stream())
+    stream = torch.cuda.current_stream().cuda_stream
+    dpart, ticket = _stream_scratch(dev, stream)
+    return lib.avg_disp_launch(
+        plane.data_ptr(), out.data_ptr(),
+        codes.data_ptr() if codes is not None else None, dpart.data_ptr(),
+        dpart.numel(), ticket.data_ptr(), disp.data_ptr(), m, p, groups,
+        int(alive_bits is not None), alive_bits or 0, stream)
+
+
+def _avg_grid(x_ptr, codes_ptr, room, m, p, masked) -> int:
+    """The grid ``avg_disp_launch`` takes on the current device for an
+    (m, p) plane at ``x_ptr`` (its output as aligned), ``codes_ptr`` (None:
+    no codes) and ``room`` partials, asked of ``avg_disp_grid`` (the
+    launch's own choice of instantiation and grid) without a launch."""
+    fn = _build.library("avg_disp").avg_disp_grid
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(x_ptr, x_ptr, codes_ptr, room, m, p, int(masked))
 
 
 def mix_disp(plane, W, *, codes=None, alive=None):

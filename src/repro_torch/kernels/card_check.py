@@ -47,6 +47,13 @@ f32 column and on the residual (a scale one ulp apart moves each
 decoded value by that ulp, and their mean or mix by no more), one dtype
 ulp on top of it on coded columns.
 
+``avg_disp``'s one-launch design (:func:`avg_sweep`, on the card only:
+it reads the kernel's scratch) holds every ``MAXM`` and columns-a-thread
+instantiation, masked and unmasked, with and without codes, groups 1, 2
+and 4, at ragged, narrow, CNN-sized and grid-span planes, bitwise its
+plain version, one launch a call and the ticket back at 0, and its
+scratch over back-to-back calls and two streams.
+
 The fault paths (``alive`` / ``umask``, :func:`fault_sweep`) run over
 ``COMM_SHAPES`` with dead, straggling and all-alive masks
 (:func:`fault_masks`), each against its masked plain version. Dead rows
@@ -86,6 +93,17 @@ from repro_torch.topology import Topology, gossip_matrix
 # block, every register-array size M rounds up to (4, 8, 32, 64), and
 # (24, 1024) is the paper's least-squares plane on the f32 main path.
 SHAPES = [(4, 1000, 2), (8, 2500, 4), (24, 1024, 4), (64, 333, 8)]
+# avg_disp.cu's one-launch design: M at every register-array bound (MAXM
+# 4, 8, 16, 32, 64) with P = 0, 1, 2, 3 mod 4 (4, 1, 2 and 1 columns a
+# thread where MAXM allows, float4 / float2 rows), then planes narrower
+# than one block's tile of 256 x V columns; each M divides by every group
+# count of AVG_GROUPS.
+AVG_WIDTH_SHAPES = ([(m, 4096 + r) for m in (4, 8, 12, 24, 64)
+                     for r in range(4)] + [(4, 100), (12, 30), (64, 7)])
+# the §3.2 CNN's plane (M=4 x P=1,663,370, P = 2 mod 4) and the M of the
+# persistent grid's column-span cases
+CNN_PLANE = (4, 1663370)
+AVG_SPAN_M = (4, 64)
 # (M, P) planes the paper's §3.1 convex suite gives opt_step and avg_disp
 # that SHAPES lacks, held bitwise: one worker (the single-worker curve,
 # 1 x 1024; modes none and mean only, since a group count must divide M)
@@ -417,6 +435,155 @@ def check_avg_disp(name, x, groups, codes=None) -> float:
     _require(torch.equal(got2, got) and float(d2) == float(got_d),
              f"{name}: two runs differ")
     return err
+
+
+def avg_cols(m, p) -> int:
+    """Columns a thread of ``avg_disp.cu`` takes on an (m, p) plane whose
+    pointers are 16-byte aligned (every fresh allocation is)."""
+    v = 4 if p % 4 == 0 else 2 if p % 2 == 0 else 1
+    return min(v, 4 if m <= 8 else 2 if m <= 16 else 1)
+
+
+def _avg_room(dev) -> int:
+    """Partials of ``avg_disp.cu``'s scratch on the current stream."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _avg_mod._stream_scratch(dev, stream)[0].numel()
+
+
+def avg_ticket(dev) -> int:
+    """The finisher's counter of ``avg_disp.cu``'s scratch on the current
+    stream of ``dev`` (0 between launches)."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return int(_avg_mod._stream_scratch(dev, stream)[1][0])
+
+
+def avg_grid(dev, m, p, *, x=None, codes=None, masked=False) -> int:
+    """The grid of an ``avg_disp.cu`` launch on an (m, p) plane of ``dev``
+    with the current stream's scratch, without a launch
+    (``kernels/avg_disp.py::_avg_grid``; ``x`` and ``codes``: the tensors
+    whose alignment it reads, the output as aligned as ``x``; None:
+    aligned)."""
+    with torch.cuda.device(dev):
+        return _avg_mod._avg_grid(
+            x.data_ptr() if x is not None else None,
+            codes.data_ptr() if codes is not None else None, _avg_room(dev),
+            m, p, masked)
+
+
+def check_avg_event(name, x, groups, codes=None, alive=None) -> tuple:
+    """``avg_disp`` on ``x`` held by :func:`check_avg_disp` (``alive``:
+    :func:`check_avg_disp_fault`, in place on copies), and the design:
+    one launch a call, the ticket back at 0, a grid of at most the
+    plane's tiles of 256 x V columns and the scratch's room. Returns
+    (max abs error, the grid)."""
+    m, p = x.shape
+    grid = avg_grid(x.device, m, p, x=x, codes=codes,
+                    masked=alive is not None)
+    before = _avg_mod.avg_disp.launches
+    if alive is None:
+        e = check_avg_disp(name, x, groups, codes)
+    else:
+        e = check_avg_disp_fault(name, x, alive, groups, codes)
+    _require(_avg_mod.avg_disp.launches - before == 2,
+             f"{name}: {_avg_mod.avg_disp.launches - before} launches for "
+             "two calls")
+    counter = avg_ticket(x.device)
+    tiles = -(-(p // avg_cols(m, p)) // 256)
+    room = _avg_room(x.device)
+    _require(counter == 0, f"{name}: ticket left at {counter}")
+    _require(1 <= grid <= max(1, min(tiles, room)),
+             f"{name}: grid {grid} for {tiles} tiles, room {room}")
+    return e, grid
+
+
+def avg_span_shapes(dev, m) -> list:
+    """P at the persistent grid's column span and one either side, for
+    ``avg_disp.cu`` at M = ``m``: the grid of its one-column (odd P)
+    instantiation on a plane wider than the card holds resident
+    (:func:`avg_grid`), times 256 columns."""
+    span = avg_grid(dev, m, _avg_room(dev) * 256 + 1) * 256
+    return [(m, span - 1), (m, span), (m, span + 1)]
+
+
+def check_avg_scratch(dev) -> int:
+    """``avg_disp.cu``'s scratch, made once a stream: two calls of
+    different P back to back, a masked call right after an unmasked one
+    (no synchronization between), and calls on a side stream while the
+    default stream runs others (the side stream's scratch its own); every
+    result bitwise its plain version, the dispersions within rtol 1e-5.
+    Returns the number of calls held."""
+    xa = make_inputs(dev, 4, 1_000_001, "sgd", seed=61)[0]
+    xb, _, _, _, cb = make_inputs(dev, 8, 4098, "sgd", "mixed", seed=62)
+    want_a = ref.plane_average_ref(xa)
+    want_b = ref.plane_average_ref(xb, groups=2, codes=cb)
+    alive = fault_masks(8)["dead"][0]
+    want_m = ref.plane_average_ref(xb, groups=2, codes=cb, alive=alive)
+
+    def same(name, got, want):
+        _require(torch.equal(got[0], want[0]), f"{name}: plane differs")
+        _same_disp(name, got[1], want[1])
+
+    got_a = avg_disp(xa)
+    got_b = avg_disp(xb, groups=2, codes=cb)
+    same("avg_disp/scratch-back-to-back-a", got_a, want_a)
+    same("avg_disp/scratch-back-to-back-b", got_b, want_b)
+    xm = xb.clone()
+    got_u = avg_disp(xb, groups=2, codes=cb)
+    got_m = avg_disp(xm, groups=2, codes=cb, alive=alive)
+    same("avg_disp/scratch-unmasked-first", got_u, want_b)
+    _require(got_m[0] is xm, "avg_disp/scratch-masked: not in place")
+    hold_rows("avg_disp/scratch-masked", got_m[0], want_m[0], xb, alive)
+    _same_disp("avg_disp/scratch-masked", got_m[1], want_m[1])
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        got_s = avg_disp(xa)
+        got_s2 = avg_disp(xb, groups=2, codes=cb)
+    got_d = avg_disp(xb, groups=2, codes=cb)
+    got_d2 = avg_disp(xa)
+    torch.cuda.synchronize(dev)
+    for name, got, want in (("side-a", got_s, want_a),
+                            ("side-b", got_s2, want_b),
+                            ("main-b", got_d, want_b),
+                            ("main-a", got_d2, want_a)):
+        same(f"avg_disp/scratch-{name}", got, want)
+    keys = [(dev.index, main.cuda_stream), (dev.index, side.cuda_stream)]
+    _require(all(k in _avg_mod._avg_scratch for k in keys),
+             "avg_disp/scratch: a stream without its own scratch")
+    t_main, t_side = (_avg_mod._avg_scratch[k][1] for k in keys)
+    _require(t_main.data_ptr() != t_side.data_ptr()
+             and int(t_main[0]) == 0 and int(t_side[0]) == 0,
+             "avg_disp/scratch: the streams share a ticket, or one is not 0")
+    return 10
+
+
+def avg_sweep(dev) -> tuple[int, dict]:
+    """On the card, ``avg_disp.cu``'s design (:func:`check_avg_event`) over
+    ``AVG_WIDTH_SHAPES`` x ``AVG_GROUPS`` x (f32, mixed codes) x
+    (unmasked, a dead row), the CNN's plane, the persistent grid's column
+    span +-1 (:func:`avg_span_shapes`) and the cached scratch
+    (:func:`check_avg_scratch`). Returns (number of cases, {"avg_disp":
+    max abs error, "grids": {"M<m>P<p>": grid}})."""
+    err, grids, n = 0.0, {}, 0
+    shapes = (list(AVG_WIDTH_SHAPES) + [CNN_PLANE]
+              + [s for m in AVG_SPAN_M for s in avg_span_shapes(dev, m)])
+    for m, p in shapes:
+        dead = fault_masks(m)["dead"][0]
+        for grp in AVG_GROUPS:
+            for codes_kind in (None, "mixed"):
+                x, _, _, _, codes = make_inputs(dev, m, p, "sgd", codes_kind,
+                                                seed=6000 + n)
+                for alive in (None, dead):
+                    tag = "fault-" if alive is not None else ""
+                    e, grid = check_avg_event(
+                        f"avg_disp/{tag}g{grp}-{codes_kind}-M{m}P{p}", x,
+                        grp, codes, alive)
+                    err = max(err, e)
+                    grids[f"M{m}P{p}"] = grid
+                    n += 1
+    n += check_avg_scratch(dev)
+    return n, {"avg_disp": err, "grids": grids}
 
 
 def comm_sweep(dev) -> tuple[int, dict]:

@@ -97,6 +97,40 @@ def test_avg_disp_kernel_on_narrow_planes(dev, shape):
             assert cc.check_avg_disp(f"g{groups}", x, groups) == 0.0
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "dead"])
+@pytest.mark.parametrize("codes", [None, "mixed"], ids=["f32", "codes"])
+@pytest.mark.parametrize("shape", cc.AVG_WIDTH_SHAPES + [cc.CNN_PLANE],
+                         ids=lambda s: f"M{s[0]}P{s[1]}")
+def test_avg_disp_one_launch_design(dev, shape, codes, masked):
+    """avg_disp.cu's columns a thread, ragged and narrow planes and the
+    CNN's: bitwise the plain version, one launch a call, the ticket back
+    at 0, a grid within the plane's tiles (card_check.check_avg_event)."""
+    m, p = shape
+    alive = cc.fault_masks(m)["dead"][0] if masked else None
+    x, _, _, _, cd = cc.make_inputs(dev, m, p, "sgd", codes, seed=p % 97)
+    for groups in cc.AVG_GROUPS:
+        e, _ = cc.check_avg_event(f"g{groups}", x, groups, cd, alive)
+        assert e == 0.0
+
+
+@pytest.mark.parametrize("m", cc.AVG_SPAN_M)
+def test_avg_disp_at_the_persistent_grid_span(dev, m):
+    """P at the persistent grid's column span and one either side: the
+    last thread sweeps one column more, or one column less."""
+    for mm, p in cc.avg_span_shapes(dev, m):
+        x = cc.make_inputs(dev, mm, p, "sgd", seed=p % 89)[0]
+        for groups in cc.AVG_GROUPS:
+            e, _ = cc.check_avg_event(f"g{groups}-P{p}", x, groups)
+            assert e == 0.0
+
+
+def test_avg_disp_scratch_per_stream(dev):
+    """The cached scratch: calls of different P back to back, a masked
+    call after an unmasked one, calls on a side stream beside the default
+    stream's."""
+    assert cc.check_avg_scratch(dev) == 10
+
+
 def test_kernels_refuse_what_they_cannot_take(dev):
     x, g, st, scal, _ = cc.make_inputs(dev, 4, 64, "momentum")
     with pytest.raises(ValueError, match="contiguous"):

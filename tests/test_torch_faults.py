@@ -655,8 +655,7 @@ def _emulated_compressed_mix_cu(plane, resid, u, codes, W, rowpart, scales,
     return 0
 
 
-def _emulated_avg_disp_cu(plane, out, codes, dpart, disp, *, groups,
-                          alive_bits):
+def _emulated_avg_disp_cu(plane, out, codes, disp, *, groups, alive_bits):
     """``avg_disp_launch`` in torch on CPU tensors: the rows of the row
     word (all rows unmasked) read, the dispersion over them, the (group)
     means of their rows into those rows of ``out`` (the plane itself

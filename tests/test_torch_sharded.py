@@ -2,10 +2,11 @@
 JAX reference's single-device engine.
 
 One module fixture starts 8 gloo ranks once (``torch_sharded_worker.py``,
-a ``file://`` rendezvous under the test's temporary directory, each rank
-on one thread, killed after 300 s). They run every configuration of the
-reference's sharded suite (``tests/test_sharded.py``'s ``_SCRIPT``: DIM
-12, 256 samples, M=16, 41 steps, Momentum lr 0.05 / mu 0.9, seed 3) —
+forked from one process after its imports, a ``file://`` rendezvous
+under the test's temporary directory, each rank on one thread, killed
+once no rank finishes a run for 120 s). They run every configuration of
+the reference's sharded suite (``tests/test_sharded.py``'s ``_SCRIPT``:
+DIM 12, 256 samples, M=16, 41 steps, Momentum lr 0.05 / mu 0.9, seed 3) —
 the seven schedules, the outer optimizer, the indexed data plane, ring /
 torus / gossip_pairs, bf16 / int8 / one_bit on periodic / stochastic /
 adaptive_budget, the int8 ring mix — plus fault plans (crash, rejoin,
@@ -74,7 +75,7 @@ def ranks(tmp_path_factory):
     here after the ranks end: the ranks' collectives wait on every rank,
     so they run without this process's threads competing for the CPU."""
     workdir = str(tmp_path_factory.mktemp("sharded"))
-    out = tw.collect(tw.start(WORLD, workdir), workdir, timeout=300.0)
+    out = tw.collect(tw.start(WORLD, workdir), workdir, WORLD)
     for name in NAMES:
         unsharded(name)
         reference(name)

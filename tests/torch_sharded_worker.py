@@ -5,10 +5,15 @@ Every configuration of the reference's sharded suite
 (``tests/test_sharded.py``'s ``_SCRIPT``: DIM 12, 256 samples, M=16
 workers, 41 steps, Momentum lr 0.05 / mu 0.9, seed 3) plus fault plans,
 telemetry and an elastic run, each under both collectives, on a worker
-mesh over every rank of the world; each rank pickles its results to
-``<out>/rank<r>.pkl`` (a traceback on failure).
+mesh over every rank of the world; each rank appends a line to
+``<out>/rank<r>.progress`` as it finishes a run and pickles its results
+to ``<out>/rank<r>.pkl`` (a traceback on failure).
 
-    python tests/torch_sharded_worker.py RANK WORLD RENDEZVOUS_FILE OUT
+    python tests/torch_sharded_worker.py WORLD RENDEZVOUS_FILE OUT
+
+imports torch and the port once and forks the WORLD ranks from there
+(:func:`serve`), so that no rank spends its share of a loaded host on
+the imports again.
 
 This module imports only ``numpy``, ``torch`` and ``repro_torch`` (never
 ``jax``): the test process imports it for the configuration table,
@@ -19,6 +24,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
+import signal
 import subprocess
 import sys
 import time
@@ -208,6 +214,9 @@ def main(rank: int, world: int, rendezvous: str, out: str) -> None:
                 if CONFIGS[name].get("telemetry"):
                     res["metrics"] = phase_metrics(eng)
                 results[(name, coll)] = res
+                with open(os.path.join(out, f"rank{rank}.progress"),
+                          "a") as f:
+                    f.write(f"{name} {coll}\n")
         results["seconds"] = time.perf_counter() - t0
         results["modules"] = sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "repro"))
@@ -221,42 +230,123 @@ def main(rank: int, world: int, rendezvous: str, out: str) -> None:
         sys.exit(1)
 
 
-def start(world: int, workdir: str) -> list:
-    """Start :func:`main` on ``world`` processes that rendezvous over a
-    file in ``workdir``; returns them, running (see :func:`collect`)."""
-    rdv = os.path.join(workdir, "rendezvous")
+def serve(world: int, rendezvous: str, out: str) -> None:
+    """Fork the ``world`` ranks of :func:`main` from this process once it
+    has imported what they run (it has one thread then: torch starts
+    none at import, so the forks are safe); rank r writes its output to
+    ``<out>/rank<r>.log``. Exits 1 when a rank failed."""
+    import torch  # noqa: F401  (imported once, before the forks)
+
+    import repro_torch.core  # noqa: F401
+    import repro_torch.elastic  # noqa: F401
+    import repro_torch.launch.mesh  # noqa: F401
+    import repro_torch.telemetry  # noqa: F401
+    port_ns()
+    for r in range(world):
+        if os.fork() == 0:
+            code = 1
+            try:
+                fd = os.open(os.path.join(out, f"rank{r}.log"),
+                             os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+                os.dup2(fd, 1)
+                os.dup2(fd, 2)
+                main(r, world, rendezvous, out)
+                code = 0
+            except SystemExit as e:
+                code = e.code if isinstance(e.code, int) else 1
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(code)
+    failed = False
+    for _ in range(world):
+        _, status = os.wait()
+        failed |= status != 0
+    sys.exit(1 if failed else 0)
+
+
+def start(world: int, workdir: str):
+    """Start :func:`serve`'s ``world`` ranks, which rendezvous over a file
+    in ``workdir``, in a session of their own; returns its process,
+    running (see :func:`collect`). The ranks wait on every rank at each
+    collective, so a rank kept off the CPU stalls them all; under
+    autogroup scheduling their own session gets a CPU share of its own
+    beside the busy test workers (on an 8-core host under 20 busy
+    threads: 63 s, against 174 s in the test's session)."""
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "src")
     env["PYTHONPATH"] = os.pathsep.join([src, env.get("PYTHONPATH", "")])
     env["OMP_NUM_THREADS"] = "1"
-    return [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                              str(r), str(world), rdv, workdir], env=env,
-                             stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT)
-            for r in range(world)]
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(world),
+         os.path.join(workdir, "rendezvous"), workdir], env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        start_new_session=True)
 
 
-def collect(procs: list, workdir: str, *, timeout: float = 300.0,
-            started: float | None = None) -> list:
-    """Each rank's results of :func:`start`'s processes; every process
-    still running ``timeout`` seconds after ``started`` (a
-    ``time.monotonic()``; now by default) is killed, and a rank's failure
-    raises with its traceback."""
-    deadline = (time.monotonic() if started is None else started) + timeout
-    logs = []
+def _read(path: str) -> str:
     try:
-        for p in procs:
-            out, _ = p.communicate(
-                timeout=max(deadline - time.monotonic(), 1.0))
-            logs.append(out.decode(errors="replace"))
+        with open(path, errors="replace") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
+
+
+#: seconds without a finished run, and in all, before :func:`collect`
+#: kills the ranks: the 54 runs take 31-39 s in all on an idle 8-core
+#: host, 63 s beside busy test workers, a run a few seconds at most
+STALL_S, TIMEOUT_S = 120.0, 400.0
+AUTOGROUP = "/proc/sys/kernel/sched_autogroup_enabled"
+
+
+def _autogroup() -> str:
+    """The host's autogroup setting, which gives the ranks' session its
+    own CPU share (:func:`start`): "1", "0" or "absent"."""
+    try:
+        with open(AUTOGROUP) as f:
+            return f.read().strip()
+    except OSError:
+        return "absent"
+
+
+def collect(proc, workdir: str, world: int) -> list:
+    """Each rank's results of :func:`start`'s process. The ranks report
+    each run they finish (``rank<r>.progress``); they are killed, and
+    this raises with their logs, once no rank has reported one for
+    ``STALL_S`` seconds (a hang) or ``TIMEOUT_S`` after the call. A
+    rank's failure raises with its traceback."""
+    progress = [os.path.join(workdir, f"rank{r}.progress")
+                for r in range(world)]
+    t0 = last = time.monotonic()
+    seen, stuck = -1, None
+    try:
+        while proc.poll() is None:
+            now = time.monotonic()
+            done = sum(os.path.getsize(p) for p in progress
+                       if os.path.exists(p))
+            if done != seen:
+                seen, last = done, now
+            if now - last > STALL_S or now - t0 > TIMEOUT_S:
+                runs = sum(_read(p).count("\n") for p in progress)
+                stuck = (f"no rank finished a run in {now - last:.0f} s, "
+                         f"{now - t0:.0f} s after the start, {runs} runs "
+                         f"finished over the ranks (autogroup: "
+                         f"{_autogroup()})")
+                break
+            time.sleep(0.2)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    logs = [_read(os.path.join(workdir, f"rank{r}.log"))
+            for r in range(world)]
+    if stuck is not None:
+        raise RuntimeError(f"the ranks were killed: {stuck}\n"
+                           + "\n".join(f"--- rank {r}:\n{log}"
+                                       for r, log in enumerate(logs)))
     results = []
-    for r in range(len(procs)):
+    for r in range(world):
         path = os.path.join(workdir, f"rank{r}.pkl")
         if not os.path.exists(path):
             raise RuntimeError(f"rank {r} wrote no result:\n" + logs[r])
@@ -273,7 +363,6 @@ def torchrun(nproc: int, argv: list, *, timeout: float = 300.0,
     """``torchrun --standalone --nproc-per-node nproc -m module argv``
     on one thread a rank; the whole process group is killed at
     ``timeout`` seconds. Returns (exit code, stdout, stderr)."""
-    import signal
     env = dict(os.environ, OMP_NUM_THREADS="1")
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "src")
@@ -293,4 +382,4 @@ def torchrun(nproc: int, argv: list, *, timeout: float = 300.0,
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    serve(int(sys.argv[1]), sys.argv[2], sys.argv[3])

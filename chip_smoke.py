@@ -68,15 +68,17 @@ Phases, each printing one JSON line:
      its indexed twin; then small runs on the card and on the CPU (the
      kernels' plain versions), which must agree;
   5. the paper's §3.1 convex suite at the ``CONVEX_SUITE`` sizes (two
-     least squares, two logistic regressions, 24 workers): w* from
-     ``solve_optimum``, σ², β² and ρ from ``core.variance_model``, then
-     paired-draw curves from one ``DeviceDataset`` index list — oneshot,
-     minibatch, periodic 64, periodic 128 and one worker, 128 steps
-     each, the objective every 64 steps — with their events, launches
-     (``opt_step`` 128; ``avg_disp`` 2 / 1 / 0 / 0), steady ms per step
-     and normalized suboptimality; and one config run three ways over 256
-     steps (indexed, staged from host batches, ``run_host``), bitwise
-     equal, with their ms per step;
+     least squares, two logistic regressions, 24 workers;
+     ``phase_convex_curves``): w* from ``solve_optimum`` and its
+     checks, σ², β² and ρ from ``experiments.table1.table1_row``, then
+     Figure 2's paired-draw curves through
+     ``experiments.fig2_convex.sgd_curves`` (its engine wrapped here to
+     count each curve's launches) — oneshot, minibatch, periodic 64,
+     periodic 128 and one worker, 128 steps each, the objective every 64
+     steps — with their events, launches (``opt_step`` 128; ``avg_disp``
+     2 / 1 / 0 / 0), steady ms per step and normalized suboptimality;
+     and one config run three ways over 256 steps (indexed, staged from
+     host batches, ``run_host``), bitwise equal, with their ms per step;
   6. serving at full width (``repro_torch.launch.serve``, bf16, random
      weights): recurrentgemma-2b, batch 4, a prompt of 3072 (beyond its
      2048 window), 32 tokens generated — the prefill launches
@@ -147,10 +149,12 @@ Phases, each printing one JSON line:
  10. the paper's §3.2 CNN (Fig. 3) at ``CNNConfig``'s widths (LeNet5,
      32/64 channels, fc 512; P = 1,663,370, 4 workers, batch 8,
      Momentum 0.9, lr 0.01 x0.95 an epoch) on ``mnist_like`` (4096
-     train, 512 test, noise 0.6) through a ``DeviceDataset`` in permute
-     mode: periodic-10 and oneshot, 256 steps each, evaluated every 25
-     (``opt_step`` launches = steps, ``avg_disp`` = events, no plain
-     version called on the card); a profile of 20 steps (device busy,
+     train, 512 test, noise 0.6) through ``experiments.fig3_cnn.run_cnn``
+     (its engine wrapped here to count each schedule's launches and keep
+     its state): periodic-10 and oneshot from one ``DeviceDataset`` in
+     permute mode, 256 steps each, evaluated every 25 (``opt_step``
+     launches = steps, ``avg_disp`` = events, no plain version called on
+     the card); a profile of 20 steps (device busy,
      idle share); the first 50 steps on the card against the CPU, each
      from the CPU's state (``CNN_LOSS_RTOL``, ``CNN_PLANE_TOL``,
      ``CNN_FLIP_FRAC``), a free-running card run beside them reported;
@@ -161,11 +165,17 @@ Phases, each printing one JSON line:
      gradients against float64 (``conv_gradients``: the port's im2col
      convolution gated, ``F.conv2d`` with and without cuDNN reported);
      the final train loss and test error per schedule and the paper's
-     two Fig. 3 statements (printed, not gated); then
-     ``core.theory.simulate_quadratic`` on the card over bench_lemma1's
-     zetas and 3000 steps (2000 reps) against
-     ``lemma1_asymptotic_variance`` and against the CPU's run of the
-     same draws (64 reps);
+     two Fig. 3 statements (printed, not gated); then Lemma 1 through
+     ``experiments.lemma1.lemma1_rows`` on the card over bench_lemma1's
+     zetas and 3000 steps (2000 reps) against the closed form and
+     against the CPU's run of the same draws (64 reps); and (b)
+     (``phase_paper_nonconvex``; its budget, 15 s, printed first) Figure
+     1 (``experiments.fig1_pca``, bench_fig1_pca.run's 24 workers x 4000
+     samples, six phase lengths) and the §2.4 quartic
+     (``experiments.quartic``, ``QuarticConfig``: 24 workers, 10,000
+     steps, four averaging fractions) on the card, each against the
+     port's CPU run of the same draws (``FIG1_RTOL``, ``QUARTIC_RTOL``),
+     their wall seconds and the kernels a run (``torch.profiler``);
  11. the sharded plane (``PhaseEngine(mesh=, collective=)``,
      ``repro_torch.launch.mesh``; ``phase_sharded``): (a) the least
      squares of phase 4 (64 steps; periodic-8, stochastic, and a ring
@@ -722,10 +732,10 @@ CNN_PARITY_STEPS = 50
 #: gradients, which part by some 1e-3 (``conv_gradients``), move every
 #: convolution weight's: 3% of a row
 CNN_LOSS_RTOL, CNN_PLANE_TOL, CNN_FLIP_FRAC = 1e-5, 1e-5, 1e-2
-#: phase 10's Lemma 1 runs: bench_lemma1.py's zetas and steps; the reps of
-#: the card runs, and of the CPU twins they are held against (rtol 1e-4:
-#: the same threefry draws, normals an ulp apart where the card's log1p is)
-LEMMA1_ZETAS, LEMMA1_STEPS = (0.0, 0.001, 0.005, 0.02, 0.1, 0.3, 1.0), 3000
+#: phase 10's Lemma 1 runs (``experiments.lemma1``: bench_lemma1.py's
+#: zetas and steps): the reps of the card runs, and of the CPU twins they
+#: are held against (rtol 1e-4: the same threefry draws, normals an ulp
+#: apart where the card's log1p is)
 LEMMA1_REPS, LEMMA1_CPU_REPS = 2000, 64
 #: the zetas of the reference's own Lemma 1 test, gated at its rel 0.15
 LEMMA1_GATED = (0.0, 0.02, 0.1, 1.0)
@@ -1015,32 +1025,140 @@ def _leaves(tree) -> list:
     return tree_flatten(tree)[0]
 
 
+def phase_convex_curves(cx) -> dict:
+    """Phase 5's curves: for each config of ``CONVEX_SUITE`` at its full
+    size, w* and its checks, Table 1's row (``experiments.table1``) and
+    Figure 2's paired-draw curves (``experiments.fig2_convex.sgd_curves``,
+    its engine wrapped to count each curve's launches alone)."""
+    import torch
+    from repro_torch.configs.paper import CONVEX_SUITE
+    from repro_torch.data import convex_dataset
+    from repro_torch.experiments import fig2_convex, table1
+    from repro_torch.models.convex import (full_gradient, make_problem,
+                                           solve_optimum)
+
+    dev = cx.dev
+    phase_lens = (0, 1, SUITE_STEPS // 2, SUITE_STEPS)
+    engine_cls = fig2_convex.PhaseEngine
+    curve_runs, cur = [], {}
+
+    class CountedEngine(engine_cls):
+        def run(self, params, data, *, num_workers, **kw):
+            sched = self.schedule
+            # the minibatch schedule fuses its event into opt_step
+            events = {"minibatch": SUITE_STEPS,
+                      "periodic": SUITE_STEPS // sched.phase_len}.get(
+                          sched.kind, 0)
+            launches = events if sched.kind == "periodic" else 0
+            what = f"{cur['name']} {sched.kind} M={num_workers}"
+            cx.zero_counts()
+            final, hist = super().run(params, data, num_workers=num_workers,
+                                      **kw)
+            got = cx.read_counts({"opt_step": SUITE_STEPS,
+                                  "avg_disp": launches}, what)
+            check(hist["averages"] == events,
+                  f"{what}: {hist['averages']} events")
+            evals = [v for _, v in hist["eval"]]
+            check([t for t, _ in hist["eval"]]
+                  == list(range(SUITE_EVERY, SUITE_STEPS + 1, SUITE_EVERY))
+                  and all(map(math.isfinite, evals)),
+                  f"{what}: evals {hist['eval']}")
+            curve_runs.append(dict(
+                workers=num_workers, events=hist["averages"],
+                event_steps=[t for t, _ in hist["dispersion"]][:8],
+                launches={k: got[k] for k in ("opt_step", "avg_disp")},
+                steady_step_ms=steady_step_ms(hist["phase_wall"])))
+            return final, hist
+
+    suite = {}
+    fig2_convex.PhaseEngine = CountedEngine
+    try:
+        for c in CONVEX_SUITE:
+            cur["name"] = c.name
+            X, y, _ = convex_dataset(c.model, c.num_samples, c.num_dims,
+                                     sparsity=c.sparsity, noise=c.noise,
+                                     seed=0)
+            Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+            obj = make_problem(c.model)[0]
+            w0 = torch.zeros(c.num_dims, device=dev)
+            t0 = time.perf_counter()
+            w_star = solve_optimum(c.model, Xd, yd)
+            cx.sync()
+            solve_ms = (time.perf_counter() - t0) * 1e3
+            g_ratio = float(
+                torch.linalg.norm(full_gradient(c.model, w_star, Xd, yd))
+                / torch.linalg.norm(full_gradient(c.model, w0, Xd, yd)))
+            check(g_ratio < 0.05, f"{c.name}: w* gradient ratio {g_ratio}")
+            f0, fstar = float(obj(w0, Xd, yd)), float(obj(w_star, Xd, yd))
+            check(fstar < f0, f"{c.name}: f* {fstar} not below f(0) {f0}")
+            # Table 1's row at the suite's full size
+            t0 = time.perf_counter()
+            row = table1.table1_row(c, c.num_samples, c.num_dims, device=dev)
+            table1_s = time.perf_counter() - t0
+            sigma2, beta2, rho_ = row["sigma2"], row["beta2"], row["rho"]
+            check(all(map(math.isfinite, (beta2, sigma2, rho_)))
+                  and beta2 > 0,
+                  f"{c.name}: beta2 {beta2}, sigma2 {sigma2}, rho {rho_}")
+            # paired draws (default_rng(0)): worker w of every curve takes
+            # idx[:, w]; the rate as grid_curves takes it
+            meansq = float(torch.mean(torch.sum(Xd * Xd, dim=1)))
+            curve_runs.clear()
+            t0 = time.perf_counter()
+            curves = fig2_convex.sgd_curves(
+                c.model, Xd, yd, workers=c.num_workers, steps=SUITE_STEPS,
+                phase_lens=list(phase_lens),
+                lr0=SUITE_LR_MULT * SUITE_LR_D / meansq, lr_d=SUITE_LR_D,
+                seed=0, record_every=SUITE_EVERY, device=str(dev))
+            curves_s = time.perf_counter() - t0
+            check(list(curves) == ["oneshot", "minibatch",
+                                   f"periodic_{SUITE_STEPS // 2}",
+                                   f"periodic_{SUITE_STEPS}", "single"]
+                  and [r["workers"] for r in curve_runs]
+                  == [c.num_workers] * 4 + [1],
+                  f"{c.name}: curves {list(curves)}")
+            out = {}
+            for (name, sub), run in zip(curves.items(), curve_runs):
+                out[name] = dict(run, subopt=sub, subopt_end=sub[-1][1])
+                check(name == "single" or sub[-1][1] < 1.0,
+                      f"{c.name} {name}: no progress, {sub[-1][1]}")
+            suite[c.name] = dict(samples=c.num_samples, dims=c.num_dims,
+                                 workers=c.num_workers, f0=f0, f_star=fstar,
+                                 w_star_grad_ratio=g_ratio,
+                                 solve_optimum_ms=solve_ms, sigma2=sigma2,
+                                 beta2=beta2, rho=rho_, table1_row_s=table1_s,
+                                 sgd_curves_s=curves_s, curves=out)
+            del Xd, yd, w_star
+            cx.free()
+    finally:
+        fig2_convex.PhaseEngine = engine_cls
+    return suite
+
+
 def phase_paper_cnn(cx) -> dict:
     """Phase 10: the paper's §3.2 CNN (Fig. 3) at ``CNNConfig``'s widths
     through the engine, periodic-10 and oneshot, card against CPU over
     the first steps, the kernels at its shape; then the theory module's
     Lemma 1 simulation on the card against the closed form and the
     CPU."""
-    import numpy as np
     import torch
     from repro_torch import rng
     from repro_torch.configs.paper import CNNConfig, QuadraticConfig
-    from repro_torch.core import AveragingSchedule, PhaseEngine, theory
+    from repro_torch.core import AveragingSchedule, PhaseEngine
     from repro_torch.core import engine as engine_mod
     from repro_torch.data import DeviceDataset, mnist_like
+    from repro_torch.experiments import fig3_cnn, lemma1
     from repro_torch.kernels import avg_disp as avg_mod
     from repro_torch.kernels import opt_step as opt_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import card_check as cc
     from repro_torch.launch.profile import _breakdown, _profiler
-    from repro_torch.models import cnn_error, cnn_loss, init_cnn
+    from repro_torch.models import cnn_loss, init_cnn
     from repro_torch.optim import Momentum, schedules
 
     t_ph = time.perf_counter()
     cfg = CNNConfig()
     m, steps = cfg.num_workers, cx.cnn_steps
     images, labels = mnist_like(CNN_TRAIN, seed=0, noise=CNN_NOISE)
-    test_images, test_labels = mnist_like(CNN_TEST, seed=1, noise=CNN_NOISE)
     arrays = {"images": images, "labels": labels}
     params0 = init_cnn(cfg, rng.PRNGKey(0), device="cpu")
     spe = CNN_TRAIN // (m * cfg.batch_size)
@@ -1058,19 +1176,6 @@ def phase_paper_cnn(cx) -> dict:
                 else AveragingSchedule("oneshot"))
 
     dev = cx.dev
-    tr = {"images": torch.from_numpy(images[:CNN_TEST]).to(dev),
-          "labels": torch.from_numpy(labels[:CNN_TEST]).to(dev)}
-    te = {"images": torch.from_numpy(test_images).to(dev),
-          "labels": torch.from_numpy(test_labels).to(dev)}
-
-    def metrics(p):
-        return float(cnn_loss(cfg, p, tr)), float(cnn_error(cfg, p, te))
-
-    def worker_metrics(wp):
-        trs = [float(cnn_loss(cfg, {k: {n: v[i] for n, v in d.items()}
-                                    for k, d in wp.items()}, tr))
-               for i in range(m)]
-        return min(trs), max(trs)
 
     # every way the card path could reach a plain version, counted where it
     # is handed a tensor on the card
@@ -1089,23 +1194,23 @@ def phase_paper_cnn(cx) -> dict:
         setattr(mod, n, counted(getattr(mod, n)))
     for k in engine_mod._PLAIN_OPS:
         engine_mod._PLAIN_OPS[k] = counted(saved_ops[k])
-    runs, state = {}, None
-    try:
-        # one dataset for both schedules: the second run continues the
-        # permutation cursors, as bench_fig3_cnn.py's does
-        data = DeviceDataset(arrays, m, batch_size=cfg.batch_size, seed=0,
-                             mode="permute", device=dev)
-        for name, k in (("periodic", cfg.phase_len), ("oneshot", 0)):
+    runs, kept = {}, {}
+
+    class CountedEngine(fig3_cnn.PhaseEngine):
+        """run_cnn's engine: each schedule's launches counted alone, its
+        history, dataset and final state kept."""
+        def run(self, params, data, *, num_workers, **kw):
+            k = self.schedule.phase_len if self.schedule.kind == "periodic" \
+                else 0
+            name = "periodic" if k else "oneshot"
+            ev = steps // k if k else 0
             cx.zero_counts()
             t = time.perf_counter()
-            final, hist, st = engine(sched_of(k), dev).run(
-                params0, data, num_workers=m, seed=0,
-                record_every=CNN_EVERY, eval_fn=metrics,
-                worker_eval_fn=worker_metrics, phase_len=CNN_EVERY,
-                steps=steps, return_state=True)
+            final, hist, st = super().run(params, data,
+                                          num_workers=num_workers,
+                                          return_state=True, **kw)
             cx.sync()
             wall = time.perf_counter() - t
-            ev = steps // k if k else 0
             got = cx.read_counts({"opt_step": steps, "avg_disp": ev},
                                  f"cnn {name}")
             check(hist["averages"] == ev, f"cnn {name}: {hist['averages']}")
@@ -1119,9 +1224,23 @@ def phase_paper_cnn(cx) -> dict:
                 best_worker_loss=hist["worker_eval"][-1][1][0],
                 worst_worker_loss=hist["worker_eval"][-1][1][1],
                 eval=[(t_, a, b) for t_, (a, b) in hist["eval"]])
-            if name == "periodic":
-                state = st
-            del final, hist, st
+            kept[name] = (data, st)
+            return final, hist
+
+    fig3_cnn.PhaseEngine = CountedEngine
+    try:
+        # Figure 3 through the experiment: one dataset for both schedules,
+        # the second run continuing the permutation cursors
+        t = time.perf_counter()
+        curves = fig3_cnn.run_cnn(cfg, steps, seed=0,
+                                  record_every=CNN_EVERY, eval_n=CNN_TEST,
+                                  noise=CNN_NOISE, device=dev)
+        run_cnn_s = time.perf_counter() - t
+        check(list(curves) == ["periodic", "oneshot"] == list(runs)
+              and all(curves[n]["avg"] == runs[n]["eval"] for n in curves),
+              f"run_cnn returned {list(curves)}, ran {list(runs)}")
+        data, state = kept.pop("periodic")
+        kept.clear()
         # where a step's time goes: 20 steps unprofiled, 20 profiled
         eng = engine(sched_of(cfg.phase_len), dev)
         cx.zero_counts()
@@ -1202,6 +1321,7 @@ def phase_paper_cnn(cx) -> dict:
               f"cnn: events, card {ev_g} against CPU {ev_c}")
         card_plain = plain["calls"]
     finally:
+        fig3_cnn.PhaseEngine = PhaseEngine
         for (mod, n), fn in zip(patched, saved):
             setattr(mod, n, fn)
         engine_mod._PLAIN_OPS.update(saved_ops)
@@ -1267,34 +1387,28 @@ def phase_paper_cnn(cx) -> dict:
         periodic_beats_best_worker=pr["train_loss"]
         <= pr["best_worker_loss"] + 1e-6)
 
-    # the theory module: Lemma 1 on the card against its closed form and
-    # against the CPU's run of the same draws
+    # Lemma 1 through the experiment on the card, against its closed form
+    # and against the CPU's run of the same draws
     q = QuadraticConfig()
+    sims, card_s = lemma1.lemma1_rows(q, reps=cx.lemma_reps, device=dev)
+    twins, _ = lemma1.lemma1_rows(q, reps=LEMMA1_CPU_REPS, seed=1,
+                                  device=dev)
+    twins_cpu, cpu_s = lemma1.lemma1_rows(q, reps=LEMMA1_CPU_REPS, seed=1,
+                                          device="cpu")
     lemma = []
-    for z in LEMMA1_ZETAS:
-        args = (q.alpha, q.c, q.beta2, q.sigma2, q.num_workers, z,
-                LEMMA1_STEPS)
-        pred = theory.lemma1_asymptotic_variance(*args[:6])
-        t = time.perf_counter()
-        sim = theory.simulate_quadratic(*args, reps=cx.lemma_reps,
-                                        device=dev)
-        card_s = time.perf_counter() - t
-        small = theory.simulate_quadratic(*args, reps=LEMMA1_CPU_REPS,
-                                          seed=1, device=dev)
-        t = time.perf_counter()
-        small_cpu = theory.simulate_quadratic(*args, reps=LEMMA1_CPU_REPS,
-                                              seed=1, device="cpu")
-        cpu_s = time.perf_counter() - t
+    for row, secs, twin, twin_cpu, s_cpu in zip(sims, card_s, twins,
+                                                twins_cpu, cpu_s):
+        z, small, small_cpu = row["zeta"], twin["simulated"], \
+            twin_cpu["simulated"]
         check(_close(small, small_cpu, 1e-4),
               f"simulate_quadratic zeta={z}: card {small} against CPU "
               f"{small_cpu}")
-        rel = abs(sim - pred) / pred
         if z in LEMMA1_GATED:
-            check(rel < 0.15, f"Lemma 1 zeta={z}: simulated {sim}, "
-                              f"closed form {pred}")
-        lemma.append(dict(zeta=z, lemma1=pred, simulated=sim, rel_err=rel,
-                          card_s=card_s, cpu_twin=small_cpu,
-                          card_twin=small, cpu_twin_s=cpu_s))
+            check(row["rel_err"] < 0.15,
+                  f"Lemma 1 zeta={z}: simulated {row['simulated']}, "
+                  f"closed form {row['lemma1']}")
+        lemma.append(dict(row, card_s=secs, cpu_twin=small_cpu,
+                          card_twin=small, cpu_twin_s=s_cpu))
     return {"phase": "paper_cnn", "config": dataclasses.asdict(cfg),
             "params": p_width, "steps": steps, "eval_every": CNN_EVERY,
             "data": dict(train=CNN_TRAIN, test=CNN_TEST, noise=CNN_NOISE,
@@ -1303,11 +1417,123 @@ def phase_paper_cnn(cx) -> dict:
             "cuda_vs_cpu": parity, "kernels_at_cnn_shape": kernels,
             "plain_calls_on_card": card_plain, "conv_gradients": conv_grads,
             "fig3": fig3,
-            "theory": dict(config=dataclasses.asdict(q), steps=LEMMA1_STEPS,
+            "run_cnn_s": run_cnn_s,
+            "theory": dict(config=dataclasses.asdict(q), steps=lemma1.STEPS,
                            reps=cx.lemma_reps, cpu_twin_reps=LEMMA1_CPU_REPS,
                            cuda_vs_cpu="rtol 1e-4", gated_zetas=LEMMA1_GATED,
                            gate="rel 0.15", rows=lemma),
             "wall_s": time.perf_counter() - t_ph}
+
+
+# ---- phase 10 (b): Figure 1 and the quartic --------------------------------
+#: phase 10 (b)'s budget, printed before it starts; bench_fig1_pca.run's
+#: config and phase lengths; bench_quartic.run's fractions (QuarticConfig:
+#: the paper's 24 workers, 10,000 steps)
+NONCONVEX_BUDGET_S = 15.0
+FIG1_PCA = dict(num_workers=24, num_samples=4000, alpha=0.02)
+FIG1_LENS = (0, 2000, 500, 100, 25, 5)
+QUARTIC_FRACS = (0.0, 0.001, 0.01, 0.1)
+#: the card against the CPU on the same draws: Figure 1's PC errors (float64
+#: on both; norms and means summed in other orders) at rtol FIG1_RTOL; the
+#: quartic's objectives at rtol QUARTIC_RTOL: 10,000 float32 steps whose
+#: 24-worker means are summed in other orders, and (w̄² - 1)² near w̄ = ±1
+#: multiplies w̄'s relative error by 4 w̄² / |w̄² - 1| (about 100 at the
+#: 1% and 10% points)
+FIG1_RTOL, QUARTIC_RTOL = 1e-9, 1e-3
+
+
+def kernel_launches(fn) -> tuple:
+    """(``fn()``, the kernels the card ran for it, and its other device
+    events: copies and fills), counted by one run under ``torch.profiler``
+    with only the CUDA activity. The profiler's raw events are read: its
+    ``events()`` builds a Python object for each, some 0.1 ms apiece, which
+    at these runs' 10^4-10^5 kernels would take longer than the runs."""
+    import torch
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    other = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    return out, len(names) - other, other
+
+
+def phase_paper_nonconvex(cx) -> dict:
+    """Phase 10 (b): Figure 1 (Oja's rule) and the §2.4 quartic through
+    ``repro_torch.experiments`` at ``bench_fig1_pca.run``'s and
+    ``bench_quartic.run``'s sizes on the card, each against the port's
+    CPU run of the same draws: wall seconds on both, and the kernels a
+    run on the card (one more run, under the profiler)."""
+    from repro_torch import rng
+    from repro_torch.configs.paper import PCAConfig, QuarticConfig
+    from repro_torch.experiments import fig1_pca, quartic
+
+    emit({"phase": "paper_nonconvex", "budget_s": NONCONVEX_BUDGET_S})
+    t_ph = time.perf_counter()
+    dev = cx.dev
+
+    def timed(fn):
+        cx.sync()
+        t = time.perf_counter()
+        out = fn()
+        cx.sync()
+        return out, time.perf_counter() - t
+
+    pca = PCAConfig(**FIG1_PCA)
+
+    def fig1(device):
+        return fig1_pca.pca_error_vs_avg_steps(pca, FIG1_LENS,
+                                               device=device)
+    rows, card_s = timed(lambda: fig1(dev))
+    rows_cpu, cpu_s = timed(lambda: fig1("cpu"))
+    for key in ("phase_len", "num_avg_steps"):
+        check([r[key] for r in rows] == [r[key] for r in rows_cpu],
+              f"fig1 {key}: card {rows}, CPU {rows_cpu}")
+    errs = [abs(a["pc_error"] - b["pc_error"]) / abs(b["pc_error"])
+            for a, b in zip(rows, rows_cpu)]
+    check(max(errs) <= FIG1_RTOL, f"fig1 PC errors: card {rows}, CPU "
+                                  f"{rows_cpu}")
+    _, launches, other = kernel_launches(lambda: fig1(dev))
+    fig1_out = dict(config=FIG1_PCA, phase_lens=FIG1_LENS, rows=rows,
+                    card_s=card_s, cpu_s=cpu_s, pc_error_max_rel_err=errs,
+                    launches_a_run=launches or None,
+                    other_device_events_a_run=other,
+                    oneshot_worst=rows[0]["pc_error"]
+                    >= max(r["pc_error"] for r in rows[1:]))
+
+    q = QuarticConfig()
+    u = rng.normal(rng.PRNGKey(0), (q.num_steps, q.num_workers), device=dev)
+    rows, card_s = timed(lambda: quartic.run_quartic(q, QUARTIC_FRACS,
+                                                     device=dev))
+    # the CPU on the card's own draw of u (run_quartic draws the same)
+    rows_cpu, cpu_s = timed(lambda: quartic.run_quartic(
+        q, QUARTIC_FRACS, device="cpu", u=u.cpu().numpy()))
+    errs = [abs(a["objective"] - b["objective"]) / abs(b["objective"])
+            for a, b in zip(rows, rows_cpu)]
+    check([r["avg_frac"] for r in rows] == list(QUARTIC_FRACS)
+          and max(errs) <= QUARTIC_RTOL,
+          f"quartic: card {rows}, CPU {rows_cpu}")
+    _, launches, other = kernel_launches(lambda: quartic.run_quartic(
+        q, QUARTIC_FRACS, device=dev))
+    quartic_out = dict(config=dataclasses.asdict(q), rows=rows,
+                       card_s=card_s, cpu_s=cpu_s,
+                       objective_max_rel_err=errs,
+                       launches_a_run=launches or None,
+                       other_device_events_a_run=other,
+                       paper={"oneshot": 0.922, "0.001": 0.274,
+                              "0.1": 0.011})
+    wall = time.perf_counter() - t_ph
+    return {"phase": "paper_nonconvex", "budget_s": NONCONVEX_BUDGET_S,
+            "fig1_pca": fig1_out, "quartic": quartic_out,
+            "tolerance": f"card vs CPU on the same draws: PC errors rtol "
+                         f"{FIG1_RTOL}, quartic objectives rtol "
+                         f"{QUARTIC_RTOL}",
+            "launches": "kernels of one more run on the card, read from "
+                        "torch.profiler's raw events (null: the profiler "
+                        "saw none)",
+            "wall_s": wall, "within_budget": wall <= NONCONVEX_BUDGET_S}
 
 
 # ---- phase 11: the sharded plane ------------------------------------------
@@ -3219,96 +3445,10 @@ def main() -> None:
           "wall_s": time.perf_counter() - t_phase, "card": smi})
 
     # ---- 5. the paper's §3.1 convex suite at full size ---------------------
-    from repro_torch import rng
-    from repro_torch.core.variance_model import (empirical_variance_fn,
-                                                 measure_beta2, rho)
-    from repro_torch.models.convex import full_gradient, solve_optimum
-
     t_suite = time.perf_counter()
-    # name: (schedule, avg_disp launches, events); the minibatch schedule
-    # fuses its event into opt_step
-    curves = {"oneshot": (AveragingSchedule("oneshot"), 0, 0),
-              "minibatch": (AveragingSchedule("minibatch"), 0, SUITE_STEPS),
-              f"periodic_{SUITE_STEPS // 2}": (
-                  AveragingSchedule("periodic", phase_len=SUITE_STEPS // 2),
-                  2, 2),
-              f"periodic_{SUITE_STEPS}": (AveragingSchedule(
-                  "periodic", phase_len=SUITE_STEPS), 1, 1)}
-    suite = {}
-    for c in CONVEX_SUITE:
-        X, y, _ = convex_dataset(c.model, c.num_samples, c.num_dims,
-                                 sparsity=c.sparsity, noise=c.noise, seed=0)
-        Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
-        obj = make_problem(c.model)[0]
-        w0 = torch.zeros(c.num_dims, device=dev)
-        t0 = time.perf_counter()
-        w_star = solve_optimum(c.model, Xd, yd)
-        torch.cuda.synchronize(dev)
-        solve_ms = (time.perf_counter() - t0) * 1e3
-        g_ratio = float(torch.linalg.norm(full_gradient(c.model, w_star, Xd,
-                                                        yd))
-                        / torch.linalg.norm(full_gradient(c.model, w0, Xd,
-                                                          yd)))
-        check(g_ratio < 0.05, f"{c.name}: w* gradient ratio {g_ratio}")
-        f0, fstar = float(obj(w0, Xd, yd)), float(obj(w_star, Xd, yd))
-        check(fstar < f0, f"{c.name}: f* {fstar} not below f(0) {f0}")
-        var_fn = empirical_variance_fn(c.model, Xd, yd)
-        beta2, sigma2 = measure_beta2(var_fn, w_star, key=rng.PRNGKey(0))
-        rho_ = rho(beta2, sigma2, w0, w_star)
-        check(all(map(math.isfinite, (beta2, sigma2, rho_))) and beta2 > 0,
-              f"{c.name}: beta2 {beta2}, sigma2 {sigma2}, rho {rho_}")
-        # paired draws: worker w of every curve takes idx[:, w]
-        idx = np.random.default_rng(0).integers(
-            0, c.num_samples, (SUITE_STEPS, c.num_workers))
-        lr0 = SUITE_LR_MULT * SUITE_LR_D / float(np.mean(np.sum(X * X,
-                                                               axis=1)))
-        sgd = SGD(lr=lambda t: lr0 / (t - 1.0 + SUITE_LR_D))
-        span = max(f0 - fstar, 1e-12)
-
-        def evaluate(p):
-            return float(obj(p["w"], Xd, yd))
-
-        def curve(name, sched, m, launches, events, idx_m):
-            steps = SUITE_STEPS
-            eng = PhaseEngine(convex_loss(c.model), sgd, sched, device="cuda")
-            ds = DeviceDataset({"x": Xd, "y": yd}, m, indices=idx_m,
-                               device="cuda")
-            zero_counts()
-            final, hist = eng.run({"w": w0}, ds, num_workers=m, seed=0,
-                                  record_every=SUITE_EVERY, eval_fn=evaluate)
-            got = read_counts({"opt_step": steps, "avg_disp": launches},
-                              f"{c.name} {name}")
-            check(hist["averages"] == events,
-                  f"{c.name} {name}: {hist['averages']} events")
-            evals = [v for _, v in hist["eval"]]
-            check([t for t, _ in hist["eval"]]
-                  == list(range(SUITE_EVERY, steps + 1, SUITE_EVERY))
-                  and all(map(math.isfinite, evals)),
-                  f"{c.name} {name}: evals {hist['eval']}")
-            return final, hist, dict(
-                workers=m, events=hist["averages"],
-                event_steps=[t for t, _ in hist["dispersion"]][:8],
-                launches={k: got[k] for k in ("opt_step", "avg_disp")},
-                steady_step_ms=steady_step_ms(hist["phase_wall"]),
-                subopt=[(t, (v - fstar) / span) for t, v in hist["eval"]],
-                subopt_end=(evals[-1] - fstar) / span)
-
-        out = {}
-        for name, (sched, launches, events) in curves.items():
-            out[name] = curve(name, sched, c.num_workers, launches, events,
-                              idx)[2]
-            check(out[name]["subopt_end"] < 1.0,
-                  f"{c.name} {name}: no progress, {out[name]['subopt_end']}")
-        # the single worker: worker 0's draws, no averaging
-        out["single"] = curve("single", AveragingSchedule("oneshot"), 1, 0,
-                              0, idx[:, :1])[2]
-        suite[c.name] = dict(samples=c.num_samples, dims=c.num_dims,
-                             workers=c.num_workers, f0=f0, f_star=fstar,
-                             w_star_grad_ratio=g_ratio,
-                             solve_optimum_ms=solve_ms, sigma2=sigma2,
-                             beta2=beta2, rho=rho_, curves=out)
-        del Xd, yd, w_star
-        free()
+    suite = phase_convex_curves(SimpleNamespace(
+        dev=dev, zero_counts=zero_counts, read_counts=read_counts,
+        free=free, sync=lambda: torch.cuda.synchronize(dev)))
 
     # one config three ways over the same 256 steps: run over the
     # DeviceDataset (indexed), run over host numpy batches (staged by the
@@ -3377,10 +3517,14 @@ def main() -> None:
     emit({"phase": "convex_suite", "steps": SUITE_STEPS,
           "record_every": SUITE_EVERY, "lr_mult": SUITE_LR_MULT,
           "lr_d": SUITE_LR_D, "configs": suite,
+          "through": ["repro_torch.experiments.fig2_convex.sgd_curves",
+                      "repro_torch.experiments.table1.table1_row"],
           "indexed_staged_run_host": host_vs_run,
           "reduced": [f"{SUITE_STEPS} steps, not the paper's 3000",
                       "one point (0.8) of the reference's learning-rate "
-                      "grid (0.4, 0.8, 1.6, 3.0, 6.0)"],
+                      "grid (0.4, 0.8, 1.6, 3.0, 6.0)",
+                      "periodic at half and all of the steps, not 128 and "
+                      "1024"],
           "wall_s": time.perf_counter() - t_suite, "card": smi})
 
     # ---- 6. serving at full width (bf16, random weights) ------------------
@@ -3723,6 +3867,7 @@ def main() -> None:
     tp = time.perf_counter()
     # one paired curve: periodic 128 with and without the plan, the
     # objective every 64 steps, on one index list
+    from repro_torch.models.convex import solve_optimum
     w_star = solve_optimum("ls", Xd, yd)
     f0, fstar = objective(torch.zeros(c.num_dims)), objective(w_star)
     idx_c = np.random.default_rng(0).integers(0, c.num_samples,
@@ -3975,6 +4120,7 @@ def main() -> None:
 
     # ---- 10. the paper's §3.2 CNN, and the theory ---------------------------
     emit(dict(phase_paper_cnn(cx), card=smi))
+    emit(dict(phase_paper_nonconvex(cx), card=smi))
 
     # ---- 11. the sharded plane ---------------------------------------------
     cx.add_counts = add_counts

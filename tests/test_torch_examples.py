@@ -12,6 +12,16 @@ not edited: a test sets ``STEPS`` on the loaded module and wraps its
   CNN parity tolerance of ``test_torch_cnn.py`` (rtol 1e-3 / atol 5e-4),
   the checkpoint round trip bitwise;
 - ``serve_lm_torch.py``: each arch's ``[serve]`` lines and tokens;
+- ``nonconvex_pca_torch.py`` against ``nonconvex_pca.py``, both with the
+  quartic at 400 steps and Oja's rule at 8 workers x 500 samples (their
+  config classes wrapped): the quartic's objectives at rtol 1e-5 and the
+  PC errors at rtol 1e-12 (``test_torch_experiments.py``), the same
+  averaging counts and printed lines;
+- ``convex_averaging_torch.py`` against ``convex_averaging.py``, both on
+  64 x 8 datasets (``convex_dataset`` wrapped; ``rho``'s zero start cut
+  to the 8 dims) and the grid at 40 steps, 4 workers and its first
+  rate (0.8): σ², β² and ρ at rtol 1e-4 and the curves at atol 5e-6
+  (``test_torch_experiments.py``), the same printed names;
 - each refuses to start without CUDA unless ``--device cpu``.
 """
 import importlib.util
@@ -27,12 +37,17 @@ from repro_torch.core.flat import tree_flatten  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS = 20
+#: the experiments' tolerances (``test_torch_experiments.py``)
+QUARTIC_RTOL, TABLE1_RTOL, SUBOPT_ATOL = 1e-5, 1e-4, 5e-6
 #: test_torch_engine.py's SMOLLM_TOL (losses) and test_torch_cnn.py's TOL
 LOSS_RTOL = 2e-5
 CNN_TOL = dict(rtol=1e-3, atol=5e-4)
 
 
 def _load(name: str, alias: str):
+    # the reference's paper examples import ``benchmarks``
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
     spec = importlib.util.spec_from_file_location(
         alias, ROOT / "examples" / name)
     mod = importlib.util.module_from_spec(spec)
@@ -196,8 +211,103 @@ def test_serve_example_serves_each_arch(served, arch):
     assert ids in out
 
 
+def _keep_returns(mod, *names) -> dict:
+    """Wrap the loaded module's functions ``names`` so that each one's
+    last return is kept."""
+    kept = {}
+    for name in names:
+        def keep(*a, _fn=getattr(mod, name), _name=name, **k):
+            kept[_name] = out = _fn(*a, **k)
+            return out
+        setattr(mod, name, keep)
+    return kept
+
+
+def _run_pair(port_name, ref_name, shrink, *names):
+    """Both examples with ``shrink(module)`` applied and ``names`` kept:
+    ((kept, printed) of the port, of the reference)."""
+    import contextlib
+    import io
+    out = []
+    for name, argv in ((port_name, ["--device", "cpu"]), (ref_name, None)):
+        mod = _load(name, name.removesuffix(".py") + "_t")
+        shrink(mod)
+        kept = _keep_returns(mod, *names)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main(*([argv] if argv else []))
+        out.append((kept, buf.getvalue().splitlines()))
+    return out
+
+
+@pytest.fixture(scope="module")
+def nonconvex(_one_thread):
+    def shrink(mod):
+        quartic, pca = mod.QuarticConfig, mod.PCAConfig
+        mod.QuarticConfig = lambda: quartic(num_steps=400)
+        mod.PCAConfig = lambda **k: pca(**dict(k, num_workers=8,
+                                               num_samples=500))
+    return _run_pair("nonconvex_pca_torch.py", "nonconvex_pca.py", shrink,
+                     "run_quartic", "pca_error_vs_avg_steps")
+
+
+def test_nonconvex_example_matches_reference(nonconvex):
+    (got, out_p), (want, out_r) = nonconvex
+    q_p, q_r = got["run_quartic"], want["run_quartic"]
+    assert [r["avg_frac"] for r in q_p] == [r["avg_frac"] for r in q_r]
+    np.testing.assert_allclose([r["objective"] for r in q_p],
+                               [r["objective"] for r in q_r],
+                               rtol=QUARTIC_RTOL)
+    p_p, p_r = got["pca_error_vs_avg_steps"], want["pca_error_vs_avg_steps"]
+    for key in ("phase_len", "num_avg_steps"):
+        assert [r[key] for r in p_p] == [r[key] for r in p_r]
+    np.testing.assert_allclose([r["pc_error"] for r in p_p],
+                               [r["pc_error"] for r in p_r], rtol=1e-12)
+    assert out_p == out_r
+
+
+@pytest.fixture(scope="module")
+def convex(_one_thread):
+    n, d = 64, 8
+
+    def shrink(mod):
+        dataset, rho, grid = mod.convex_dataset, mod.rho, mod.grid_curves
+        mod.convex_dataset = lambda kind, num, dim, **k: dataset(kind, n, d,
+                                                                 **k)
+        # the examples' zero start has the full 128 dims
+        mod.rho = lambda b2, s2, w0, ws: rho(b2, s2, w0[:d], ws)
+        # the example's first rate (the grid's minimum over rates is held
+        # in test_torch_experiments.py)
+        mod.grid_curves = lambda kind, X, y, **k: grid(
+            kind, X, y, **dict(k, steps=40, workers=4,
+                               lr_mults=k["lr_mults"][:1]))
+    return _run_pair("convex_averaging_torch.py", "convex_averaging.py",
+                     shrink, "measure_beta2", "rho", "grid_curves")
+
+
+def test_convex_example_matches_reference(convex):
+    (got, out_p), (want, out_r) = convex
+    np.testing.assert_allclose(got["measure_beta2"],
+                               [float(v) for v in want["measure_beta2"]],
+                               rtol=TABLE1_RTOL)
+    np.testing.assert_allclose(got["rho"], float(want["rho"]),
+                               rtol=TABLE1_RTOL)
+    c_p, c_r = got["grid_curves"], want["grid_curves"]
+    assert list(c_p) == list(c_r) == ["oneshot", "periodic_128", "single"]
+    for name in c_r:
+        assert [t for t, _ in c_p[name]] == [t for t, _ in c_r[name]]
+        np.testing.assert_allclose([v for _, v in c_p[name]],
+                                   [v for _, v in c_r[name]], rtol=0,
+                                   atol=SUBOPT_ATOL)
+    # the names and the closing line; the numbers are held above
+    assert [ln.split()[0] for ln in out_p] == [ln.split()[0] for ln in out_r]
+    assert out_p[-1] == out_r[-1]
+
+
 @pytest.mark.parametrize("name", ["quickstart_torch.py", "serve_lm_torch.py",
-                                  "train_cnn_e2e_torch.py"])
+                                  "train_cnn_e2e_torch.py",
+                                  "convex_averaging_torch.py",
+                                  "nonconvex_pca_torch.py"])
 def test_example_refuses_missing_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
